@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA card.
 
     python3 chip_smoke.py [--record PATH]
 
@@ -9,20 +9,43 @@ raises on failure and the script then exits non-zero; with no card, or
 without the repository beside it, it exits non-zero before printing any
 result.
 
-Phases:
+Phases, in the order they run:
   0. the card's name and power limit (nvidia-smi) and the kernel build;
-  2. the main path, with every kernel's launch count set to 0 just before
-     and read just after: each accelerator layer C2-C12 of ResNet-18's
-     Table 1 at its published shape as a one-layer Program (three
-     requests each), the layer2.0 residual block (C4 -> C6, C5 shortcut,
-     host residual add with relu), the C2 heterogeneous chain (cpu_only
-     112x112x3 -> 64 stem, C2 body, 64-channel 1x1), and one 2^16-element
-     vector ALU op.  Every output is held byte-equal to the port's numpy
-     conv2d_reference, with zero eager GEMMs.  After it, the cost of the
-     exact weight-content keys and a torch.profiler view of one request;
-  1. each kernel against its plain PyTorch version, on the card, at every
-     shape the main path launched plus ragged shapes and every epilogue,
-     with CUDA-event times beside the least time the card could take;
+  2. the first main path, with every kernel's launch count set to 0 just
+     before and read just after: each accelerator layer C2-C12 of
+     ResNet-18's Table 1 at its published shape as a one-layer Program
+     (three requests each), the layer2.0 residual block (C4 -> C6, C5
+     shortcut, host residual add with relu), the C2 heterogeneous chain
+     (cpu_only 112x112x3 -> 64 stem, C2 body, 64-channel 1x1), and one
+     2^16-element vector ALU op.  Every output is held byte-equal to the
+     port's numpy conv2d_reference, with zero eager GEMMs.  After it, the
+     cost of the exact weight-content keys and a torch.profiler view of
+     one request;
+  5. the second main path, with the counts set to 0 just before it and
+     read just after: the quantized decoder (serve_lm.py's defaults:
+     d_model 64, 2 blocks, 2 heads, d_ff 128, vocab 32, s_max 96) on
+     int4 weights (hwspec.lowbit(4), every matmul through lut_gemm) with
+     attention="kernel" (decode_attention), served through
+     DevicePool(size=2): 4 dialogues x 64 greedy steps, each equal to the
+     port's DecoderReference run on the card, with no DRAM allocation
+     after warm-up; then the int8 spec with numpy attention (4 x 24
+     steps, read on its own);
+  6. the int4 decoder through the Scheduler (byte-equal to serial runs)
+     and under one seeded FaultPlan (a kill and a bit-flip with respawn,
+     checkpoints and integrity CRCs: the fired log matches the plan, the
+     loss is typed, survivors are byte-equal to serial runs); VtaLinear at
+     bits 4 and 2 and a 1-bit Program, cuda against simulator; the device
+     idle share of one profiled int4 decode step;
+  1. vta_gemm and tensor_alu against their plain PyTorch versions, on the
+     card, at every shape the first main path launched plus ragged shapes
+     and every epilogue, with CUDA-event times beside the least time the
+     card could take; and at every shape phases 5 and 6 launched (the
+     int8 decoder's 1-2 row GEMMs, the decoders' epilogues), checked but
+     not timed;
+  7. lut_gemm and decode_attention the same way, at every decode-path
+     shape (timed), every other shape phases 5 and 6 launched (checked)
+     and at Llama-3.2-3B's decode shapes (src/repro/configs/llama32_3b.py);
+     decode_attention in bfloat16 within 2^-6 * max|want|;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -76,26 +99,38 @@ def cuda_time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def kernel_ms(fn, kernel_name, reps=20):
+#: profiler windows that saw none of their kernels and were taken again
+PROFILER_RETRIES = []
+
+
+def kernel_ms(fn, kernel_name, reps=20, attempts=3):
     """Mean device time of the CUDA kernels named `kernel_name` per call
-    of fn(), from torch.profiler.  Fails when the profiler saw none: a
-    launched kernel it cannot see is a fault, not a time."""
+    of fn(), from torch.profiler.  A window in which the profiler saw none
+    of them (its activity records can go missing) is taken again, up to
+    `attempts` windows in all, and every retry is recorded; when no window
+    sees them the script fails: a launched kernel it cannot see is a
+    fault, not a time, and no other clock stands in."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for ev in prof.key_averages():
-        if kernel_name in ev.key:
-            total_us += getattr(ev, "device_time_total",
-                                getattr(ev, "cuda_time_total", 0.0))
-    if total_us <= 0:
-        fail(f"torch.profiler saw no device time for {kernel_name}")
-    return total_us / reps / 1e3
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us = 0.0
+        for ev in prof.key_averages():
+            if kernel_name in ev.key:
+                total_us += getattr(ev, "device_time_total",
+                                    getattr(ev, "cuda_time_total", 0.0))
+        if total_us > 0:
+            return total_us / reps / 1e3
+        PROFILER_RETRIES.append(kernel_name)
+        log(f"  torch.profiler saw no {kernel_name} in window "
+            f"{attempt + 1} of {attempts}")
+    fail(f"torch.profiler saw no device time for {kernel_name} in "
+         f"{attempts} windows")
 
 
 # ----------------------------------------------------------------------
@@ -528,7 +563,8 @@ def phase_alu_kernel(rec, main_shapes):
                                           dtype=np.int64)
                              .astype(np.int32)).to(dev)
         src = rng.integers(-40, 40, shape, dtype=np.int32)
-        src.reshape(-1)[:len(edge)] = edge
+        n_edge = min(len(edge), src.size)
+        src.reshape(-1)[:n_edge] = edge[:n_edge]
         s = torch.from_numpy(src).to(dev)
         uses_src = any(imm is None for _, imm in chain)
         s_arg = s if uses_src else None
@@ -594,6 +630,512 @@ def phase_engines(rec):
                                    for r in report.runs])
     log("  GOLDEN matmul stream: simulator and cuda DRAM images byte-equal "
         f"on {report.runs[1].device.torch_device}")
+
+
+# ----------------------------------------------------------------------
+# phases 5-9: the quantized decoder served (the second main path)
+# ----------------------------------------------------------------------
+DECODE_STEPS = 64
+DECODE_STEPS_INT8 = 24
+PROMPTS = [7 * i + 3 for i in range(4)]      # examples/serve_lm.py
+
+
+def greedy_reference(dec, prompt, steps):
+    """The port's eager DecoderReference, greedy: attention on the
+    decoder's device (the card), matmuls through the integer oracle."""
+    import numpy as np
+    ref, tok, out = dec.reference(), prompt, []
+    for _ in range(steps):
+        tok = int(np.argmax(ref.step(dec.token(tok))))
+        out.append(tok)
+    return out
+
+
+def serve_dialogues(pool, dec, steps):
+    """Lockstep greedy decode of one session per prompt.  Returns (tokens
+    per dialogue, per-step wall ms of every session's request, total s,
+    the RunStats of every request)."""
+    import numpy as np
+    sess = [pool.session() for _ in PROMPTS]
+    toks, out = list(PROMPTS), [[] for _ in PROMPTS]
+    step_ms, stats = [], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sub = time.perf_counter()
+        futs = [s.submit(x=dec.token(t)) for s, t in zip(sess, toks)]
+        for i, f in enumerate(futs):
+            logits = f.wait(timeout=300)
+            step_ms.append((time.perf_counter() - sub) * 1e3)
+            stats.extend(f.stats)
+            toks[i] = int(np.argmax(logits))
+            out[i].append(toks[i])
+    return out, step_ms, time.perf_counter() - t0, stats
+
+
+def phase_decode_int4(rec, counters):
+    """The int4 decoder with kernel attention, at serve_lm.py's defaults,
+    through DevicePool(size=2) on the cuda engine: 4 dialogues x 64 greedy
+    steps, each equal to the eager reference run on the card.  The
+    kernels' counts are set to 0 just before the pool serves and read
+    just after (the reference's own launches come before)."""
+    from repro_torch.core import hwspec
+    from repro_torch.core.serve import DevicePool
+    from repro_torch.models.vta_decoder import DecoderConfig, QuantDecoder
+    dec = QuantDecoder(DecoderConfig(), spec=hwspec.lowbit(4),
+                       attention="kernel", torch_device=DEVICE)
+    c = dec.compile(use_cache=False)
+    want = [greedy_reference(dec, p, DECODE_STEPS) for p in PROMPTS]
+    with DevicePool(c, size=2, backend="cuda") as pool:
+        # warm-up round on a throwaway session, then the allocation mark
+        pool.session().submit(x=dec.token(0)).wait(timeout=300)
+        marks = [s.device.dram._next for s in pool.slots]
+        counters.reset()
+        toks, step_ms, total_s, stats = serve_dialogues(pool, dec,
+                                                        DECODE_STEPS)
+        launches = counters.read()
+        grown = [s.device.dram._next - m for s, m in zip(pool.slots, marks)]
+        gangs = sum(s.ganged_steps for s in pool.slot_stats())
+    for i, (got, ref) in enumerate(zip(toks, want)):
+        if got != ref:
+            fail(f"int4 dialogue {i} diverged from the eager reference: "
+                 f"{got} vs {ref}")
+    if any(grown):
+        fail(f"a pool slot allocated DRAM after warm-up: {grown}")
+    lut_runs = sum(s.lut_launches for s in stats)
+    for k in ("lut_gemm", "decode_attention"):
+        if launches[k] <= 0:
+            fail(f"{k} was never launched on the decode path")
+    if lut_runs <= 0:
+        fail("RunStats.lut_launches is 0 on the int4 decode path")
+    n = len(PROMPTS) * DECODE_STEPS
+    out = dict(spec="lowbit(4)", attention="kernel", pool=2,
+               sessions=len(PROMPTS), steps=DECODE_STEPS, tokens=toks,
+               step_ms_median=statistics.median(step_ms),
+               step_ms_p90=sorted(step_ms)[int(0.9 * len(step_ms))],
+               steps_per_s=n / total_s, total_s=total_s,
+               launches=launches,
+               launches_per_step={k: v / n for k, v in launches.items()},
+               runstats_lut_launches=lut_runs, ganged_steps=gangs,
+               dram_growth=grown, persistent_bytes=c.persistent_bytes,
+               describe=c.describe())
+    rec["decode_int4"] = out
+    log(f"  int4 decoder, kernel attention, pool 2: {len(PROMPTS)} "
+        f"dialogues x {DECODE_STEPS} steps equal the reference on the card")
+    log(f"    step latency median {out['step_ms_median']:.2f} ms (p90 "
+        f"{out['step_ms_p90']:.2f}), {out['steps_per_s']:.1f} steps/s "
+        f"aggregate, {gangs} ganged segments, DRAM growth {grown}")
+    log("    launches per step: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["launches_per_step"].items())
+        + f"; RunStats.lut_launches {lut_runs}")
+    return dec, c
+
+
+def phase_decode_int8(rec, counters):
+    """The same decoder on the int8 pynq spec with numpy attention:
+    4 dialogues x 24 steps through DevicePool(size=2)."""
+    from repro_torch.core import hwspec
+    from repro_torch.core.serve import DevicePool
+    from repro_torch.models.vta_decoder import DecoderConfig, QuantDecoder
+    dec = QuantDecoder(DecoderConfig(), spec=hwspec.pynq(),
+                       attention="numpy", torch_device=DEVICE)
+    c = dec.compile(use_cache=False)
+    want = [greedy_reference(dec, p, DECODE_STEPS_INT8) for p in PROMPTS]
+    with DevicePool(c, size=2, backend="cuda") as pool:
+        counters.reset()
+        toks, step_ms, total_s, stats = serve_dialogues(pool, dec,
+                                                        DECODE_STEPS_INT8)
+        launches = counters.read()
+    for i, (got, ref) in enumerate(zip(toks, want)):
+        if got != ref:
+            fail(f"int8 dialogue {i} diverged from the reference")
+    if sum(s.lut_launches for s in stats) != 0:
+        fail("an int8 spec went through lut_gemm")
+    n = len(PROMPTS) * DECODE_STEPS_INT8
+    rec["decode_int8"] = dict(spec="pynq", attention="numpy", pool=2,
+                              steps=DECODE_STEPS_INT8, tokens=toks,
+                              step_ms_median=statistics.median(step_ms),
+                              steps_per_s=n / total_s, launches=launches)
+    log(f"  int8 decoder, numpy attention: {len(PROMPTS)} x "
+        f"{DECODE_STEPS_INT8} steps equal the reference; step median "
+        f"{statistics.median(step_ms):.2f} ms, {n / total_s:.1f} steps/s; "
+        f"launches {launches}")
+
+
+def serial_logits(c, dec, feeds_per_session):
+    """Fault-free serial oracle: each session's feeds run in order on a
+    fresh trimmed clone of the staged image."""
+    out = []
+    for feeds in feeds_per_session:
+        dev = c.device.clone(trim=True)
+        out.append([c.run_on(dev, backend="cuda", inputs={"x": x}).outputs
+                    for x in feeds])
+    return out
+
+
+def phase_sched(rec, dec, c):
+    """The int4 decoder through the continuous-batching Scheduler: 4
+    SchedSessions x 8 steps, byte-equal to serial runs."""
+    import numpy as np
+    from repro_torch.core.sched import SchedConfig, Scheduler
+    from repro_torch.core.serve import DevicePool
+    feeds = [[dec.token(p + 5 * t) for t in range(8)] for p in PROMPTS]
+    serial = serial_logits(c, dec, feeds)
+    with DevicePool(c, size=2, backend="cuda") as pool:
+        sched = Scheduler(pool, SchedConfig(window_us=2000.0))
+        try:
+            sess = [sched.session() for _ in PROMPTS]
+            got = [[] for _ in PROMPTS]
+            t0 = time.perf_counter()
+            for t in range(8):
+                futs = [s.submit(x=f[t]) for s, f in zip(sess, feeds)]
+                for i, fu in enumerate(futs):
+                    got[i].append(fu.wait(timeout=300))
+            wall = time.perf_counter() - t0
+            width = sched.describe().splitlines()[0]
+        finally:
+            sched.close()
+    for i in range(len(PROMPTS)):
+        for t in range(8):
+            if not np.array_equal(got[i][t], serial[i][t]):
+                fail(f"Scheduler session {i} step {t} differs from serial")
+    rec["sched"] = dict(sessions=len(PROMPTS), steps=8, wall_s=wall,
+                        describe=width)
+    log(f"  Scheduler: {len(PROMPTS)} sessions x 8 steps byte-equal to "
+        f"serial in {wall:.2f} s ({width})")
+
+
+def phase_chaos(rec, dec, c):
+    """One seeded FaultPlan on the int4 pool: a constant bit-flip at gang
+    3 and a kill of slot 0 at gang 31 (after its step-4 checkpoint), with
+    max_respawns=1, checkpoint_every=4, integrity=True.  The fired log
+    matches the plan, the loss is typed, and every dialogue (the
+    interrupted step submitted again) is byte-equal to fault-free serial
+    runs."""
+    import numpy as np
+    from repro_torch.core.chaos import Fault, FaultPlan
+    from repro_torch.core.serve import DevicePool, SlotDied
+    plan = FaultPlan(faults=[Fault(kind="flip", gang=3, slot=1, byte=12345),
+                             Fault(kind="kill", gang=31, slot=0)])
+    feeds = [[dec.token(t + 11 * i) for t in range(8)] for i in range(2)]
+    serial = serial_logits(c, dec, feeds)
+    losses = []
+    with DevicePool(c, size=2, backend="cuda", max_respawns=1,
+                    checkpoint_every=4, integrity=True,
+                    fault_plan=plan) as pool:
+        sess = [pool.session(slot=i) for i in range(2)]
+        got = [[], []]
+        for t in range(8):
+            futs = [s.submit(x=f[t]) for s, f in zip(sess, feeds)]
+            for i, fu in enumerate(futs):
+                try:
+                    got[i].append(fu.wait(timeout=300))
+                except SlotDied as e:
+                    losses.append(dict(session=i, step=t,
+                                       error=type(e).__name__))
+                    got[i].append(sess[i].submit(x=feeds[i][t])
+                                  .wait(timeout=300))
+        restores = [(s.stats.restores, s.stats.restored_from_step)
+                    for s in sess]
+        restages = sum(s.stats.integrity_restages for s in pool.slots)
+        respawns = sum(s.stats.respawns for s in pool.slots)
+    fired = [(e["kind"], e["gang"], e["slot"]) for e in plan.fired]
+    if fired != [("flip", 3, 1), ("kill", 31, 0)]:
+        fail(f"fired log {fired} does not match the plan")
+    if losses != [dict(session=0, step=4, error="SlotDied")]:
+        fail(f"unexpected losses {losses}")
+    if restages < 1 or respawns != 1 or restores[0] != (1, 4):
+        fail(f"recovery counters: restages {restages}, respawns "
+             f"{respawns}, restores {restores}")
+    for i in range(2):
+        for t in range(8):
+            if not np.array_equal(got[i][t], serial[i][t]):
+                fail(f"chaos dialogue {i} step {t} differs from serial")
+    rec["chaos"] = dict(fired=plan.fired, losses=losses, restores=restores,
+                        restages=restages, respawns=respawns)
+    log(f"  chaos: fired {fired}; losses {losses}; restores {restores}; "
+        f"{restages} restage(s), {respawns} respawn(s); survivors "
+        f"byte-equal to serial")
+
+
+def phase_vta_linear(rec):
+    """VtaLinear at test_lowbit.py's shape (96 -> 80), one 2-row call,
+    bits 4 and 2, byte-equal between the cuda and simulator engines on the
+    card; 1-bit weights (which VtaLinear cannot calibrate: int1 has no
+    positive level) through a one-matmul Program at the same shape."""
+    import numpy as np
+    from repro_torch.core import hwspec
+    from repro_torch.core.program import Program
+    from repro_torch.core.scheduler import Epilogue
+    from repro_torch.models.quantized import VtaLinear
+    rng = np.random.default_rng(7)
+    w = rng.normal(size=(96, 80)).astype(np.float32) * 0.1
+    x = rng.normal(size=(2, 96)).astype(np.float32)
+    rows = {}
+    for bits in (4, 2):
+        lin = VtaLinear(w, bits=bits, torch_device=DEVICE)
+        y_cuda = lin(x, backend="cuda")
+        luts = sum(s.lut_launches for s in
+                   next(iter(lin._programs.values())).last_stats)
+        y_sim = lin(x, backend="simulator")
+        if not np.array_equal(y_cuda, y_sim) or luts <= 0:
+            fail(f"VtaLinear bits={bits}: engines differ or no LUT launch")
+        rows[bits] = dict(lut_launches=luts,
+                          max_abs_vs_float=float(np.abs(y_cuda - x @ w)
+                                                 .max()))
+    w1 = rng.integers(-1, 1, size=(80, 96), dtype=np.int8)
+    x1 = rng.integers(-128, 128, size=(2, 96), dtype=np.int8)
+    p = Program(hwspec.lowbit(1))
+    p.output(p.matmul(p.input("x", (2, 96)), p.constant("w", w1),
+                      epilogue=Epilogue(shift=3)))
+    c1 = p.compile(use_cache=False, torch_device=DEVICE)
+    y1 = c1(backend="cuda", x=x1)
+    luts1 = sum(s.lut_launches for s in c1.last_stats)
+    if not np.array_equal(y1, c1(backend="simulator", x=x1)) or luts1 <= 0:
+        fail("1-bit program: engines differ or no LUT launch")
+    rows[1] = dict(lut_launches=luts1, program="one matmul")
+    rec["vta_linear"] = rows
+    log(f"  VtaLinear 96->80 x2 rows, bits 4 and 2, and a 1-bit Program: "
+        f"cuda == simulator on the card ({rows})")
+
+
+def decode_step_profile(rec, dec, c):
+    """Device idle share of one profiled int4 decode step (serial, after
+    a warm one): device busy time over the profiled wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    x = dec.token(1)
+    c(x=x)
+    t0 = time.perf_counter()
+    c(x=x)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        c(x=x)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if t > 0 and e.device_type == DeviceType.CUDA:
+            kernels[e.key] = t / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    rec["decode_profile"] = dict(step_ms=plain_ms, profiled_ms=wall_ms,
+                                 device_busy_ms=dev_ms,
+                                 idle_share=1 - dev_ms / wall_ms,
+                                 top_device_ms=top)
+    log(f"  profile of one int4 decode step: {plain_ms:.2f} ms "
+        f"({wall_ms:.2f} ms profiled); device busy {dev_ms:.3f} ms -> idle "
+        f"share {1 - dev_ms / wall_ms:.4f}")
+
+
+# ----------------------------------------------------------------------
+# phase 1 (continued): the decode-path kernels against plain versions
+# ----------------------------------------------------------------------
+LLAMA32_3B = dict(HQ=24, KH=8, D=128, d_model=3072, d_ff=8192)
+
+
+def lut_bound_ms(T, M, N, K, epilogue):
+    nbytes = T * (M * K + N * K + M * N * (4 if epilogue == "none" else 1))
+    ops = 2 * T * M * N * K
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT8_TENSOR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_lut_kernel(rec, main_shapes):
+    import numpy as np
+    import torch
+    from repro_torch.kernels.lut_gemm import lut_gemm, lut_gemm_ref
+    dev = torch.device("cuda")
+    cases = list(main_shapes.items())
+    extra = [((1, m, LLAMA32_3B["d_ff"], LLAMA32_3B["d_model"], bits, 4,
+               "none", 0), -1)
+             for m in (1, 16) for bits in (1, 2, 4)]
+    extra += [((1, 5, 50, 70, b, g, e, s), 0) for b in (1, 2, 4)
+              for g in (2, 4, 8) for e, s in (("none", 0), ("requant", 5),
+                                              ("requant", 40))]
+    rows, max_err = [], 0
+    for (T, M, N, K, bits, group, epi, shift), launches in cases + extra:
+        rng = np.random.default_rng(T + M * 7 + N * 3 + K + bits)
+        lo = -(1 << (bits - 1))
+        a = torch.from_numpy(rng.integers(-128, 128, (T, M, K),
+                                          dtype=np.int8)).to(dev)
+        w_nk = torch.from_numpy(rng.integers(lo, -lo, (T, N, K),
+                                             dtype=np.int8)).to(dev)
+        w = w_nk.transpose(1, 2)
+        kw = dict(epilogue=epi, shift=shift)
+        got = lut_gemm(a, w, bits=bits, group=group, **kw)
+        want = lut_gemm_ref(a, w, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"lut_gemm {(T, M, N, K, bits, group, epi, shift)} "
+                 f"differs from its plain version")
+        max_err = max(max_err, int((got.to(torch.float64)
+                                    - want.to(torch.float64)).abs().max()))
+        if launches == 0:
+            continue
+        call = lambda: lut_gemm(a, w, bits=bits, group=group, **kw)  # noqa
+        call_ms = cuda_time_ms(call)
+        ms = kernel_ms(call, "lut_gemm_kernel")
+        plain = cuda_time_ms(lambda: lut_gemm_ref(a, w, **kw), reps=5,
+                             warmup=1)
+        # the library yardstick: torch._int_mm on the same int8 operands
+        # (it takes more than 16 rows: M is zero-padded to 32 for it)
+        lib = None
+        if T == 1 and epi == "none" and K % 8 == 0 and N % 8 == 0:
+            a32 = torch.zeros((32, K), dtype=torch.int8, device=dev)
+            a32[:M] = a[0]
+            b2 = w_nk[0].t()
+            lib_out = torch._int_mm(a32, b2)
+            if not torch.equal(lib_out[:M], want[0]):
+                fail("torch._int_mm disagrees with the plain version")
+            lib = cuda_time_ms(lambda: torch._int_mm(a32, b2))
+        bound, by = lut_bound_ms(T, M, N, K, epi)
+        rows.append(dict(T=T, M=M, N=N, K=K, bits=bits, group=group,
+                         epilogue=epi, shift=shift, launches=max(launches, 0),
+                         decode_path=launches > 0, ms=ms, call_ms=call_ms,
+                         plain_ms=plain, library_ms=lib,
+                         library_note="torch._int_mm, M padded to 32"
+                         if lib is not None else None,
+                         bound_ms=bound, bound_by=by))
+        log(f"  lut_gemm T={T} M={M} N={N} K={K} int{bits} g{group} "
+            f"{epi}/{shift}: kernel {ms:.4f} ms, call {call_ms:.4f} ms "
+            f"(bound {bound:.5f} ms by {by}; plain {plain:.4f} ms; "
+            f"library {'n/a' if lib is None else f'{lib:.4f} ms'}) "
+            + (f"x{launches}" if launches > 0 else "(Llama-3.2-3B)"))
+    rec["lut_gemm_shapes"] = rows
+    return rows, max_err
+
+
+def attn_bound_ms(B, S, HQ, KH, D, kv_len, elt):
+    nbytes = (2 * B * KH * kv_len * D + 2 * B * HQ * D) * elt
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def attn_tolerance(dt, want):
+    """float32: 1e-5 absolute on unit-scale inputs.  bfloat16 (compared
+    in float32): 2^-6 * max|want|, four bf16 ulps at 2^-8 * max|want|
+    each, so the limit follows the output's scale (about 0.03 at
+    kv_len 4059 on unit-normal inputs).  The sums run in another order
+    than the plain version's (lane groups, then splits), and both sides
+    round once to bfloat16 at the end."""
+    if dt == "float32":
+        return 1e-5
+    return 2.0 ** -6 * float(want.float().abs().max())
+
+
+def phase_attn_kernel(rec, main_shapes):
+    """decode_attention against its plain version, within attn_tolerance,
+    and bitwise equal over two calls."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref_4d)
+    dev = torch.device("cuda")
+    cases = []
+    for (B, S, HQ, KH, D, dt), launches in main_shapes.items():
+        cases.append(((B, S, HQ, KH, D, dt), [1, S // 2, S], launches))
+    for B, S in ((1, 4096), (8, 32768)):
+        for dt in ("float32", "bfloat16"):
+            cases.append(((B, S, LLAMA32_3B["HQ"], LLAMA32_3B["KH"],
+                           LLAMA32_3B["D"], dt), [S - 37], -1))
+    cases.append(((2, 300, 6, 2, 64, "float32"), [0, 1, 263, 300], 0))
+    rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
+    limits = {"float32": [], "bfloat16": []}
+    for (B, S, HQ, KH, D, dt), lens, launches in cases:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(S + HQ + B)
+        q, k, v = (torch.randn(shape, generator=g, device=dev,
+                               dtype=torch.float32).to(dtype)
+                   for shape in ((B, 1, HQ, D), (B, S, KH, D),
+                                 (B, S, KH, D)))
+        for kv_len in lens:
+            got = decode_attention(q, k, v, kv_len)
+            again = decode_attention(q, k, v, torch.tensor(
+                [kv_len], dtype=torch.int32, device=dev))
+            want = decode_attention_ref_4d(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = attn_tolerance(dt, want)
+            if err > tol or not torch.equal(got, again):
+                fail(f"decode_attention {(B, S, HQ, KH, D, dt, kv_len)}: "
+                     f"error {err} > {tol} or not reproducible")
+            max_err[dt] = max(max_err[dt], err)
+            limits[dt].append(dict(B=B, S=S, kv_len=kv_len, max_abs_err=err,
+                                   limit=tol))
+        if launches == 0:
+            continue
+        kv_len = lens[-1]
+        call = lambda: decode_attention(q, k, v, kv_len)  # noqa: E731
+        call_ms = cuda_time_ms(call)
+        ms = kernel_ms(call, "decode_")
+        plain = cuda_time_ms(lambda: decode_attention_ref_4d(q, k, v, kv_len),
+                             reps=5, warmup=1)
+        qs = q.transpose(1, 2)
+        ks, vs = k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
+
+        def lib_call():
+            return F.scaled_dot_product_attention(qs, ks, vs,
+                                                  enable_gqa=True)
+        try:
+            lib_err = float((lib_call().transpose(1, 2).float()
+                             - want.float()).abs().max())
+        except RuntimeError as e:          # a layout or build it refuses
+            log(f"  scaled_dot_product_attention refused: {e}")
+            lib = lib_err = None
+        else:
+            lib = cuda_time_ms(lib_call)
+        bound, by = attn_bound_ms(B, S, HQ, KH, D, kv_len, q.element_size())
+        rows.append(dict(B=B, S=S, HQ=HQ, KH=KH, D=D, dtype=dt,
+                         kv_len=kv_len, launches=max(launches, 0),
+                         decode_path=launches > 0, ms=ms, call_ms=call_ms,
+                         plain_ms=plain, library_ms=lib,
+                         library_max_abs_err=lib_err, bound_ms=bound,
+                         bound_by=by))
+        log(f"  decode_attention B={B} S={S} HQ={HQ} KH={KH} D={D} {dt} "
+            f"kv_len={kv_len}: kernel {ms:.4f} ms, call {call_ms:.4f} ms "
+            f"(bound {bound:.5f} ms by {by}; plain {plain:.4f} ms; sdpa "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}) "
+            + (f"x{launches}" if launches > 0 else "(Llama-3.2-3B)"))
+    rec["decode_attention_shapes"] = rows
+    rec["decode_attention_limits"] = limits
+    for r in limits["bfloat16"]:
+        log(f"  decode_attention bfloat16 B={r['B']} S={r['S']} kv_len="
+            f"{r['kv_len']}: max_abs_err {r['max_abs_err']:.3e} within "
+            f"{r['limit']:.3e}")
+    return rows, max_err
+
+
+class Counters:
+    """The launch counts of the four kernels: reset to 0 just before a
+    main path runs, read just after."""
+
+    def __init__(self):
+        from repro_torch.kernels.decode_attention import decode_attention
+        from repro_torch.kernels.lut_gemm import lut_gemm
+        from repro_torch.kernels.tensor_alu import tensor_alu
+        from repro_torch.kernels.vta_gemm import vta_gemm
+        self.ops = {"vta_gemm": vta_gemm, "tensor_alu": tensor_alu,
+                    "lut_gemm": lut_gemm,
+                    "decode_attention": decode_attention}
+        self.shapes = {k: {} for k in self.ops}
+
+    def reset(self):
+        for op in self.ops.values():
+            op.launches = 0
+            op.shapes.clear()
+
+    def read(self):
+        for k, op in self.ops.items():
+            for shape, n in op.shapes.items():
+                self.shapes[k][shape] = self.shapes[k].get(shape, 0) + n
+        return {k: op.launches for k, op in self.ops.items()}
 
 
 def main():
@@ -665,10 +1207,47 @@ def main():
     content_key_cost(rec)
     request_profile(rec)
 
+    # ---- phase 5: the decode path (counts from 0) ------------------------
+    log("phase 5: the quantized decoder served (DevicePool, cuda engine)")
+    counters = Counters()
+    dec4, c4 = phase_decode_int4(rec, counters)
+    decode_launches = rec["decode_int4"]["launches"]
+    lut_shapes = dict(counters.shapes["lut_gemm"])
+    attn_shapes = dict(counters.shapes["decode_attention"])
+    phase_decode_int8(rec, counters)
+
+    # ---- phase 6: scheduler, chaos, VtaLinear, decode profile -----------
+    log("phase 6: Scheduler, chaos, VtaLinear, one profiled decode step")
+    counters.reset()
+    phase_sched(rec, dec4, c4)
+    phase_chaos(rec, dec4, c4)
+    phase_vta_linear(rec)
+    decode_step_profile(rec, dec4, c4)
+    counters.read()
+
+    # every shape a decode or phase-6 path launched that the sets above
+    # lack is held against the plain version too (count 0: checked, not
+    # timed), so each kernel is checked at every shape any path launched
+    checked = {}
+    for k, main in (("vta_gemm", gemm_shapes), ("tensor_alu", alu_shapes),
+                    ("lut_gemm", lut_shapes),
+                    ("decode_attention", attn_shapes)):
+        more = [sh for sh in counters.shapes[k] if sh not in main]
+        main.update((sh, 0) for sh in more)
+        checked[k] = dict(decode_and_phase6_shapes=len(counters.shapes[k]),
+                          added=[list(sh) for sh in more])
+        log(f"  {k}: {len(counters.shapes[k])} shapes on the decode and "
+            f"phase-6 paths, {len(more)} not in the timed set: checked "
+            f"against the plain version as well")
+    rec["shapes_checked"] = checked
+
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
     a_rows, a_err = phase_alu_kernel(rec, alu_shapes)
+    log("phase 7: the decode-path kernels against their plain versions")
+    l_rows, l_err = phase_lut_kernel(rec, lut_shapes)
+    d_rows, d_err = phase_attn_kernel(rec, attn_shapes)
 
     # ---- phase 3: engines against each other ----------------------------
     log("phase 3: the engines against each other")
@@ -703,6 +1282,39 @@ def main():
              checked=True,
              shape=dict(shape=a["shape"], chain=a["chain"])),
     ]
+    # the decode-path kernels at their heaviest decode-path shape; the
+    # Llama-3.2-3B shapes are in the record and on the lines above
+    lg = max((r for r in l_rows if r["decode_path"]),
+             key=lambda r: r["T"] * r["M"] * r["N"] * r["K"])
+    dg = max((r for r in d_rows if r["decode_path"]),
+             key=lambda r: r["B"] * r["KH"] * r["kv_len"] * r["D"])
+    kernels += [
+        dict(name="lut_gemm", route="cuda",
+             source="src/repro_torch/kernels/lut_gemm/csrc/lut_gemm.cu",
+             replaces="src/repro/kernels/lut_gemm/kernel.py:81",
+             launches=decode_launches["lut_gemm"], max_abs_err=l_err,
+             ms=lg["ms"], call_ms=lg["call_ms"], plain_ms=lg["plain_ms"],
+             bound_ms=lg["bound_ms"], bound_by=lg["bound_by"],
+             library_ms=lg["library_ms"], checked=True,
+             shape=dict(T=lg["T"], M=lg["M"], N=lg["N"], K=lg["K"],
+                        bits=lg["bits"], group=lg["group"],
+                        epilogue=lg["epilogue"])),
+        dict(name="decode_attention", route="cuda",
+             source="src/repro_torch/kernels/decode_attention/csrc/"
+                    "decode_attention.cu",
+             replaces="src/repro/kernels/decode_attention/kernel.py:67",
+             launches=decode_launches["decode_attention"],
+             max_abs_err=d_err["float32"],
+             max_abs_err_bf16=d_err["bfloat16"],
+             ms=dg["ms"], call_ms=dg["call_ms"], plain_ms=dg["plain_ms"],
+             bound_ms=dg["bound_ms"], bound_by=dg["bound_by"],
+             library_ms=dg["library_ms"], checked=True,
+             shape=dict(B=dg["B"], S=dg["S"], HQ=dg["HQ"], KH=dg["KH"],
+                        D=dg["D"], dtype=dg["dtype"],
+                        kv_len=dg["kv_len"])),
+    ]
+    rec["profiler_retries"] = PROFILER_RETRIES
+    log(f"profiler windows taken again: {len(PROFILER_RETRIES)}")
     if args.record is not None:
         rec["kernels"] = kernels
         args.record.parent.mkdir(parents=True, exist_ok=True)

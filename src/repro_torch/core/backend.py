@@ -35,6 +35,7 @@ runs and raises ``DeadlockError`` on streams that violate it.
 """
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -44,6 +45,7 @@ from typing import Dict, List, Optional, Protocol, Sequence, Tuple, Union, \
 import numpy as np
 import torch
 
+from ..kernels.lut_gemm import lut_gemm
 from ..kernels.tensor_alu import tensor_alu
 from ..kernels.vta_gemm import vta_gemm
 from .driver import Device
@@ -208,12 +210,19 @@ class CudaBackend:
     behavior, which sent direct-conv schedules to the eager loop) — kept
     as an A/B switch for benchmarks and debugging.  ``batch_tiles=False``
     likewise disables the batched tile dispatch (one kernel launch per
-    pending tile).  ``use_lut`` is kept for the reference's signature: the
-    sub-byte LUT kernel (``lut_gemm``) is not ported yet, so a spec with
-    packed sub-byte weights raises NotImplementedError.
+    pending tile).  ``use_lut``: None (auto) routes a launch group through
+    the ``lut_gemm`` kernel when the spec's weights are packed sub-byte and
+    the group's tiles have at most :attr:`LUT_MAX_ROWS` rows; True forces
+    it for every sub-byte GEMM; False pins the dense ``vta_gemm`` kernel
+    over the sign-extended WGT SRAM.  int8 specs never use it.
     """
 
     name = "cuda"
+
+    #: auto LUT selection: per-tile activation rows at or below this are
+    #: "decode-shaped" (weight traffic dominates; the table transform is
+    #: cheap) and route to the LUT-GEMM kernel when weights are sub-byte
+    LUT_MAX_ROWS = 16
 
     def __init__(self, check_tokens: bool = True,
                  coalesce_subgrids: bool = True,
@@ -225,6 +234,14 @@ class CudaBackend:
         self.batch_tiles = batch_tiles
         self.cache_decode = cache_decode
         self.use_lut = use_lut
+
+    def _lut_select(self, spec: HardwareSpec, rows: int) -> bool:
+        """Per-shape kernel choice for one GEMM launch group: T-MAC LUT
+        lookup vs dense GEMM.  Both are bit-exact; this is purely a
+        roofline call, so the fuzzer sweeps it freely."""
+        if not spec.wgt_packed or self.use_lut is False:
+            return False
+        return bool(self.use_lut) or rows <= self.LUT_MAX_ROWS
 
     # ------------------------------------------------------------------
     def execute(self, spec: HardwareSpec, device: Device, stream: np.ndarray,
@@ -256,10 +273,6 @@ class CudaBackend:
         paying the per-launch cost once for the pool.  Returns one
         RunStats per device (``gang_size`` records the gang width;
         ``wall_time_s`` is the shared gang window)."""
-        if spec.wgt_packed:
-            raise NotImplementedError(
-                "packed sub-byte weights run through the lut_gemm kernel, "
-                "which is not ported to CUDA yet")
         t0 = time.perf_counter()
         isa = IsaLayout(spec)
         if staged_addr is None:
@@ -866,8 +879,11 @@ class CudaBackend:
         run as ONE ``vta_gemm`` launch — cutting per-tile launch overhead;
         requant fuses into the kernel epilogue exactly as in the per-tile
         path.  Non-fused ALU chains apply to the row-stacked tile batch in
-        one ``tensor_alu`` pass per chain step.  Returns one assembled
-        (R, C) int32 accumulator matrix per tile.
+        one ``tensor_alu`` pass per chain step.  Sub-byte weights on
+        decode-shaped groups go through ``lut_gemm`` instead (the same
+        operands and epilogue, a bit-identical result; the reference's
+        ``jax.vmap(lut_gemm_pallas)`` is the kernel's tile axis here).
+        Returns one assembled (R, C) int32 accumulator matrix per tile.
 
         ``statss`` is parallel to ``tiles`` (gang members contribute
         tiles with their own RunStats); each distinct stats object counts
@@ -891,6 +907,15 @@ class CudaBackend:
                 W_hosts.append(W_host)
             Rg = A_alls[0].shape[0]
             Rp = -(-Rg // bm) * bm
+            # per-shape kernel choice: sub-byte weights on decode-shaped
+            # tiles go through the T-MAC LUT kernel (same operands, same
+            # epilogue contract, bit-identical output)
+            use_lut = self._lut_select(spec, Rg)
+            if use_lut:
+                gemm_call = functools.partial(lut_gemm, bits=spec.wgt_bits,
+                                              **kw)
+            else:
+                gemm_call = functools.partial(vta_gemm, **kw)
             # tiles whose weight DATA is identical (gang members serving
             # the same constant weights) can row-concat into one taller
             # GEMM instead of spending a tile-axis slot each.  The choice
@@ -907,20 +932,22 @@ class CudaBackend:
             if len(subgroups) < T and cost_concat < cost_vmap:
                 for g in subgroups.values():
                     A = torch.cat([A_alls[t] for t in g], dim=0)
-                    out = vta_gemm(A, Ws[g[0]].T, **kw).to(torch.int32)
+                    out = gemm_call(A, Ws[g[0]].T).to(torch.int32)
                     for s_ in {id(statss[t]): statss[t] for t in g}.values():
                         s_.tile_batches += 1
+                        s_.lut_launches += int(use_lut)
                     for j, t in enumerate(g):
                         mats[t] = out[j * Rg:(j + 1) * Rg]
             else:
                 if T == 1:
-                    outs = vta_gemm(A_alls[0], Ws[0].T, **kw)[None]
+                    outs = gemm_call(A_alls[0], Ws[0].T)[None]
                 else:
-                    outs = vta_gemm(torch.stack(A_alls),
-                                    torch.stack(Ws).transpose(1, 2), **kw)
+                    outs = gemm_call(torch.stack(A_alls),
+                                     torch.stack(Ws).transpose(1, 2))
                 outs = outs.to(torch.int32)
                 for s_ in {id(s_): s_ for s_ in statss}.values():
                     s_.tile_batches += 1
+                    s_.lut_launches += int(use_lut)
                 for t in range(T):
                     mats[t] = outs[t]
             for t in range(T):

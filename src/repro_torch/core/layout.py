@@ -9,6 +9,7 @@ layouts so that 2D strided DMA (one instruction per tile) can address them
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .hwspec import HardwareSpec
 
@@ -98,18 +99,30 @@ def pack_bits(a: np.ndarray, bits: int) -> np.ndarray:
     return np.bitwise_or.reduce(u << shifts, axis=-1).astype(np.uint8)
 
 
+def unpack_bits_torch(packed: torch.Tensor, bits: int, n: int
+                      ) -> torch.Tensor:
+    """Inverse of :func:`pack_bits` on the bytes' own device: uint8 bytes
+    -> n sign-extended int8 values along the last axis (padding tail
+    dropped), by bit shifts and a sign extension.  The one decode point:
+    the engines' WGT loads run it on the DRAM image's device, host reads
+    through :func:`unpack_bits` on the CPU."""
+    if bits not in (1, 2, 4):
+        raise ValueError(f"unpack_bits: bits must be 1, 2 or 4, got {bits}")
+    ppb = 8 // bits
+    shifts = torch.arange(ppb, dtype=torch.uint8,
+                          device=packed.device) * bits
+    u = ((packed.to(torch.uint8)[..., None] >> shifts)
+         & ((1 << bits) - 1)).to(torch.int8)
+    sign = 1 << (bits - 1)
+    vals = ((u ^ sign) - sign).reshape(packed.shape[:-1] + (-1,))
+    return vals[..., :n]
+
+
 def unpack_bits(packed: np.ndarray, bits: int, n: int) -> np.ndarray:
     """Inverse of :func:`pack_bits`: uint8 bytes -> n sign-extended int8
     values along the last axis (padding tail dropped)."""
-    if bits not in (1, 2, 4):
-        raise ValueError(f"unpack_bits: bits must be 1, 2 or 4, got {bits}")
-    packed = np.asarray(packed, np.uint8)
-    ppb = 8 // bits
-    shifts = (np.arange(ppb, dtype=np.uint8) * bits)
-    u = ((packed[..., None] >> shifts) & ((1 << bits) - 1)).astype(np.int8)
-    sign = np.int8(1 << (bits - 1))
-    vals = ((u ^ sign) - sign).reshape(packed.shape[:-1] + (-1,))
-    return vals[..., :n].copy()
+    t = torch.from_numpy(np.ascontiguousarray(packed, np.uint8))
+    return unpack_bits_torch(t, bits, n).contiguous().numpy()
 
 
 def pack_wgt_elems(blocked: np.ndarray, bits: int) -> np.ndarray:
@@ -119,6 +132,15 @@ def pack_wgt_elems(blocked: np.ndarray, bits: int) -> np.ndarray:
     bo, bi = blocked.shape[-2], blocked.shape[-1]
     flat = blocked.reshape(blocked.shape[:-2] + (bo * bi,))
     return pack_bits(flat, bits)
+
+
+def unpack_wgt_elems_torch(packed: torch.Tensor, bits: int,
+                           block_out: int, block_in: int) -> torch.Tensor:
+    """Packed element rows uint8 (..., elem_bytes) -> int8
+    (..., BLOCK_OUT, BLOCK_IN) on the bytes' own device, with no copy to
+    the host."""
+    flat = unpack_bits_torch(packed, bits, block_out * block_in)
+    return flat.reshape(packed.shape[:-1] + (block_out, block_in))
 
 
 def unpack_wgt_elems(packed: np.ndarray, bits: int,

@@ -851,7 +851,7 @@ def _build(prog: Program, fence_mode: str = "buffer",
 class RunResult:
     """One execution of a CompiledProgram against SOME device: outputs,
     the per-segment RunStats, and the bytes staged for the call.  The
-    value object the serving layer (not ported yet) passes around
+    value object the serving layer passes around
     so concurrent requests never share mutable state."""
     outputs: Union[np.ndarray, Dict[str, np.ndarray]]
     stats: List[RunStats]
@@ -907,6 +907,10 @@ class CompiledProgram:
     # that produced them.  run_on never takes it.
     _lock: Any = field(default_factory=threading.Lock, repr=False,
                        compare=False)
+    # per-(timing-model) memo of sched.stream_costs: ISA decode + timing
+    # replay run once per program, for the Scheduler's gang-width tuner
+    _cost_cache: Dict[Any, Any] = field(default_factory=dict, repr=False,
+                                        compare=False)
 
     # ---- introspection -------------------------------------------------
     @property

@@ -430,12 +430,12 @@ class Simulator:
                 if insn.memory_type == MemId.WGT and self.spec.wgt_packed:
                     # sub-byte weights: DRAM holds b-bit packed element
                     # rows; the WGT SRAM always holds sign-extended int8
-                    # (the one decode point both engines share)
-                    raw = src.cpu().numpy().reshape(-1, elem_bytes)
-                    data = layout.unpack_wgt_elems(
-                        raw, self.spec.wgt_bits, self.spec.block_out,
-                        self.spec.block_in)
-                    dst.copy_(torch.from_numpy(data).view(dst.shape))
+                    # (the one decode point both engines share), unpacked
+                    # on the image's own device
+                    data = layout.unpack_wgt_elems_torch(
+                        src.reshape(-1, elem_bytes), self.spec.wgt_bits,
+                        self.spec.block_out, self.spec.block_in)
+                    dst.copy_(data.view(dst.shape))
                 else:
                     # one strided copy of the whole 2D footprint
                     dst.view(torch.uint8).view(

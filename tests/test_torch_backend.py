@@ -317,11 +317,27 @@ def test_checker_and_registry():
                       t_be.SimulatorBackend)
     with pytest.raises(ValueError):
         t_be.resolve_backend("pallas")
-    with pytest.raises(NotImplementedError, match="lut_gemm"):
-        lrt = t_rt.Runtime(t_hw.lowbit(4), torch_device="cpu",
-                           dram_size=1 << 20)
-        t_be.CudaBackend().execute(lrt.spec, lrt.device,
-                                   lrt.finalize_stream())
+    # a packed sub-byte spec runs the dense kernel under use_lut=False and
+    # leaves the reference's DRAM image
+    import repro.core.program as r_prog
+    import repro_torch.core.program as t_prog
+    wl = rng.integers(-8, 8, size=(40, 96), dtype=np.int8)
+    xl = rng.integers(-128, 128, size=(3, 96), dtype=np.int8)
+    images, luts = [], []
+    for prog_m, hw_m, eng, kw in (
+            (r_prog, r_hw, r_be.PallasBackend(use_lut=False), {}),
+            (t_prog, t_hw, t_be.CudaBackend(use_lut=False),
+             dict(torch_device="cpu", dram_size=1 << 20))):
+        p = prog_m.Program(hw_m.lowbit(4))
+        p.output(p.matmul(p.input("x", (3, 96)), p.constant("w", wl),
+                          epilogue=r_sched.Epilogue(shift=4)
+                          if prog_m is r_prog else t_sched.Epilogue(shift=4)))
+        c = p.compile(use_cache=False, **kw)
+        c(backend=eng, x=xl)
+        images.append(c.device.dram.read(0, c.device.dram._next).tobytes())
+        luts.append(sum(st.lut_launches for st in c.last_stats))
+    assert images[0] == images[1]
+    assert luts == [0, 0]
 
 
 def test_decode_cache_is_a_bounded_lru():

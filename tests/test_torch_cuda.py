@@ -4,9 +4,15 @@ These tests need an NVIDIA card and nvcc; where there is none they skip
 and say so.  On the card: ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.  The file imports neither JAX nor the
 reference package, so it runs where only PyTorch is installed.
-Tolerance: 0 — the kernels' int32, int8 and float32 results are compared
-with ``torch.equal`` (the float32 dequant product is one int-to-float
-rounding and one multiply on both sides).
+Tolerance: 0 for the integer kernels — their int32, int8 and float32
+results are compared with ``torch.equal`` (the float32 dequant product is
+one int-to-float rounding and one multiply on both sides).
+``decode_attention`` is float math summed in another order than its plain
+version (lane groups, then splits): float32 within 1e-5 absolute on
+unit-scale inputs; bfloat16, compared in float32, within 2^-6 * max|want|
+(four bf16 ulps at 2^-8 * max|want| each), a limit that follows the
+output's scale; two calls on the same inputs are bitwise equal (no
+atomics, fixed split count).
 """
 import numpy as np
 import pytest
@@ -18,9 +24,14 @@ from repro_torch.core.conv import ConvShape, conv2d_reference
 from repro_torch.core.program import Program
 from repro_torch.core.runtime import Runtime
 from repro_torch.core.scheduler import Epilogue, schedule_matmul
+from repro_torch.core.serve import DevicePool
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_ref_4d)
+from repro_torch.kernels.lut_gemm import lut_gemm, lut_gemm_ref
 from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_ref
 from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+from repro_torch.models.vta_decoder import DecoderConfig, QuantDecoder
 from torch_cases import EPILOGUES, SHAPES, alu_cases, gemm_inputs
 
 
@@ -101,3 +112,85 @@ def test_conv_program_on_the_card(cuda_dev):
     assert vta_gemm.launches > before
     assert_fast_path(c.last_stats)
     np.testing.assert_array_equal(got, conv2d_reference(x, k, s, epilogue=ep))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("T,M,K,N", [(1, 1, 64, 32), (2, 5, 70, 50),
+                                     (1, 16, 3072, 512), (3, 18, 144, 130)])
+def test_lut_gemm_kernel_matches_plain(cuda_dev, T, M, K, N, bits, group):
+    rng = np.random.default_rng(T + M + K + N + bits + group)
+    lo = -(1 << (bits - 1))
+    a = torch.from_numpy(rng.integers(-128, 128, (T, M, K),
+                                      dtype=np.int8)).to(cuda_dev)
+    w = torch.from_numpy(rng.integers(lo, -lo, (T, N, K), dtype=np.int8)) \
+        .to(cuda_dev).transpose(1, 2)
+    for ep, sh in (("none", 0), ("requant", 5), ("requant", 40)):
+        before = lut_gemm.launches
+        got = lut_gemm(a, w, bits=bits, group=group, epilogue=ep, shift=sh)
+        want = lut_gemm_ref(a, w, epilogue=ep, shift=sh)
+        torch.cuda.synchronize()
+        assert lut_gemm.launches == before + 1
+        assert torch.equal(got, want), (bits, group, ep, sh)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2.0 ** -6)],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,HQ,KH,D", [(1, 96, 2, 2, 32),
+                                         (1, 4096, 24, 8, 128),
+                                         (2, 300, 6, 2, 64)])
+def test_decode_attention_kernel_matches_plain(cuda_dev, B, S, HQ, KH, D,
+                                               dtype, atol):
+    rng = np.random.default_rng(S + HQ)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(cuda_dev).to(dtype)
+    q, k, v = t(B, 1, HQ, D), t(B, S, KH, D), t(B, S, KH, D)
+    for kv_len in (0, 1, S - 37, S):
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, kv_len)
+        again = decode_attention(
+            q, k, v, torch.tensor([kv_len], dtype=torch.int32,
+                                  device=cuda_dev))
+        want = decode_attention_ref_4d(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 2
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.equal(got, again)          # bitwise reproducible
+        err = (got.float() - want.float()).abs().max().item()
+        limit = atol if dtype == torch.float32 else \
+            atol * want.float().abs().max().item()
+        assert err <= limit, (kv_len, err, limit)
+
+
+@pytest.mark.cuda
+def test_pooled_int4_decode_on_the_card(cuda_dev):
+    """8 greedy steps of the int4 decoder with kernel attention through a
+    2-slot pool: every dialogue equals the eager reference on the card,
+    and both new kernels ran."""
+    dec = QuantDecoder(DecoderConfig(s_max=16), spec=hwspec.lowbit(4),
+                       attention="kernel", dram_size=1 << 22)
+    c = dec.compile(use_cache=False)
+    prompts = [3, 10, 17]
+    want = []
+    for p in prompts:
+        ref, tok, out = dec.reference(), p, []
+        for _ in range(8):
+            tok = int(np.argmax(ref.step(dec.token(tok))))
+            out.append(tok)
+        want.append(out)
+    lut0, att0 = lut_gemm.launches, decode_attention.launches
+    with DevicePool(c, size=2) as pool:
+        sess = [pool.session() for _ in prompts]
+        toks, got = list(prompts), [[] for _ in prompts]
+        for _ in range(8):
+            futs = [s.submit(x=dec.token(t)) for s, t in zip(sess, toks)]
+            for i, f in enumerate(futs):
+                toks[i] = int(np.argmax(f.wait(timeout=120)))
+                got[i].append(toks[i])
+    assert got == want
+    assert lut_gemm.launches > lut0 and decode_attention.launches > att0

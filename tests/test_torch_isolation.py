@@ -79,6 +79,30 @@ def test_default_device_is_the_card():
     assert out.shape == (16, 16) and c.last_stats[0].backend == "cuda"
 
 
+def test_decoder_and_linear_ask_for_the_card():
+    _no_card()
+    from repro_torch.core.serve import DevicePool
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.lut_gemm import lut_gemm
+    from repro_torch.models import QuantDecoder, VtaLinear
+    with pytest.raises(RuntimeError, match="torch_device='cpu'"):
+        QuantDecoder()
+    lin = VtaLinear(np.ones((16, 16), np.float32))
+    with pytest.raises(RuntimeError):
+        lin(np.ones((1, 16), np.float32))
+    dec = QuantDecoder(torch_device="cpu", dram_size=1 << 22)
+    with DevicePool(dec.compile(), size=1) as pool:
+        assert pool.engine.name == "cuda"
+    # a tensor on neither the CPU nor the card has no kernel: it raises
+    meta = torch.empty((2, 16), dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        lut_gemm(meta, meta.T, bits=4)
+    q = torch.empty((1, 1, 2, 16), device="meta")
+    kv = torch.empty((1, 8, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attention(q, kv, kv, 3)
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
