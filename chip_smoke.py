@@ -46,6 +46,22 @@ Phases, in the order they run:
      shape (timed), every other shape phases 5 and 6 launched (checked)
      and at Llama-3.2-3B's decode shapes (src/repro/configs/llama32_3b.py);
      decode_attention in bfloat16 within 2^-6 * max|want|;
+  8. the third main path, the LM serve path: llama3.2-3b at full width
+     (src/repro_torch/configs/llama32_3b.py; random weights from
+     torch.Generator seed 0, int8 PTQ) served by launch.serve.ServeEngine
+     (4 slots, max_len 256, float32 caches) to the reference CLI's
+     traffic (6 requests, 16-token prompts, 16 new tokens each), then 2
+     requests through the bf16 weights; each run replayed with the three
+     kernel ops swapped for their plain versions (PlainOps), teacher-forced
+     on the kernel run's tokens, every call's logits within
+     LM_LOGIT_TOL of max|logit|; launches per prefill and per decode step;
+     the device idle share of one profiled decode step.  Its vta_gemm and
+     decode_attention shapes are timed in phases 1 and 7, and
+     flash_attention is checked and timed in phase 7 at those shapes and
+     at Llama-3.2-3B's prefill (S 4096 float32 and bfloat16, S 32768
+     bfloat16 against the chunked plain version), a non-causal ragged
+     shape and a causal one with Sk > S; decode_attention also at
+     starcoder2-7b's G = 9 and with a bfloat16 query over float32 caches;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -101,15 +117,20 @@ def cuda_time_ms(fn, reps=20, warmup=3):
 
 #: profiler windows that saw none of their kernels and were taken again
 PROFILER_RETRIES = []
+#: windows in which the profiler saw fewer launches of a kernel than ran
+PROFILER_DROPS = []
 
 
 def kernel_ms(fn, kernel_name, reps=20, attempts=3):
-    """Mean device time of the CUDA kernels named `kernel_name` per call
-    of fn(), from torch.profiler.  A window in which the profiler saw none
-    of them (its activity records can go missing) is taken again, up to
-    `attempts` windows in all, and every retry is recorded; when no window
-    sees them the script fails: a launched kernel it cannot see is a
-    fault, not a time, and no other clock stands in."""
+    """Device time of the CUDA kernels named `kernel_name` per call of
+    fn(), from torch.profiler: for each distinct kernel matched, its total
+    device time over the launches the profiler recorded, summed over the
+    kernels (each runs once per call).  The profiler can lose activity
+    records (seen: one of three 216 ms launches recorded); a window that
+    recorded fewer launches than ran is noted, and one that recorded none
+    is taken again, up to `attempts` windows in all.  When no window sees
+    them the script fails: a launched kernel it cannot see is a fault,
+    not a time, and no other clock stands in."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -119,13 +140,19 @@ def kernel_ms(fn, kernel_name, reps=20, attempts=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us = 0.0
+        per_call_us, seen = 0.0, []
         for ev in prof.key_averages():
-            if kernel_name in ev.key:
-                total_us += getattr(ev, "device_time_total",
-                                    getattr(ev, "cuda_time_total", 0.0))
-        if total_us > 0:
-            return total_us / reps / 1e3
+            t = getattr(ev, "device_time_total",
+                        getattr(ev, "cuda_time_total", 0.0))
+            if kernel_name in ev.key and t > 0 and ev.count > 0:
+                per_call_us += t / ev.count
+                seen.append(ev.count)
+        if seen:
+            if min(seen) < reps:
+                PROFILER_DROPS.append((kernel_name, min(seen), reps))
+                log(f"  torch.profiler recorded {min(seen)} of {reps} "
+                    f"{kernel_name} launches in this window")
+            return per_call_us / 1e3
         PROFILER_RETRIES.append(kernel_name)
         log(f"  torch.profiler saw no {kernel_name} in window "
             f"{attempt + 1} of {attempts}")
@@ -936,6 +963,10 @@ def decode_step_profile(rec, dec, c):
 # phase 1 (continued): the decode-path kernels against plain versions
 # ----------------------------------------------------------------------
 LLAMA32_3B = dict(HQ=24, KH=8, D=128, d_model=3072, d_ff=8192)
+#: (B, S) of the Llama-3.2-3B decode_attention checks
+LLAMA_DECODE_BS = ((1, 4096), (8, 32768))
+#: prompt lengths of the Llama-3.2-3B flash_attention checks
+LLAMA_PREFILL_S = (4096, 32768)
 
 
 def lut_bound_ms(T, M, N, K, epilogue):
@@ -1012,8 +1043,8 @@ def phase_lut_kernel(rec, main_shapes):
     return rows, max_err
 
 
-def attn_bound_ms(B, S, HQ, KH, D, kv_len, elt):
-    nbytes = (2 * B * KH * kv_len * D + 2 * B * HQ * D) * elt
+def attn_bound_ms(B, S, HQ, KH, D, kv_len, kv_elt, q_elt):
+    nbytes = 2 * B * KH * kv_len * D * kv_elt + 2 * B * HQ * D * q_elt
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -1022,39 +1053,70 @@ def attn_tolerance(dt, want):
     in float32): 2^-6 * max|want|, four bf16 ulps at 2^-8 * max|want|
     each, so the limit follows the output's scale (about 0.03 at
     kv_len 4059 on unit-normal inputs).  The sums run in another order
-    than the plain version's (lane groups, then splits), and both sides
-    round once to bfloat16 at the end."""
+    than the plain version's (lane groups, then splits, or 64-key tiles),
+    and both sides round once to bfloat16 at the end."""
     if dt == "float32":
         return 1e-5
     return 2.0 ** -6 * float(want.float().abs().max())
 
 
+def sdpa_call(q, k, v, causal):
+    """A closure making one scaled_dot_product_attention call on (B, S, H,
+    D) tensors (GQA through enable_gqa), or None where PyTorch refuses the
+    inputs.  Flash and memory-efficient backends only, so a call never
+    materializes the scores; the math backend only where the scores stay
+    under 4 GB.  The port never calls this."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qs, ks, vs = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    B, H, S, _ = qs.shape
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    if B * H * S * ks.shape[2] * 4 < (4 << 30):
+        backends.append(SDPBackend.MATH)
+
+    def call():
+        with sdpa_kernel(backends):
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=causal, enable_gqa=True)
+    try:
+        call()
+    except RuntimeError as e:          # a layout or size it refuses
+        log(f"  scaled_dot_product_attention refused: {str(e)[:200]}")
+        return None
+    return call
+
+
 def phase_attn_kernel(rec, main_shapes):
     """decode_attention against its plain version, within attn_tolerance,
     and bitwise equal over two calls."""
-    import numpy as np
     import torch
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref_4d)
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     cases = []
-    for (B, S, HQ, KH, D, dt), launches in main_shapes.items():
-        cases.append(((B, S, HQ, KH, D, dt), [1, S // 2, S], launches))
-    for B, S in ((1, 4096), (8, 32768)):
+    for (B, S, HQ, KH, D, qdt, kvdt), launches in main_shapes.items():
+        cases.append(((B, S, HQ, KH, D, qdt, kvdt), [1, S // 2, S],
+                      launches))
+    for B, S in LLAMA_DECODE_BS:
         for dt in ("float32", "bfloat16"):
             cases.append(((B, S, LLAMA32_3B["HQ"], LLAMA32_3B["KH"],
-                           LLAMA32_3B["D"], dt), [S - 37], -1))
-    cases.append(((2, 300, 6, 2, 64, "float32"), [0, 1, 263, 300], 0))
+                           LLAMA32_3B["D"], dt, dt), [S - 37], -1))
+    # starcoder2-7b: G = 36 / 4 = 9 query heads per kv head
+    for qdt, kvdt in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                      ("bfloat16", "float32")):
+        cases.append(((1, LLAMA_PREFILL_S[0], 36, 4, 128, qdt, kvdt),
+                      [1, LLAMA_PREFILL_S[0] - 37], 0))
+    cases.append(((2, 300, 6, 2, 64, "float32", "float32"),
+                  [0, 1, 263, 300], 0))
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     limits = {"float32": [], "bfloat16": []}
-    for (B, S, HQ, KH, D, dt), lens, launches in cases:
-        dtype = getattr(torch, dt)
+    for (B, S, HQ, KH, D, qdt, kvdt), lens, launches in cases:
         g = torch.Generator(device=dev).manual_seed(S + HQ + B)
         q, k, v = (torch.randn(shape, generator=g, device=dev,
-                               dtype=torch.float32).to(dtype)
-                   for shape in ((B, 1, HQ, D), (B, S, KH, D),
-                                 (B, S, KH, D)))
+                               dtype=torch.float32).to(getattr(torch, dt))
+                   for shape, dt in (((B, 1, HQ, D), qdt),
+                                     ((B, S, KH, D), kvdt),
+                                     ((B, S, KH, D), kvdt)))
         for kv_len in lens:
             got = decode_attention(q, k, v, kv_len)
             again = decode_attention(q, k, v, torch.tensor(
@@ -1062,13 +1124,15 @@ def phase_attn_kernel(rec, main_shapes):
             want = decode_attention_ref_4d(q, k, v, kv_len)
             torch.cuda.synchronize()
             err = float((got.float() - want.float()).abs().max())
-            tol = attn_tolerance(dt, want)
-            if err > tol or not torch.equal(got, again):
-                fail(f"decode_attention {(B, S, HQ, KH, D, dt, kv_len)}: "
-                     f"error {err} > {tol} or not reproducible")
-            max_err[dt] = max(max_err[dt], err)
-            limits[dt].append(dict(B=B, S=S, kv_len=kv_len, max_abs_err=err,
-                                   limit=tol))
+            tol = attn_tolerance(qdt, want)
+            if err > tol or not torch.equal(got, again) \
+                    or got.dtype != q.dtype:
+                fail(f"decode_attention {(B, S, HQ, KH, D, qdt, kvdt, kv_len)}"
+                     f": error {err} > {tol} or not reproducible")
+            max_err[qdt] = max(max_err[qdt], err)
+            limits[qdt].append(dict(B=B, S=S, HQ=HQ, KH=KH, kv=kvdt,
+                                    kv_len=kv_len, max_abs_err=err,
+                                    limit=tol))
         if launches == 0:
             continue
         kv_len = lens[-1]
@@ -1077,53 +1141,391 @@ def phase_attn_kernel(rec, main_shapes):
         ms = kernel_ms(call, "decode_")
         plain = cuda_time_ms(lambda: decode_attention_ref_4d(q, k, v, kv_len),
                              reps=5, warmup=1)
-        qs = q.transpose(1, 2)
-        ks, vs = k[:, :kv_len].transpose(1, 2), v[:, :kv_len].transpose(1, 2)
-
-        def lib_call():
-            return F.scaled_dot_product_attention(qs, ks, vs,
-                                                  enable_gqa=True)
-        try:
-            lib_err = float((lib_call().transpose(1, 2).float()
-                             - want.float()).abs().max())
-        except RuntimeError as e:          # a layout or build it refuses
-            log(f"  scaled_dot_product_attention refused: {e}")
-            lib = lib_err = None
-        else:
-            lib = cuda_time_ms(lib_call)
-        bound, by = attn_bound_ms(B, S, HQ, KH, D, kv_len, q.element_size())
-        rows.append(dict(B=B, S=S, HQ=HQ, KH=KH, D=D, dtype=dt,
-                         kv_len=kv_len, launches=max(launches, 0),
+        lib = lib_err = None
+        if qdt == kvdt:
+            lib_call = sdpa_call(q, k[:, :kv_len], v[:, :kv_len], False)
+            if lib_call is not None:
+                lib_err = float((lib_call().transpose(1, 2).float()
+                                 - want.float()).abs().max())
+                lib = cuda_time_ms(lib_call)
+        bound, by = attn_bound_ms(B, S, HQ, KH, D, kv_len, k.element_size(),
+                                  q.element_size())
+        rows.append(dict(B=B, S=S, HQ=HQ, KH=KH, D=D, dtype=qdt,
+                         cache_dtype=kvdt, kv_len=kv_len,
+                         launches=max(launches, 0),
                          decode_path=launches > 0, ms=ms, call_ms=call_ms,
                          plain_ms=plain, library_ms=lib,
                          library_max_abs_err=lib_err, bound_ms=bound,
                          bound_by=by))
-        log(f"  decode_attention B={B} S={S} HQ={HQ} KH={KH} D={D} {dt} "
-            f"kv_len={kv_len}: kernel {ms:.4f} ms, call {call_ms:.4f} ms "
-            f"(bound {bound:.5f} ms by {by}; plain {plain:.4f} ms; sdpa "
+        log(f"  decode_attention B={B} S={S} HQ={HQ} KH={KH} D={D} {qdt}"
+            f"/{kvdt} kv_len={kv_len}: kernel {ms:.4f} ms, call "
+            f"{call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
+            f"{plain:.4f} ms; sdpa "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}) "
             + (f"x{launches}" if launches > 0 else "(Llama-3.2-3B)"))
     rec["decode_attention_shapes"] = rows
     rec["decode_attention_limits"] = limits
     for r in limits["bfloat16"]:
-        log(f"  decode_attention bfloat16 B={r['B']} S={r['S']} kv_len="
-            f"{r['kv_len']}: max_abs_err {r['max_abs_err']:.3e} within "
-            f"{r['limit']:.3e}")
+        log(f"  decode_attention bfloat16 B={r['B']} S={r['S']} HQ={r['HQ']} "
+            f"KH={r['KH']} cache {r['kv']} kv_len={r['kv_len']}: "
+            f"max_abs_err {r['max_abs_err']:.3e} within {r['limit']:.3e}")
     return rows, max_err
 
 
+# ----------------------------------------------------------------------
+# phase 7 (continued): flash_attention against its plain version
+# ----------------------------------------------------------------------
+BF16_TENSOR_OPS_PER_S = 989e12
+
+
+def flash_bound_ms(B, S, Sk, HQ, KH, D, causal, elt):
+    """The larger of the operations (4 B HQ S Sk D, halved when causal) at
+    the bf16 dense tensor-core peak and the bytes (q, k, v read once, out
+    written once) at the memory rate."""
+    ops = 4 * B * HQ * S * Sk * D / (2 if causal else 1)
+    nbytes = (2 * B * S * HQ * D + 2 * B * Sk * KH * D) * elt
+    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def phase_flash_kernel(rec, main_shapes):
+    """flash_attention against its plain version (the materialized oracle,
+    or the chunked one above 2048^2 scores per head), within
+    attn_tolerance, bitwise equal over two calls; timed at every shape
+    the LM path launched and at Llama-3.2-3B's prefill shapes."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    dev = torch.device(DEVICE)
+    L = LLAMA32_3B
+    cases = [(k, n) for k, n in main_shapes.items()]
+    s1, s2 = LLAMA_PREFILL_S
+    cases += [((1, s1, s1, L["HQ"], L["KH"], L["D"], True, dt), -1)
+              for dt in ("float32", "bfloat16")]
+    cases += [((1, s2, s2, L["HQ"], L["KH"], L["D"], True, "bfloat16"), -1)]
+    # non-causal with ragged tiles and Sk != S (cross-attention's shape)
+    cases += [((2, 1000, 1500, 20, 20, 64, False, "float32"), -1)]
+    cases += [((1, 77, 130, 8, 2, 128, True, "bfloat16"), 0)]
+    rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
+    for (B, S, Sk, HQ, KH, D, causal, dt), launches in cases:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(S + Sk + HQ)
+        q = torch.randn((B, S, HQ, D), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, Sk, KH, D), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, Sk, KH, D), generator=g, device=dev).to(dtype)
+        got = flash_attention(q, k, v, causal=causal)
+        again = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = attn_tolerance(dt, want)
+        if err > tol or not torch.equal(got, again):
+            fail(f"flash_attention {(B, S, Sk, HQ, KH, D, causal, dt)}: "
+                 f"error {err} > {tol} or not reproducible")
+        max_err[dt] = max(max_err[dt], err)
+        shape = dict(B=B, S=S, Sk=Sk, HQ=HQ, KH=KH, D=D, causal=causal,
+                     dtype=dt)
+        if launches == 0:
+            rows.append(dict(shape, launches=0, timed=False, max_abs_err=err,
+                             limit=tol))
+            continue
+        big = S * Sk > 8192 * 8192
+        reps = 3 if big else 20
+        call = lambda: flash_attention(q, k, v, causal=causal)  # noqa
+        call_ms = cuda_time_ms(call, reps=reps, warmup=1)
+        ms = kernel_ms(call, "flash_kernel", reps=reps)
+        plain = cuda_time_ms(lambda: flash_attention_plain(
+            q, k, v, causal=causal), reps=1 if big else 5, warmup=1)
+        lib = lib_err = None
+        lib_call = sdpa_call(q, k, v, causal)
+        if lib_call is not None:
+            lib_err = float((lib_call().transpose(1, 2).float()
+                             - want.float()).abs().max())
+            lib = cuda_time_ms(lib_call, reps=reps, warmup=1)
+        bound, by = flash_bound_ms(B, S, Sk, HQ, KH, D, causal,
+                                   q.element_size())
+        rows.append(dict(shape, launches=max(launches, 0), timed=True,
+                         lm_path=launches > 0, ms=ms, call_ms=call_ms,
+                         plain_ms=plain, library_ms=lib,
+                         library_max_abs_err=lib_err, bound_ms=bound,
+                         bound_by=by, max_abs_err=err, limit=tol))
+        log(f"  flash_attention B={B} S={S} Sk={Sk} HQ={HQ} KH={KH} D={D} "
+            f"{'causal' if causal else 'full'} {dt}: kernel {ms:.4f} ms, "
+            f"call {call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
+            f"{plain:.4f} ms; sdpa "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}); max_abs_err "
+            f"{err:.3e} within {tol:.3e} "
+            + (f"x{launches}" if launches > 0 else ""))
+        del q, k, v, got, again, want
+        torch.cuda.empty_cache()
+    rec["flash_attention_shapes"] = rows
+    return rows, max_err
+
+
+# ----------------------------------------------------------------------
+# phase 8: the LM serve path (the third main path)
+# ----------------------------------------------------------------------
+LM_ARCH = "llama3.2-3b"
+LM_SLOTS, LM_MAX_LEN = 4, 256
+LM_REQUESTS, LM_MAX_NEW = 6, 16          # the reference CLI's defaults
+LM_BF16_REQUESTS = 2
+#: logits of the kernel run against the plain run (teacher-forced), as a
+#: share of the plain run's max|logit| at that call
+LM_LOGIT_TOL = 0.05
+
+
+class PlainOps:
+    """Swap the LM path's three kernel ops for their plain versions
+    (flash_attention, decode_attention, and the vta_gemm under
+    quantized_linear), for the duration of the block."""
+
+    def __enter__(self):
+        import repro_torch.kernels.vta_gemm.ops as vops
+        import repro_torch.models.attention as att
+        from repro_torch.kernels.decode_attention import \
+            decode_attention_ref_4d
+        from repro_torch.kernels.flash_attention import flash_attention_plain
+        from repro_torch.kernels.vta_gemm import vta_gemm_ref
+        self.saved = [(att, "flash_attention", att.flash_attention),
+                      (att, "decode_attention", att.decode_attention),
+                      (vops, "vta_gemm", vops.vta_gemm)]
+        att.flash_attention = flash_attention_plain
+        att.decode_attention = decode_attention_ref_4d
+        vops.vta_gemm = vta_gemm_ref
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def lm_engine(cfg, params, counters, forced=None):
+    """A ServeEngine that times each prefill (add_request) and decode step
+    (both end in a host read of the chosen tokens), counts the kernels'
+    launches in each, keeps every call's logits on the card, and, when
+    `forced` is given, takes those tokens in place of its own choice."""
+    import torch
+    from repro_torch.launch.serve import ServeEngine
+
+    class Engine(ServeEngine):
+        def __init__(self):
+            super().__init__(cfg, params, batch_slots=LM_SLOTS,
+                             max_len=LM_MAX_LEN, dtype=torch.float32,
+                             torch_device=DEVICE)
+            self.logits, self.chosen = [], []
+            self.prefill_ms, self.step_ms = [], []
+            self.prefill_launches, self.step_launches = [], []
+
+        def next_tokens(self, logits):
+            self.logits.append(logits.float().clone())
+            own = super().next_tokens(logits)
+            self.chosen.append(own)
+            return own if forced is None else forced[len(self.chosen) - 1]
+
+        def _timed(self, fn, ms, launches):
+            before = {k: op.launches for k, op in counters.ops.items()}
+            t0 = time.perf_counter()
+            out = fn()
+            dt = (time.perf_counter() - t0) * 1e3
+            delta = {k: op.launches - before[k]
+                     for k, op in counters.ops.items()}
+            if out is not False:
+                ms.append(dt)
+                launches.append(delta)
+            return out
+
+        def add_request(self, req):
+            return self._timed(lambda: super(Engine, self).add_request(req),
+                               self.prefill_ms, self.prefill_launches)
+
+        def step(self):
+            if all(r is None for r in self.slot_req):
+                return
+            self._timed(lambda: super(Engine, self).step(), self.step_ms,
+                        self.step_launches)
+    return Engine()
+
+
+def compare_logits(kernel_eng, plain_eng, what):
+    """Every call's logits, kernel run against the teacher-forced plain
+    run: the largest |difference| over max|plain logit|, and the share of
+    rows whose argmax agrees."""
+    import torch
+    if len(kernel_eng.logits) != len(plain_eng.logits):
+        fail(f"{what}: {len(kernel_eng.logits)} logit calls against "
+             f"{len(plain_eng.logits)} in the plain run")
+    worst, agree, rows = 0.0, 0, 0
+    for i, (a, b) in enumerate(zip(kernel_eng.logits, plain_eng.logits)):
+        if not torch.isfinite(a).all() or a.shape != b.shape:
+            fail(f"{what}: call {i} logits not finite or of another shape")
+        rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+        worst = max(worst, rel)
+        agree += int((a.argmax(-1) == b.argmax(-1)).sum())
+        rows += a.shape[0]
+    if worst > LM_LOGIT_TOL:
+        fail(f"{what}: logits differ from the plain run by {worst:.4f} of "
+             f"max|logit| (limit {LM_LOGIT_TOL})")
+    return worst, agree / rows
+
+
+def lm_summary(eng, done, wall_s):
+    tokens = sum(len(r.out_tokens) for r in done)
+    st = sorted(eng.step_ms)
+
+    def per(launches):
+        keys = launches[0].keys() if launches else []
+        return {k: statistics.mean(d[k] for d in launches) for k in keys}
+    return dict(requests=len(done), tokens=tokens, wall_s=wall_s,
+                tokens_per_s=tokens / wall_s,
+                prefill_ms=eng.prefill_ms,
+                prefill_ms_median=statistics.median(eng.prefill_ms),
+                decode_steps=len(st),
+                step_ms_median=statistics.median(st),
+                step_ms_p90=st[int(0.9 * (len(st) - 1))],
+                launches_per_prefill=per(eng.prefill_launches),
+                launches_per_step=per(eng.step_launches))
+
+
+def phase_lm(rec, counters):
+    """llama3.2-3b at full width (28 layers, d 3072, 24/8 heads, hd 128,
+    d_ff 8192, vocab 128256, bf16, tied embeddings, rope theta 5e5): random
+    weights from torch.Generator seed 0 with the reference's distributions,
+    int8 PTQ (quantize_params), served by ServeEngine(4 slots, max_len 256,
+    float32 caches) to the reference CLI's traffic (6 requests, 16-token
+    prompts from np.random.default_rng(0), 16 new tokens each); then 2
+    requests through the bf16 weights (no vta_gemm).  Each run is
+    replayed with the three kernels swapped for their plain versions,
+    teacher-forced on the kernel run's tokens, and every call's logits
+    held within LM_LOGIT_TOL of max|logit|.  The counts are set to 0 just
+    before each served run and read just after."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantized import quantize_params
+    cfg = get_arch(LM_ARCH).model
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = T.init_params(cfg, torch.Generator(device=DEVICE)
+                               .manual_seed(0), torch_device=DEVICE)
+        qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.state_dict().values())
+    log(f"  {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, "
+        f"init + PTQ {init_s:.1f} s")
+    # warm-up: one request through each weight set (cuBLAS, allocator)
+    for p in (qparams, params):
+        lm_engine(cfg, p, counters).run(make_requests(cfg, 1, 2, seed=99))
+    torch.cuda.synchronize()
+    out = {}
+    for name, p, n_req in (("int8", qparams, LM_REQUESTS),
+                           ("bf16", params, LM_BF16_REQUESTS)):
+        eng = lm_engine(cfg, p, counters)
+        reqs = make_requests(cfg, n_req, LM_MAX_NEW)
+        counters.reset()
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        wall = time.perf_counter() - t0
+        launches = counters.read()
+        if len(done) != n_req or any(len(r.out_tokens) != LM_MAX_NEW
+                                     for r in done):
+            fail(f"LM {name}: served {len(done)} of {n_req} requests")
+        want = {"flash_attention": 1, "decode_attention": 1,
+                "vta_gemm": int(name == "int8")}
+        for k, need in want.items():
+            if (launches[k] > 0) != bool(need):
+                fail(f"LM {name}: {k} launched {launches[k]} times")
+        summary = lm_summary(eng, done, wall)
+        with PlainOps():
+            plain = lm_engine(cfg, p, counters, forced=eng.chosen)
+            plain.run(make_requests(cfg, n_req, LM_MAX_NEW))
+        worst, agree = compare_logits(eng, plain, f"LM {name}")
+        summary.update(launches=launches, logit_max_rel_err=worst,
+                       logit_limit=LM_LOGIT_TOL, argmax_agreement=agree,
+                       tokens_head={r.rid: r.out_tokens[:8] for r in done})
+        out[name] = summary
+        lp, ls = summary["launches_per_prefill"], summary["launches_per_step"]
+        log(f"  {name} weights: {summary['requests']} requests, "
+            f"{summary['tokens']} tokens in {wall:.2f} s "
+            f"({summary['tokens_per_s']:.1f} tokens/s); prefill median "
+            f"{summary['prefill_ms_median']:.2f} ms; decode step median "
+            f"{summary['step_ms_median']:.2f} ms, p90 "
+            f"{summary['step_ms_p90']:.2f} ms over "
+            f"{summary['decode_steps']} steps")
+        log("    launches per prefill: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in lp.items() if v)
+            + "; per decode step: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ls.items() if v))
+        log(f"    against the plain run (teacher-forced): logits within "
+            f"{worst:.3e} of max|logit| (limit {LM_LOGIT_TOL}); argmax "
+            f"agreement {agree:.4f}")
+        del eng, plain
+    out["lm_profile"] = lm_step_profile(cfg, qparams, counters)
+    rec["lm"] = dict(arch=LM_ARCH, params=n_params, init_s=init_s,
+                     slots=LM_SLOTS, max_len=LM_MAX_LEN,
+                     max_new=LM_MAX_NEW, **out)
+    del params, qparams
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_step_profile(cfg, params, counters):
+    """Device idle share of one profiled decode step with 4 active slots
+    (after a warm one): device busy time over the profiled wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import make_requests
+    eng = lm_engine(cfg, params, counters)
+    for r in make_requests(cfg, LM_SLOTS, LM_MAX_NEW, seed=7):
+        eng.add_request(r)
+    eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.step()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if t > 0 and e.device_type == DeviceType.CUDA:
+            kernels[e.key] = t / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    out = dict(step_ms=plain_ms, profiled_ms=wall_ms, device_busy_ms=dev_ms,
+               idle_share=1 - dev_ms / wall_ms, top_device_ms=top)
+    log(f"  profile of one LM decode step (4 slots, int8): {plain_ms:.2f} ms "
+        f"({wall_ms:.2f} ms profiled); device busy {dev_ms:.3f} ms -> idle "
+        f"share {1 - dev_ms / wall_ms:.4f}")
+    for k, t in top[:5]:
+        log(f"    {k[:90]}: {t:.3f} ms")
+    return out
+
+
 class Counters:
-    """The launch counts of the four kernels: reset to 0 just before a
+    """The launch counts of the five kernels: reset to 0 just before a
     main path runs, read just after."""
 
     def __init__(self):
         from repro_torch.kernels.decode_attention import decode_attention
+        from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.lut_gemm import lut_gemm
         from repro_torch.kernels.tensor_alu import tensor_alu
         from repro_torch.kernels.vta_gemm import vta_gemm
         self.ops = {"vta_gemm": vta_gemm, "tensor_alu": tensor_alu,
                     "lut_gemm": lut_gemm,
-                    "decode_attention": decode_attention}
+                    "decode_attention": decode_attention,
+                    "flash_attention": flash_attention}
         self.shapes = {k: {} for k in self.ops}
 
     def reset(self):
@@ -1241,13 +1643,34 @@ def main():
             f"against the plain version as well")
     rec["shapes_checked"] = checked
 
+    # ---- phase 8: the LM serve path (counts from 0 before each run) ------
+    log("phase 8: the LM serve path (llama3.2-3b at full width, int8 PTQ "
+        "and bf16 weights, ServeEngine)")
+    counters.shapes = {k: {} for k in counters.ops}
+    lm = phase_lm(rec, counters)
+    lm_launches = lm["int8"]["launches"]
+    for k in ("flash_attention", "decode_attention", "vta_gemm"):
+        if lm_launches[k] <= 0:
+            fail(f"{k} was never launched on the LM serve path")
+    decoder_attn = {sh for sh, n in attn_shapes.items() if n > 0}
+    # the LM path's shapes are timed in phases 1 and 7 (their counts > 0)
+    for main_set, k in ((gemm_shapes, "vta_gemm"),
+                        (attn_shapes, "decode_attention")):
+        for sh, n in counters.shapes[k].items():
+            main_set[sh] = main_set.get(sh, 0) + n
+    flash_shapes = dict(counters.shapes["flash_attention"])
+    rec["lm_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
+                        for k, v in counters.shapes.items()}
+
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
     a_rows, a_err = phase_alu_kernel(rec, alu_shapes)
-    log("phase 7: the decode-path kernels against their plain versions")
+    log("phase 7: the decode-path and LM-path kernels against their plain "
+        "versions")
     l_rows, l_err = phase_lut_kernel(rec, lut_shapes)
     d_rows, d_err = phase_attn_kernel(rec, attn_shapes)
+    f_rows, f_err = phase_flash_kernel(rec, flash_shapes)
 
     # ---- phase 3: engines against each other ----------------------------
     log("phase 3: the engines against each other")
@@ -1265,7 +1688,8 @@ def main():
         dict(name="vta_gemm", route="cuda",
              source="src/repro_torch/kernels/vta_gemm/csrc/vta_gemm.cu",
              replaces="src/repro/kernels/vta_gemm/kernel.py:72",
-             launches=main_launches["vta_gemm"], max_abs_err=g_err,
+             launches=main_launches["vta_gemm"],
+             lm_serve_launches=lm_launches["vta_gemm"], max_abs_err=g_err,
              ms=g["ms"], call_ms=g["call_ms"], plain_ms=g["plain_ms"],
              bound_ms=g["bound_ms"],
              bound_by=g["bound_by"], library_ms=g["library_ms"],
@@ -1286,7 +1710,9 @@ def main():
     # Llama-3.2-3B shapes are in the record and on the lines above
     lg = max((r for r in l_rows if r["decode_path"]),
              key=lambda r: r["T"] * r["M"] * r["N"] * r["K"])
-    dg = max((r for r in d_rows if r["decode_path"]),
+    dg = max((r for r in d_rows if (r["B"], r["S"], r["HQ"], r["KH"], r["D"],
+                                    r["dtype"], r["cache_dtype"])
+              in decoder_attn),
              key=lambda r: r["B"] * r["KH"] * r["kv_len"] * r["D"])
     kernels += [
         dict(name="lut_gemm", route="cuda",
@@ -1304,6 +1730,7 @@ def main():
                     "decode_attention.cu",
              replaces="src/repro/kernels/decode_attention/kernel.py:67",
              launches=decode_launches["decode_attention"],
+             lm_serve_launches=lm_launches["decode_attention"],
              max_abs_err=d_err["float32"],
              max_abs_err_bf16=d_err["bfloat16"],
              ms=dg["ms"], call_ms=dg["call_ms"], plain_ms=dg["plain_ms"],
@@ -1313,8 +1740,26 @@ def main():
                         D=dg["D"], dtype=dg["dtype"],
                         kv_len=dg["kv_len"])),
     ]
+    # flash_attention at its heaviest LM-path shape; the Llama prefill
+    # shapes (S 4096 and 32768) are in the record and on the lines above
+    fg = max((r for r in f_rows if r.get("lm_path")),
+             key=lambda r: r["B"] * r["HQ"] * r["S"] * r["Sk"])
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/"
+               "flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:76",
+        launches=lm_launches["flash_attention"],
+        max_abs_err=f_err["float32"], max_abs_err_bf16=f_err["bfloat16"],
+        ms=fg["ms"], call_ms=fg["call_ms"], plain_ms=fg["plain_ms"],
+        bound_ms=fg["bound_ms"], bound_by=fg["bound_by"],
+        library_ms=fg["library_ms"], checked=True,
+        shape={k: fg[k] for k in ("B", "S", "Sk", "HQ", "KH", "D", "causal",
+                                   "dtype")}))
     rec["profiler_retries"] = PROFILER_RETRIES
-    log(f"profiler windows taken again: {len(PROFILER_RETRIES)}")
+    rec["profiler_drops"] = PROFILER_DROPS
+    log(f"profiler windows taken again: {len(PROFILER_RETRIES)}; windows "
+        f"with lost launch records: {len(PROFILER_DROPS)}")
     if args.record is not None:
         rec["kernels"] = kernels
         args.record.parent.mkdir(parents=True, exist_ok=True)

@@ -3,8 +3,9 @@
 The parameters on the task-ISA path are already numpy arrays (int8
 weights, int32 bias rows) plus the hardware spec, so the reference's
 objects cross as plain fields: ``dataclasses.asdict`` of a spec, an
-epilogue or a decoder config, and dicts of numpy arrays.  Nothing here
-imports the reference.
+epilogue, a decoder config or a model config, and nested dicts of numpy
+arrays (an LM's weight tree, raw or quantized: a caller turns a JAX tree
+into numpy first).  Nothing here imports the reference.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from .core.driver import TorchDeviceLike, resolve_torch_device
 from .core.hwspec import HardwareSpec
 from .core.scheduler import Epilogue
+from .models.config import ModelConfig, ShardingConfig
 
 
 def spec_from_fields(fields: Mapping[str, Any]) -> HardwareSpec:
@@ -61,3 +63,47 @@ def quant_decoder(ref_decoder: Any, torch_device: TorchDeviceLike = None,
     dec.weights = [{k: np.array(v, np.int8) for k, v in blk.items()}
                    for blk in ref_decoder.weights]
     return dec
+
+
+def model_config_from_fields(fields: Mapping[str, Any]) -> ModelConfig:
+    """A ModelConfig from the fields of a reference config
+    (``dataclasses.asdict(cfg)``, the nested sharding config included)."""
+    f = dict(fields)
+    if isinstance(f.get("sharding"), Mapping):
+        f["sharding"] = ShardingConfig(**f["sharding"])
+    return ModelConfig(**f)
+
+
+def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The same bytes as a tensor on `dev`; bfloat16 arrays (ml_dtypes)
+    cross through their 16-bit patterns."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.array(a).view(np.int16)) \
+            .view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def lm_params_from_numpy(tree: Mapping[str, Any],
+                         torch_device: TorchDeviceLike = None):
+    """An ``LMParams`` on `torch_device` (default the card) holding the
+    values of a reference LM weight tree given as nested dicts of numpy
+    arrays, raw or quantized.  Quantized weights cross as their int8
+    bytes; each ``w_q`` (..., K, N) is stored as a transposed view of
+    contiguous (..., N, K), as the port's own ``quantize_params`` stores
+    it."""
+    from .models.transformer import LMParams
+    dev = resolve_torch_device(torch_device)
+
+    def walk(node):
+        out = {}
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                out[k] = walk(v)
+            elif k == "w_q":
+                nk = np.ascontiguousarray(np.swapaxes(np.asarray(v), -1, -2))
+                out[k] = _tensor(nk, dev).transpose(-1, -2)
+            else:
+                out[k] = _tensor(v, dev)
+        return out
+    return LMParams(walk(tree))

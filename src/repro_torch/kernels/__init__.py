@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels for the compute hot spots of the task-ISA
-engine and the quantized decoder.
+engine, the quantized decoder and the LM serve path.
 
 Each kernel ships kernel.py (the ctypes binding of its CUDA source under
 csrc/, built by ``_build`` at first use), ref.py (the plain PyTorch
@@ -7,4 +7,5 @@ version of the same function) and ops.py (the public op).  The op picks
 by the device of its tensors: a CPU tensor takes the plain version, a CUDA
 tensor launches the kernel, anything else raises.
 """
-from . import decode_attention, lut_gemm, tensor_alu, vta_gemm  # noqa: F401
+from . import (decode_attention, flash_attention, lut_gemm,  # noqa: F401
+               tensor_alu, vta_gemm)

@@ -9,11 +9,14 @@
 //
 // Computes, per kv head row bh = b*KH + h and each of its G query heads:
 //   out[bh, g] = softmax_s(q[bh, g] / sqrt(D) . k[b, s, h]) @ v[b, s, h]
-// over the positions s < kv_len, in float32, output in q's dtype.  Positions
-// at or past kv_len take no part (the TPU kernel gives them NEG_INF = -1e30
-// and skips their blocks: the same result), and l is clamped at 1e-30, so
-// kv_len = 0 gives zeros.  kv_len is read on the device when the caller
-// passes a device pointer, so no host sync is needed.
+// over the positions s < kv_len, in float32, output in q's dtype.  q may
+// be of another dtype than the caches (a bfloat16 model over float32
+// caches): it is read and upcast exactly, as the TPU kernel upcasts both.
+// Positions at or past kv_len take no part (the TPU kernel gives them
+// NEG_INF = -1e30 and skips their blocks: the same result), and l is
+// clamped at 1e-30, so kv_len = 0 gives zeros.  kv_len is read on the
+// device when the caller passes a device pointer, so no host sync is
+// needed.
 //
 // Operands: q is (B*KH, G, D) contiguous; k and v are strided views of the
 // caches, element (b, s, h, d) at b*sb + s*ss + h*sh + d (the cache-native
@@ -23,16 +26,19 @@
 // for all G query heads (about 2 operations per byte), so the bound is the
 // cache bytes at 3.35 TB/s.
 //
-// What the design does about it: split-KV.  Grid (B*KH, splits), with the
-// split count fixed by S (one split per SPLIT positions), so long caches
-// fill the card even at B = 1.  In a block, each row of a K or V position is
-// read by a group of lanes with 16-byte loads (D*sizeof(T)/16 lanes, a power
-// of two), and the G heads of the kv head share that read.  Each lane group
-// keeps an online softmax (m, l, acc) in float32 registers; the groups of a
-// block are merged in shared memory, and the block writes its partial
-// (m, l, acc[G, D]) to a float32 workspace.  A second kernel combines the
-// splits.  Both merges run in a fixed order and nothing is atomic, so the
-// result is bitwise reproducible from call to call.  Not done yet: cp.async
+// What the design does about it: split-KV.  Grid (B*KH, splits, head
+// blocks), with the split count fixed by S (one split per SPLIT positions),
+// so long caches fill the card even at B = 1.  A block takes at most 8 of
+// the G query heads (more would not fit in registers): G > 8 is cut into
+// ceil(G / 8) blocks of (nearly) equal size, each reading the rows again.
+// In a block, each row of a K or V position is read by a group of lanes
+// with 16-byte loads (D*sizeof(T)/16 lanes, a power of two), and the heads
+// of the block share that read.  Each lane group keeps an online softmax
+// (m, l, acc) in float32 registers; the groups of a block are merged in
+// shared memory, and the block writes its partial (m, l, acc[heads, D]) to
+// a float32 workspace.  A second kernel combines the splits.  Both merges
+// run in a fixed order and nothing is atomic, so the result is bitwise
+// reproducible from call to call.  Not done yet: cp.async
 // or TMA pipelining of the cache stream, and more rows in flight per block.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,21 +81,35 @@ struct Io<__nv_bfloat16> {
   }
 };
 
-// One block per (kv head row, split).  `lpr` lanes read one position's D
-// elements; 32 / lpr positions per warp step, WARPS * 32 / lpr per block.
-template <typename T, int MAXG>
+template <typename T>
+__device__ float to_float(T x);
+template <>
+__device__ float to_float<float>(float x) { return x; }
+template <>
+__device__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// One block per (kv head row, split, head block): the block takes heads
+// g0 = blockIdx.z * per up to g0 + per (fewer in the last block), with
+// per <= MAXG.  `lpr` lanes read one position's D elements; 32 / lpr
+// positions per warp step, WARPS * 32 / lpr per block.
+template <typename T, typename TQ, int MAXG>
 __global__ void __launch_bounds__(THREADS)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+decode_split_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ len_dev,
                     int len_host, float* __restrict__ ws_m,
                     float* __restrict__ ws_l, float* __restrict__ ws_acc,
-                    int KH, int G, int D, int S, int split_len, int lpr,
-                    long long sb, long long ss, long long sh, float scale) {
+                    int KH, int G, int per, int D, int S, int split_len,
+                    int lpr, long long sb, long long ss, long long sh,
+                    float scale) {
   constexpr int VEC = Io<T>::VEC;
   extern __shared__ float smem[];
   const int bh = blockIdx.x;
   const int split = blockIdx.y;
   const int splits = gridDim.y;
+  const int g0 = blockIdx.z * per;           // this block's first head
+  const int GB = min(per, G - g0);           // and its head count
   const int b = bh / KH;
   const int h = bh % KH;
   int L = len_dev != nullptr ? *len_dev : len_host;
@@ -108,10 +128,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qf[MAXG][VEC];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g < G && d_ok) {
-      Io<T>::load(q + ((size_t)bh * G + g) * D + d0, qf[g]);
+    if (g < GB && d_ok) {
+      const TQ* qg = q + ((size_t)bh * G + g0 + g) * D + d0;
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) qf[g][i] *= scale;
+      for (int i = 0; i < VEC; ++i) qf[g][i] = to_float(qg[i]) * scale;
     } else {
 #pragma unroll
       for (int i = 0; i < VEC; ++i) qf[g][i] = 0.f;
@@ -157,7 +177,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
-        if (g >= G) continue;
+        if (g >= GB) continue;
         if (sc[g] > m[g]) {  // new max: rescale what came before
           const float alpha = expf(m[g] - sc[g]);
           l[g] = l[g] * alpha + 1.f;
@@ -175,39 +195,39 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // merge the block's lane groups in a fixed order
-  float* sm_m = smem;                       // [rows][G]
-  float* sm_l = sm_m + rows * G;            // [rows][G]
-  float* sm_acc = sm_l + rows * G;          // [rows][G][D]
+  float* sm_m = smem;                       // [rows][GB]
+  float* sm_l = sm_m + rows * GB;           // [rows][GB]
+  float* sm_acc = sm_l + rows * GB;         // [rows][GB][D]
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
-    if (g >= G) continue;
+    if (g >= GB) continue;
     if (lane % lpr == 0) {
-      sm_m[rid * G + g] = m[g];
-      sm_l[rid * G + g] = l[g];
+      sm_m[rid * GB + g] = m[g];
+      sm_l[rid * GB + g] = l[g];
     }
     if (d_ok) {
 #pragma unroll
       for (int i = 0; i < VEC; ++i)
-        sm_acc[(rid * G + g) * D + d0 + i] = acc[g][i];
+        sm_acc[(rid * GB + g) * D + d0 + i] = acc[g][i];
     }
   }
   __syncthreads();
   const size_t part = (size_t)bh * splits + split;
-  for (int e = threadIdx.x; e < G * D; e += THREADS) {
+  for (int e = threadIdx.x; e < GB * D; e += THREADS) {
     const int g = e / D;
     const int d = e % D;
     float M = NEG_INF;
-    for (int r = 0; r < rows; ++r) M = fmaxf(M, sm_m[r * G + g]);
+    for (int r = 0; r < rows; ++r) M = fmaxf(M, sm_m[r * GB + g]);
     float Ls = 0.f, A = 0.f;
     for (int r = 0; r < rows; ++r) {
-      const float w = expf(sm_m[r * G + g] - M);
-      Ls += sm_l[r * G + g] * w;
-      A += sm_acc[(r * G + g) * D + d] * w;
+      const float w = expf(sm_m[r * GB + g] - M);
+      Ls += sm_l[r * GB + g] * w;
+      A += sm_acc[(r * GB + g) * D + d] * w;
     }
-    ws_acc[(part * G + g) * D + d] = A;
+    ws_acc[(part * G + g0 + g) * D + d] = A;
     if (d == 0) {
-      ws_m[part * G + g] = M;
-      ws_l[part * G + g] = Ls;
+      ws_m[part * G + g0 + g] = M;
+      ws_l[part * G + g0 + g] = Ls;
     }
   }
 }
@@ -237,66 +257,92 @@ decode_combine_kernel(const float* __restrict__ ws_m,
   }
 }
 
-template <typename T, int MAXG>
+template <typename T, typename TQ, int MAXG>
 int launch(const void* q, const void* k, const void* v, const int* len_dev,
-           int len_host, float* ws, void* out, int BH, int KH, int G, int D,
-           int S, int split_len, int splits, int lpr, long long sb,
-           long long ss, long long sh, float scale, cudaStream_t st) {
+           int len_host, float* ws, void* out, int BH, int KH, int G,
+           int per, int D, int S, int split_len, int splits, int lpr,
+           long long sb, long long ss, long long sh, float scale,
+           cudaStream_t st) {
   const int rows = WARPS * (32 / lpr);
-  const size_t smem = (size_t)rows * G * (D + 2) * sizeof(float);
+  const int hblocks = (G + per - 1) / per;
+  const size_t smem = (size_t)rows * per * (D + 2) * sizeof(float);
   float* ws_m = ws;
   float* ws_l = ws_m + (size_t)BH * splits * G;
   float* ws_acc = ws_l + (size_t)BH * splits * G;
-  decode_split_kernel<T, MAXG><<<dim3(BH, splits), THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
+  decode_split_kernel<T, TQ, MAXG>
+      <<<dim3(BH, splits, hblocks), THREADS, smem, st>>>(
+      static_cast<const TQ*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), len_dev, len_host, ws_m, ws_l, ws_acc, KH, G,
-      D, S, split_len, lpr, sb, ss, sh, scale);
+      per, D, S, split_len, lpr, sb, ss, sh, scale);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  decode_combine_kernel<T><<<BH, THREADS, 0, st>>>(
-      ws_m, ws_l, ws_acc, static_cast<T*>(out), G, D, splits);
+  decode_combine_kernel<TQ><<<BH, THREADS, 0, st>>>(
+      ws_m, ws_l, ws_acc, static_cast<TQ*>(out), G, D, splits);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+// Heads per block: G itself up to 8, else ceil(G / ceil(G / 8)) (G = 9:
+// blocks of 5 and 4).
+template <typename T, typename TQ>
 int dispatch_g(const void* q, const void* k, const void* v,
                const int* len_dev, int len_host, float* ws, void* out,
                int BH, int KH, int G, int D, int S, int split_len,
                int splits, int lpr, long long sb, long long ss, long long sh,
                float scale, cudaStream_t st) {
-#define DA_LAUNCH(MG)                                                       \
-  return launch<T, MG>(q, k, v, len_dev, len_host, ws, out, BH, KH, G, D, \
-                       S, split_len, splits, lpr, sb, ss, sh, scale, st)
-  if (G <= 1) DA_LAUNCH(1);
-  if (G <= 2) DA_LAUNCH(2);
-  if (G <= 4) DA_LAUNCH(4);
-  if (G <= 8) DA_LAUNCH(8);
+  const int nb = (G + 7) / 8;
+  const int per = (G + nb - 1) / nb;
+#define DA_LAUNCH(MG)                                                   \
+  return launch<T, TQ, MG>(q, k, v, len_dev, len_host, ws, out, BH, KH, \
+                           G, per, D, S, split_len, splits, lpr, sb, ss, \
+                           sh, scale, st)
+  if (per <= 1) DA_LAUNCH(1);
+  if (per <= 2) DA_LAUNCH(2);
+  if (per <= 4) DA_LAUNCH(4);
+  DA_LAUNCH(8);
 #undef DA_LAUNCH
+}
+
+template <typename T>
+int dispatch_q(int q_dtype, const void* q, const void* k, const void* v,
+               const int* len_dev, int len_host, float* ws, void* out,
+               int BH, int KH, int G, int D, int S, int split_len,
+               int splits, int lpr, long long sb, long long ss, long long sh,
+               float scale, cudaStream_t st) {
+  if (q_dtype == 0)
+    return dispatch_g<T, float>(q, k, v, len_dev, len_host, ws, out, BH, KH,
+                                G, D, S, split_len, splits, lpr, sb, ss, sh,
+                                scale, st);
+  if (q_dtype == 1)
+    return dispatch_g<T, __nv_bfloat16>(q, k, v, len_dev, len_host, ws, out,
+                                        BH, KH, G, D, S, split_len, splits,
+                                        lpr, sb, ss, sh, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Launch both kernels on `stream`; returns the first cudaGetLastError() that
-// is not 0, or cudaErrorInvalidValue for G > 8 or an unknown dtype code
-// (0 float32, 1 bfloat16).  The wrapper checks shapes, strides and
-// alignment, allocates `ws` (BH * splits * G * (D + 2) floats) and `out`,
-// and never calls this with BH, G or D equal to 0.  `len_dev` is a device
-// pointer to one int32, or null to use `len_host`.
+// is not 0, or cudaErrorInvalidValue for an unknown dtype code (0 float32,
+// 1 bfloat16): `kv_dtype` for k and v, `q_dtype` for q and the output.  The
+// wrapper checks shapes, strides and alignment, allocates `ws` (BH * splits
+// * G * (D + 2) floats) and `out`, and never calls this with BH, G or D
+// equal to 0.  `len_dev` is a device pointer to one int32, or null to use
+// `len_host`.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const void* len_dev,
-    int len_host, void* ws, void* out, int dtype, int BH, int KH, int G,
-    int D, int S, int split_len, int splits, int lpr, long long sb,
-    long long ss, long long sh, float scale, void* stream) {
+    int len_host, void* ws, void* out, int kv_dtype, int q_dtype, int BH,
+    int KH, int G, int D, int S, int split_len, int splits, int lpr,
+    long long sb, long long ss, long long sh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ld = static_cast<const int*>(len_dev);
   float* w = static_cast<float*>(ws);
-  if (dtype == 0)
-    return dispatch_g<float>(q, k, v, ld, len_host, w, out, BH, KH, G, D, S,
-                             split_len, splits, lpr, sb, ss, sh, scale, st);
-  if (dtype == 1)
-    return dispatch_g<__nv_bfloat16>(q, k, v, ld, len_host, w, out, BH, KH,
-                                     G, D, S, split_len, splits, lpr, sb, ss,
-                                     sh, scale, st);
+  if (kv_dtype == 0)
+    return dispatch_q<float>(q_dtype, q, k, v, ld, len_host, w, out, BH, KH,
+                             G, D, S, split_len, splits, lpr, sb, ss, sh,
+                             scale, st);
+  if (kv_dtype == 1)
+    return dispatch_q<__nv_bfloat16>(q_dtype, q, k, v, ld, len_host, w, out,
+                                     BH, KH, G, D, S, split_len, splits, lpr,
+                                     sb, ss, sh, scale, st);
   return (int)cudaErrorInvalidValue;
 }

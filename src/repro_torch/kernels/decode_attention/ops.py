@@ -14,8 +14,10 @@ from .ref import KvLen, decode_attention_ref_4d
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len: KvLen) -> torch.Tensor:
-    """q: (B, 1, HQ, D); caches: (B, S, KH, D); kv_len: an int or a
-    one-element int32 tensor (on the card, read there).  Returns
+    """q: (B, 1, HQ, D); caches: (B, S, KH, D), HQ any multiple of KH;
+    kv_len: an int or a one-element int32 tensor (on the card, read
+    there).  q may be of another float dtype than the caches (a bfloat16
+    model over float32 caches): the math is float32 on both.  Returns
     (B, 1, HQ, D) in q's dtype."""
     if q.dim() != 4 or q.shape[1] != 1 or k_cache.dim() != 4 \
             or k_cache.shape != v_cache.shape \
@@ -37,12 +39,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qh = q.reshape(B * KH, HQ // KH, D).contiguous()
     out = decode_attention_cuda(qh, k_cache, v_cache, kv_len)
     decode_attention.launches += 1
-    key = (B, k_cache.shape[1], HQ, KH, D, str(q.dtype).split(".")[-1])
+    key = (B, k_cache.shape[1], HQ, KH, D, str(q.dtype).split(".")[-1],
+           str(k_cache.dtype).split(".")[-1])
     decode_attention.shapes[key] = decode_attention.shapes.get(key, 0) + 1
     return out.reshape(B, 1, HQ, D)
 
 
 #: kernel launches made by this op (plain-version calls do not count)
 decode_attention.launches = 0
-#: (B, S, HQ, KH, D, dtype) -> launches at that shape
+#: (B, S, HQ, KH, D, q dtype, cache dtype) -> launches at that shape
 decode_attention.shapes = {}

@@ -1,0 +1,79 @@
+"""Public op: (B, S, H, D)-layout GQA attention.
+
+A CPU tensor takes the plain version (:func:`flash_attention_plain`: the
+materialized oracle up to ``_CHUNKED_THRESHOLD`` score elements per head,
+the chunked one above, as the reference op chooses); a CUDA tensor
+launches the CUDA kernel; any other device raises.  There is no fallback
+between the two.
+"""
+from __future__ import annotations
+
+import torch
+
+from .kernel import flash_attention_cuda
+from .ref import attention_ref, attention_ref_chunked
+
+# above this many score elements per head the materialized oracle would
+# dominate memory: the plain version switches to the chunked loop
+_CHUNKED_THRESHOLD = 2048 * 2048
+
+
+def _to_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, D) -> (B*H, S, D)"""
+    B, S, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, D)
+
+
+def _from_heads(x: torch.Tensor, B: int) -> torch.Tensor:
+    BH, S, D = x.shape
+    return x.reshape(B, BH // B, S, D).transpose(1, 2)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] \
+            or k.shape[2] == 0 or q.shape[2] % k.shape[2]:
+        raise ValueError(f"flash_attention shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention operands on different devices")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True) -> torch.Tensor:
+    """The plain version of :func:`flash_attention`, on any device."""
+    _check(q, k, v)
+    B, S, HQ, _ = q.shape
+    group = HQ // k.shape[2]
+    if S * k.shape[1] > _CHUNKED_THRESHOLD:
+        return attention_ref_chunked(q, k, v, group=group, causal=causal)
+    out = attention_ref(_to_heads(q), _to_heads(k), _to_heads(v),
+                        group=group, causal=causal)
+    return _from_heads(out, B)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, S, HQ, D); k/v: (B, Sk, KH, D), HQ a multiple of KH.
+    Returns (B, S, HQ, D) in q's dtype.  Query head h reads kv head
+    h // (HQ // KH); with ``causal`` the diagonal is aligned bottom-right
+    (row i sees keys j <= i + Sk - S)."""
+    _check(q, k, v)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention has no kernel for device {dev}")
+    out = flash_attention_cuda(q, k, v, causal)
+    flash_attention.launches += 1
+    B, S, HQ, D = q.shape
+    key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal),
+           str(q.dtype).split(".")[-1])
+    flash_attention.shapes[key] = flash_attention.shapes.get(key, 0) + 1
+    return out
+
+
+#: kernel launches made by this op (plain-version calls do not count)
+flash_attention.launches = 0
+#: (B, S, Sk, HQ, KH, D, causal, dtype) -> launches at that shape
+flash_attention.shapes = {}

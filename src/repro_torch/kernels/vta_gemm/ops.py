@@ -71,3 +71,30 @@ def vta_gemm(a: torch.Tensor, w: torch.Tensor,
 vta_gemm.launches = 0
 #: (T, M, N, K, epilogue, shift, has_bias) -> launches at that shape
 vta_gemm.shapes = {}
+
+
+def quantized_linear(x: torch.Tensor, w_q: torch.Tensor,
+                     w_scale: torch.Tensor,
+                     x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LM serving path: y = (x_q @ w_q) * (sx * sw[n]), in x's dtype.
+
+    x: float activations, dynamically quantized to int8 per tensor;
+    w_q: (K, N) int8 with per-channel scales w_scale (N,) float32.  A
+    transposed view of a contiguous (N, K) matrix (what
+    ``models.quantized.quantize_params`` stores) reaches the kernel with no
+    copy.  The dtype steps are the reference's: amax is taken and divided
+    by 127 in x's dtype, then cast to float32; x is divided by that scale
+    in float32 (torch keeps a bfloat16 tensor over a 0-d float32 tensor in
+    bfloat16, JAX promotes it, so the cast is explicit), rounded half to
+    even and clipped.
+    """
+    orig_shape = x.shape
+    x2 = x.reshape(-1, orig_shape[-1])
+    if x_scale is None:
+        amax = x2.abs().amax().clamp_min(1e-6)
+        x_scale = (amax / 127.0).to(torch.float32)
+    x_q = torch.round(x2.to(torch.float32) / x_scale) \
+        .clamp(-128, 127).to(torch.int8)
+    scale = w_scale.to(torch.float32) * x_scale
+    y = vta_gemm(x_q, w_q, scale=scale, epilogue="dequant")
+    return y.reshape(*orig_shape[:-1], w_q.shape[1]).to(x.dtype)

@@ -1,6 +1,10 @@
-"""Models on the VTA datapath: the quantized decoder served through the
-compiled stack, and dense layers through the program-level JIT."""
-from . import quantized, vta_decoder  # noqa: F401
-from .quantized import VtaLinear, vta_linear_from_params  # noqa: F401
+"""Models: the quantized decoder served through the compiled stack, dense
+layers through the program-level JIT, and the LM (dense family) with its
+serve-time PTQ."""
+from . import (attention, layers, quantized, transformer,  # noqa: F401
+               vta_decoder)
+from .quantized import (VtaLinear, quantize_params,  # noqa: F401
+                        vta_linear_from_params)
+from .transformer import LMParams  # noqa: F401
 from .vta_decoder import (DecoderConfig, DecoderReference,  # noqa: F401
                           QuantDecoder)

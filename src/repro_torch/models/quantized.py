@@ -1,4 +1,10 @@
-"""Dense layers on the VTA datapath through the program-level JIT.
+"""Serve-time PTQ of an LM's weights, and dense layers on the VTA
+datapath through the program-level JIT.
+
+:func:`quantize_params` is the paper's deployment step (float weights ->
+int8) applied to the LM stack: every linear weight inside the layer
+blocks becomes {w_q: int8, w_scale: float32 per output channel};
+embeddings, norms and the LM head stay float.
 
 :class:`VtaLinear` routes a quantized linear layer through
 ``repro_torch.core.Program``: the layer compiles once into a task-ISA
@@ -6,22 +12,66 @@ stream and every subsequent call just rebinds the activation buffer and
 re-runs it on either execution engine — the deployment path that exercises
 the VTA datapath instead of a library GEMM.
 
-The reference module also holds the serve-time PTQ of a whole LM parameter
-tree (``quantize_params``, ``quantized_param_shapes``); those need the LM
-substrate's ``models/layers.py`` and come with it.  ``from_params`` takes
-PTQ parameters as numpy arrays.
+``quantized_param_shapes`` (the reference's dry-run helper) is not
+ported.  ``from_params`` takes PTQ parameters as numpy arrays or CPU
+tensors.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core import hwspec as _hwspec
 from ..core import quantize as q
 from ..core.driver import TorchDeviceLike
 from ..core.program import CompiledProgram, Program
 from ..core.scheduler import Epilogue
+from .layers import quantize_linear_params
+from .transformer import LMParams
+
+_QUANT_NAMES = ("wq", "wk", "wv", "wo", "wi", "wg", "up_x", "up_z",
+                "w_in", "w_if", "down", "in_proj", "out_proj")
+
+
+def _quantize_stacked(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """PTQ of a stacked (L, K, N) weight one layer at a time (each layer's
+    float32 temporaries only): w_q (L, K, N), a transposed view of
+    contiguous (L, N, K) int8 storage, and w_scale (L, N)."""
+    L, K, N = w.shape
+    store = torch.empty((L, N, K), dtype=torch.int8, device=w.device)
+    scale = torch.empty((L, N), dtype=torch.float32, device=w.device)
+    for i in range(L):
+        one = quantize_linear_params({"w": w[i]})
+        store[i] = one["w_q"].t()
+        scale[i] = one["w_scale"]
+    return {"w_q": store.transpose(1, 2), "w_scale": scale}
+
+
+def quantize_params(params: Any) -> LMParams:
+    """PTQ the layer-stack linears of an LM (an ``LMParams`` or its tree):
+    per layer of a stack and per output channel.  Returns a new
+    ``LMParams`` that shares every tensor it does not quantize."""
+    tree = params.tree() if isinstance(params, LMParams) else params
+
+    def walk(node, name=""):
+        if isinstance(node, dict) and torch.is_tensor(node.get("w")):
+            if name in _QUANT_NAMES and node["w"].dim() in (2, 3):
+                if node["w"].dim() == 3:
+                    return _quantize_stacked(node["w"])
+                return quantize_linear_params(node)
+            return node
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        return node
+
+    out = dict(tree)
+    out["layers"] = walk(tree["layers"])
+    for k in ("shared_attn", "encoder"):
+        if k in tree:
+            out[k] = walk(tree[k])
+    return LMParams(out)
 
 
 class VtaLinear:

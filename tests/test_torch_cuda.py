@@ -12,7 +12,12 @@ version (lane groups, then splits): float32 within 1e-5 absolute on
 unit-scale inputs; bfloat16, compared in float32, within 2^-6 * max|want|
 (four bf16 ulps at 2^-8 * max|want| each), a limit that follows the
 output's scale; two calls on the same inputs are bitwise equal (no
-atomics, fixed split count).
+atomics, fixed split count).  The same holds for a bfloat16 query over
+float32 caches and for G = 9 query heads per kv head (starcoder2-7b).
+``flash_attention`` against its plain version: float32 within 1e-5
+absolute on unit-normal inputs (sums in another order: a D-long dot per
+score, a running softmax over 64-key tiles), bfloat16 within 2^-6 *
+max|want| as above; bitwise equal over two calls.
 """
 import numpy as np
 import pytest
@@ -28,6 +33,8 @@ from repro_torch.core.serve import DevicePool
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref_4d)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.lut_gemm import lut_gemm, lut_gemm_ref
 from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_ref
 from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
@@ -165,6 +172,92 @@ def test_decode_attention_kernel_matches_plain(cuda_dev, B, S, HQ, KH, D,
         limit = atol if dtype == torch.float32 else \
             atol * want.float().abs().max().item()
         assert err <= limit, (kv_len, err, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "bf16q-f32kv"])
+@pytest.mark.parametrize("B,S,HQ,KH,D", [(1, 96, 2, 2, 32),
+                                         (1, 4096, 24, 8, 128),
+                                         (2, 300, 36, 4, 128)],
+                         ids=["decoder", "llama", "starcoder2-G9"])
+def test_decode_attention_any_group_and_mixed_dtype(cuda_dev, B, S, HQ, KH,
+                                                    D, q_dtype, kv_dtype):
+    """The repaired kernel: G = 9 and a query of another dtype than the
+    caches (the LM serve path's bfloat16 model over float32 caches)."""
+    rng = np.random.default_rng(S + HQ + 1)
+
+    def t(dtype, *shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(cuda_dev).to(dtype)
+    q = t(q_dtype, B, 1, HQ, D)
+    k, v = t(kv_dtype, B, S, KH, D), t(kv_dtype, B, S, KH, D)
+    for kv_len in (0, 1, S - 37, S):
+        got = decode_attention(q, k, v, kv_len)
+        again = decode_attention(q, k, v, kv_len)
+        want = decode_attention_ref_4d(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        assert got.dtype == q_dtype and got.shape == want.shape
+        assert torch.equal(got, again)
+        err = (got.float() - want.float()).abs().max().item()
+        limit = 1e-5 if q_dtype == torch.float32 else \
+            2.0 ** -6 * want.float().abs().max().item()
+        assert err <= limit, (kv_len, err, limit)
+
+
+FLASH_CASES = [
+    # (B, S, Sk, HQ, KH, D, causal)
+    (1, 16, 16, 24, 8, 128, True),       # the Llama-3.2-3B prompt
+    (2, 300, 300, 8, 2, 64, True),       # ragged tiles
+    (1, 200, 333, 4, 1, 128, False),     # non-causal, Sk != S, MQA
+    (1, 40, 130, 4, 2, 32, True),        # a cache prefix: Sk > S
+    (1, 100, 36, 2, 2, 16, True),        # Sk < S: rows that see no key
+    (1, 1024, 1024, 4, 4, 128, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_attention_kernel_matches_plain(cuda_dev, case, dtype):
+    B, S, Sk, HQ, KH, D, causal = case
+    rng = np.random.default_rng(S + Sk + HQ)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(cuda_dev).to(dtype)
+    q, k, v = t(B, S, HQ, D), t(B, Sk, KH, D), t(B, Sk, KH, D)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    limit = 1e-5 if dtype == torch.float32 else \
+        2.0 ** -6 * want.float().abs().max().item()
+    assert err <= limit, (err, limit)
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_views(cuda_dev):
+    """q, k, v as views of one packed (B, S, HQ + 2 KH, D) projection: the
+    kernel reads them through their strides."""
+    rng = np.random.default_rng(21)
+    B, S, HQ, KH, D = 2, 70, 6, 2, 64
+    qkv = torch.from_numpy(rng.normal(size=(B, S, HQ + 2 * KH, D))
+                           .astype(np.float32)).to(cuda_dev)
+    q, k, v = qkv[:, :, :HQ], qkv[:, :, HQ:HQ + KH], qkv[:, :, HQ + KH:]
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal=True)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5
 
 
 @pytest.mark.cuda

@@ -1,0 +1,176 @@
+"""flash_attention in the port against the reference package.
+
+On CPU tensors the port's op runs its plain versions (the CUDA kernel is
+held against them on the card, in ``tests/test_torch_cuda.py``).  Here:
+
+  * the port's ``flash_attention`` equals the reference's Pallas kernel
+    (``flash_attention_pallas`` in interpret mode, blocks of 64 so the
+    causal skip and the diagonal mask are exercised) and the reference's
+    ``attention_ref`` at the MHA / GQA / MQA shapes of
+    ``tests/test_kernels.py`` cut to S = 256, causal and not.  Tolerance:
+    float32 2e-5 (absolute and relative; sums in another order),
+    bfloat16 2e-2 (both sides round the float32 result to bfloat16 once);
+  * ``attention_ref_chunked`` equals the reference's chunked oracle
+    (2e-5), and the op switches to it above ``_CHUNKED_THRESHOLD`` score
+    elements per head as the reference op does;
+  * causal with Sk != S: the port aligns the diagonal bottom-right, as
+    the reference's oracles do.  The reference's Pallas kernel masks
+    q_pos >= k_pos from 0 on both axes and so differs from its own oracle
+    there (S = 16, Sk = 32: by more than 1.0); the test shows both;
+  * a row that sees no key (causal, Sk < S) gives zeros in the port,
+    where the reference's materialized oracle gives the mean of v.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as r_flash
+from repro.kernels.flash_attention.kernel import flash_attention_pallas
+from repro.kernels.flash_attention.ref import (
+    attention_ref as r_attention_ref,
+    attention_ref_chunked as r_attention_ref_chunked)
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 attention_ref_chunked,
+                                                 flash_attention,
+                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import ops as t_ops
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+CASES = [
+    # (B, S, HQ, KH, D): test_kernels.py's shapes at S = 256
+    (1, 256, 4, 4, 64),     # MHA
+    (2, 256, 8, 2, 64),     # GQA 4:1
+    (1, 256, 4, 1, 128),    # MQA
+]
+
+
+def _inputs(seed, B, S, Sk, HQ, KH, D):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, S, HQ, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, KH, D)).astype(np.float32),
+            rng.normal(size=(B, Sk, KH, D)).astype(np.float32))
+
+
+def _heads(x):
+    B, S, H, D = x.shape
+    return x.transpose(0, 2, 1, 3).reshape(B * H, S, D)
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("case", CASES, ids=["mha", "gqa", "mqa"])
+def test_flash_matches_pallas_kernel_and_oracle(case, causal, dtype):
+    B, S, HQ, KH, D = case
+    q, k, v = _inputs(5, B, S, S, HQ, KH, D)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(a, jd) for a in (q, k, v))
+    got = flash_attention(*(torch.from_numpy(a).to(td) for a in (q, k, v)),
+                          causal=causal)
+    assert got.dtype == td and got.shape == (B, S, HQ, D)
+    pallas = r_flash(jq, jk, jv, causal=causal, use_pallas=True,
+                     interpret=True, bq=64, bk=64)
+    oracle = r_flash(jq, jk, jv, causal=causal, use_pallas=False)
+    tol = TOL[dtype]
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_f32(got), _f32(want), atol=tol,
+                                   rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("S,Sk,bk", [(64, 64, 16), (48, 96, 32),
+                                     (128, 128, 128)])
+def test_chunked_matches_reference_chunked(S, Sk, bk, causal):
+    q, k, v = _inputs(6, 2, S, Sk, 4, 2, 32)
+    got = attention_ref_chunked(*(torch.from_numpy(a) for a in (q, k, v)),
+                                group=2, causal=causal, bk=bk)
+    want = r_attention_ref_chunked(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), group=2, causal=causal,
+                                   bk=bk)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    # the materialized and chunked forms agree with each other too
+    flat = attention_ref(*(torch.from_numpy(_heads(a)) for a in (q, k, v)),
+                         group=2, causal=causal)
+    np.testing.assert_allclose(
+        got.numpy(), flat.numpy().reshape(2, 4, S, 32).transpose(0, 2, 1, 3),
+        atol=2e-5, rtol=2e-5)
+
+
+def test_plain_version_switches_to_chunked_above_threshold(monkeypatch):
+    """S * Sk above the threshold takes the chunked loop, as the reference
+    op does; both give the reference op's result."""
+    calls = []
+    real = t_ops.attention_ref_chunked
+    monkeypatch.setattr(t_ops, "attention_ref_chunked",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    S = 2056                        # 2056^2 > 2048^2
+    q, k, v = _inputs(7, 1, S, S, 2, 1, 16)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert calls == [1]
+    want = r_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   use_pallas=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
+                               rtol=2e-5)
+    small = flash_attention_plain(*(torch.from_numpy(a[:, :64])
+                                    for a in (q, k, v)))
+    assert calls == [1] and small.shape == (1, 64, 2, 16)
+
+
+def test_causal_with_a_longer_key_range_aligns_bottom_right():
+    """S = 16 queries over Sk = 32 keys (a cache prefix of 16): the port
+    follows the reference's oracle; the reference's Pallas kernel masks
+    from 0 on both axes and differs from that oracle by more than 1."""
+    q, k, v = _inputs(11, 1, 16, 32, 2, 2, 64)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=True)
+    oracle = r_attention_ref(*(jnp.asarray(_heads(a)) for a in (q, k, v)),
+                             group=1, causal=True)
+    oracle = np.asarray(oracle).reshape(1, 2, 16, 64).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(got.numpy(), oracle, atol=2e-5, rtol=2e-5)
+    pallas = flash_attention_pallas(
+        *(jnp.asarray(_heads(a)) for a in (q, k, v)), group=1, causal=True,
+        bq=16, bk=16, interpret=True)
+    pallas = np.asarray(pallas).reshape(1, 2, 16, 64).transpose(0, 2, 1, 3)
+    assert np.abs(pallas - oracle).max() > 1.0
+    # at S == Sk the kernel and the oracle agree
+    np.testing.assert_allclose(
+        flash_attention(*(torch.from_numpy(a[:, :16]) for a in (q, k, v)),
+                        causal=True).numpy(),
+        np.asarray(r_flash(*(jnp.asarray(a[:, :16]) for a in (q, k, v)),
+                           causal=True, use_pallas=True, interpret=True,
+                           bq=16, bk=16)), atol=2e-5, rtol=2e-5)
+
+
+def test_rows_that_see_no_key_give_zeros():
+    """Causal with Sk < S: the first S - Sk rows see no key.  The port
+    gives zeros there (weights of masked keys are zero, l is clamped at
+    1e-30); the reference's materialized oracle gives the mean of v (a
+    softmax over a row of -1e30).  Every other row agrees."""
+    q, k, v = _inputs(12, 1, 24, 16, 2, 1, 32)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=True).numpy()
+    oracle = r_flash(*(jnp.asarray(a) for a in (q, k, v)), causal=True,
+                     use_pallas=False)
+    oracle = np.asarray(oracle)
+    assert np.all(got[:, :8] == 0)
+    np.testing.assert_allclose(oracle[:, :8],
+                               np.broadcast_to(v.mean(axis=1)[:, None],
+                                               (1, 8, 2, 32)),
+                               atol=1e-5)
+    np.testing.assert_allclose(got[:, 8:], oracle[:, 8:], atol=2e-5,
+                               rtol=2e-5)
+
+
+def test_meta_tensors_have_no_kernel():
+    q = torch.empty((1, 4, 2, 16), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention(q, q[:, :, :1, :8], q[:, :, :1, :8])
