@@ -62,6 +62,28 @@ Phases, in the order they run:
      bfloat16 against the chunked plain version), a non-causal ragged
      shape and a causal one with Sk > S; decode_attention also at
      starcoder2-7b's G = 9 and with a bfloat16 query over float32 caches;
+  9. the fourth main path, the hybrid serve path: zamba2-1.2b at full
+     width (src/repro_torch/configs/zamba2.py: 38 Mamba2 layers and a
+     shared attention block applied 6 times; seed 0, int8 PTQ) served by
+     ServeEngine (4 slots, max_len 1024, float32 caches) to the reference
+     CLI's traffic, then one request with a 512-token prompt (8 chunks of
+     the scan), then 2 requests through the bf16 weights and 2 through a
+     float32 copy; each replayed with PlainOps (gla_chunk swapped too)
+     and again with the scan by its step recurrence (the model's own
+     rounding floor): the float32 run within LM_LOGIT_TOL, the bf16 and
+     int8 runs, whose floor exceeds it, within twice their floor; every
+     launch of the int8 and bf16 runs held to its plain version on the
+     same inputs (CheckedOps); every
+     prefill held to 38 gla_chunk, 6 flash_attention and 118 vta_gemm
+     launches and every decode step to 6 decode_attention, 118 vta_gemm
+     and 0 gla_chunk (0 vta_gemm on bf16 weights); the device idle share
+     of one profiled decode step.  Its vta_gemm, decode_attention and
+     flash_attention shapes join phases 1 and 7, and phase 7 holds
+     gla_chunk against its plain version at every shape the path launched
+     (timed), at zamba2-1.2b's prefill at S 4096 and 32768 (timed), at the
+     reference's kernel-test shapes with a nonzero h0, at Q = 16, with
+     bfloat16 q and k, with and without stride-0 heads; bitwise equal over
+     two calls;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -119,18 +141,27 @@ def cuda_time_ms(fn, reps=20, warmup=3):
 PROFILER_RETRIES = []
 #: windows in which the profiler saw fewer launches of a kernel than ran
 PROFILER_DROPS = []
+#: (kernel, ms) timed by CUDA events after every profiler window was empty
+PROFILER_FALLBACKS = []
+#: the least CUDA-event time per call that may stand in for the profiler's
+#: device time: the host's share of a call is ~0.05 ms (call_ms - ms at
+#: the small shapes of the kernels line), under 5% of a call this long
+EVENT_CLOCK_MIN_MS = 1.0
 
 
-def kernel_ms(fn, kernel_name, reps=20, attempts=3):
+def kernel_ms(fn, kernel_name, call_ms, reps=20, attempts=8):
     """Device time of the CUDA kernels named `kernel_name` per call of
     fn(), from torch.profiler: for each distinct kernel matched, its total
     device time over the launches the profiler recorded, summed over the
     kernels (each runs once per call).  The profiler can lose activity
-    records (seen: one of three 216 ms launches recorded); a window that
-    recorded fewer launches than ran is noted, and one that recorded none
-    is taken again, up to `attempts` windows in all.  When no window sees
-    them the script fails: a launched kernel it cannot see is a fault,
-    not a time, and no other clock stands in."""
+    records (seen: one of three 216 ms launches recorded, and no launch
+    at all in eight windows in a row); a window that recorded fewer
+    launches than ran is noted, and one that recorded none is taken
+    again, up to `attempts` windows in all.  When no window sees them,
+    `call_ms` (fn()'s CUDA-event time) stands in if it is at least
+    EVENT_CLOCK_MIN_MS, where the host's part of a call is small; the
+    substitution is logged and recorded.  Below that the script fails:
+    there the event time would be mostly the host's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -156,8 +187,14 @@ def kernel_ms(fn, kernel_name, reps=20, attempts=3):
         PROFILER_RETRIES.append(kernel_name)
         log(f"  torch.profiler saw no {kernel_name} in window "
             f"{attempt + 1} of {attempts}")
+    if call_ms >= EVENT_CLOCK_MIN_MS:
+        PROFILER_FALLBACKS.append((kernel_name, call_ms))
+        log(f"  {kernel_name}: CUDA events' {call_ms:.4f} ms per call stand "
+            f"in for the profiler's device time")
+        return call_ms
     fail(f"torch.profiler saw no device time for {kernel_name} in "
-         f"{attempts} windows")
+         f"{attempts} windows, and its call ({call_ms:.4f} ms) is too short "
+         f"for CUDA events to stand in")
 
 
 # ----------------------------------------------------------------------
@@ -519,7 +556,7 @@ def phase_gemm_kernel(rec, main_shapes):
             continue
         call_ms = cuda_time_ms(lambda: vta_gemm(a, w, bias, scale, **kw))
         ms = kernel_ms(lambda: vta_gemm(a, w, bias, scale, **kw),
-                       "vta_gemm_kernel")
+                       "vta_gemm_kernel", call_ms)
         plain = cuda_time_ms(lambda: vta_gemm_ref(a, w, bias, scale, **kw),
                              reps=5, warmup=1)
         lib = None
@@ -606,7 +643,7 @@ def phase_alu_kernel(rec, main_shapes):
             continue
         call_ms = cuda_time_ms(lambda: tensor_alu(d, s_arg, chain=chain))
         ms = kernel_ms(lambda: tensor_alu(d, s_arg, chain=chain),
-                       "tensor_alu_kernel")
+                       "tensor_alu_kernel", call_ms)
         plain = cuda_time_ms(lambda: tensor_alu_ref(d, s_arg, chain=chain),
                              reps=5, warmup=1)
         lib = None
@@ -1012,7 +1049,7 @@ def phase_lut_kernel(rec, main_shapes):
             continue
         call = lambda: lut_gemm(a, w, bits=bits, group=group, **kw)  # noqa
         call_ms = cuda_time_ms(call)
-        ms = kernel_ms(call, "lut_gemm_kernel")
+        ms = kernel_ms(call, "lut_gemm_kernel", call_ms)
         plain = cuda_time_ms(lambda: lut_gemm_ref(a, w, **kw), reps=5,
                              warmup=1)
         # the library yardstick: torch._int_mm on the same int8 operands
@@ -1138,7 +1175,7 @@ def phase_attn_kernel(rec, main_shapes):
         kv_len = lens[-1]
         call = lambda: decode_attention(q, k, v, kv_len)  # noqa: E731
         call_ms = cuda_time_ms(call)
-        ms = kernel_ms(call, "decode_")
+        ms = kernel_ms(call, "decode_", call_ms)
         plain = cuda_time_ms(lambda: decode_attention_ref_4d(q, k, v, kv_len),
                              reps=5, warmup=1)
         lib = lib_err = None
@@ -1234,7 +1271,7 @@ def phase_flash_kernel(rec, main_shapes):
         reps = 3 if big else 20
         call = lambda: flash_attention(q, k, v, causal=causal)  # noqa
         call_ms = cuda_time_ms(call, reps=reps, warmup=1)
-        ms = kernel_ms(call, "flash_kernel", reps=reps)
+        ms = kernel_ms(call, "flash_kernel", call_ms, reps=reps)
         plain = cuda_time_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal), reps=1 if big else 5, warmup=1)
         lib = lib_err = None
@@ -1275,24 +1312,56 @@ LM_BF16_REQUESTS = 2
 LM_LOGIT_TOL = 0.05
 
 
+def gla_by_recurrence(q, k, v, la, h0=None, *, chunk=64, y_dtype=None):
+    """The gla_chunk op's function computed by the step recurrence (plain
+    PyTorch, the same math as the chunked plain version with its sums in
+    another order): a second plain implementation, whose distance from the
+    first measures how far the model carries float rounding alone."""
+    import torch
+    from repro_torch.kernels.gla_chunk import gla_recurrence
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    if S % min(chunk, S):
+        raise ValueError(f"S = {S} is not a multiple of the chunk")
+
+    def to_bh(t):
+        return t.transpose(1, 2).reshape(B * H, 1, S, -1)
+    h = torch.zeros((B * H, N, P), device=q.device) if h0 is None \
+        else h0.reshape(B * H, N, P)
+    y, h = gla_recurrence(to_bh(q), to_bh(k), to_bh(v), to_bh(la[..., None])
+                          [..., 0], h)
+    return (y.reshape(B, H, S, P).transpose(1, 2).to(y_dtype or q.dtype),
+            h.reshape(B, H, N, P))
+
+
 class PlainOps:
-    """Swap the LM path's three kernel ops for their plain versions
-    (flash_attention, decode_attention, and the vta_gemm under
-    quantized_linear), for the duration of the block."""
+    """Swap the LM paths' four kernel ops for their plain versions
+    (flash_attention, decode_attention, the vta_gemm under
+    quantized_linear, and the gla_chunk under Mamba2's chunked_gla), for
+    the duration of the block; with scan="recurrence" the scan is
+    gla_by_recurrence."""
+
+    def __init__(self, scan="chunked"):
+        self.scan = scan
 
     def __enter__(self):
         import repro_torch.kernels.vta_gemm.ops as vops
         import repro_torch.models.attention as att
+        import repro_torch.models.ssm as ssm
         from repro_torch.kernels.decode_attention import \
             decode_attention_ref_4d
         from repro_torch.kernels.flash_attention import flash_attention_plain
+        from repro_torch.kernels.gla_chunk import gla_chunk_plain
         from repro_torch.kernels.vta_gemm import vta_gemm_ref
         self.saved = [(att, "flash_attention", att.flash_attention),
                       (att, "decode_attention", att.decode_attention),
-                      (vops, "vta_gemm", vops.vta_gemm)]
+                      (vops, "vta_gemm", vops.vta_gemm),
+                      (ssm, "gla_chunk", ssm.gla_chunk)]
         att.flash_attention = flash_attention_plain
         att.decode_attention = decode_attention_ref_4d
         vops.vta_gemm = vta_gemm_ref
+        ssm.gla_chunk = gla_chunk_plain if self.scan == "chunked" \
+            else gla_by_recurrence
         return self
 
     def __exit__(self, *exc):
@@ -1301,18 +1370,80 @@ class PlainOps:
         return False
 
 
-def lm_engine(cfg, params, counters, forced=None):
-    """A ServeEngine that times each prefill (add_request) and decode step
-    (both end in a host read of the chosen tokens), counts the kernels'
-    launches in each, keeps every call's logits on the card, and, when
-    `forced` is given, takes those tokens in place of its own choice."""
+class CheckedOps(PlainOps):
+    """For the duration of the block, every launch of the four kernel ops
+    also computes its plain version on the same inputs and is held to it:
+    vta_gemm bitwise, gla_chunk within 3e-4 + 3e-4 |plain| elementwise,
+    the attention kernels within attn_tolerance.  `worst` keeps each op's
+    largest error relative to max|plain|, `calls` its launches."""
+
+    def __enter__(self):
+        import torch
+        import repro_torch.kernels.vta_gemm.ops as vops
+        import repro_torch.models.attention as att
+        import repro_torch.models.ssm as ssm
+        from repro_torch.kernels.decode_attention import (
+            decode_attention, decode_attention_ref_4d)
+        from repro_torch.kernels.flash_attention import (
+            flash_attention, flash_attention_plain)
+        from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
+        from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+        self.worst, self.calls = {}, {}
+
+        def close(name, a, b):
+            if name == "vta_gemm":
+                return torch.equal(a, b)
+            d = (a.float() - b.float()).abs()
+            if name == "gla_chunk":
+                return bool((d <= 3e-4 + 3e-4 * b.float().abs()).all())
+            dt = "float32" if b.dtype == torch.float32 else "bfloat16"
+            return float(d.max()) <= attn_tolerance(dt, b)
+
+        def checked(name, kernel, plain):
+            def call(*args, **kw):
+                got, want = kernel(*args, **kw), plain(*args, **kw)
+                pairs = zip(got, want) if isinstance(got, tuple) \
+                    else [(got, want)]
+                for a, b in pairs:
+                    if not close(name, a, b):
+                        fail(f"{name} differs from its plain version at a "
+                             f"launch of the served path, shapes "
+                             f"{[tuple(t.shape) for t in args[:2]]}")
+                    rel = float((a.float() - b.float()).abs().max()
+                                / b.float().abs().max().clamp_min(1e-30))
+                    self.worst[name] = max(self.worst.get(name, 0.0), rel)
+                self.calls[name] = self.calls.get(name, 0) + 1
+                return got
+            # vta_gemm counts its launches on the name it is called by
+            call.launches, call.shapes = 0, {}
+            return call
+        self.saved = [(att, "flash_attention", att.flash_attention),
+                      (att, "decode_attention", att.decode_attention),
+                      (vops, "vta_gemm", vops.vta_gemm),
+                      (ssm, "gla_chunk", ssm.gla_chunk)]
+        att.flash_attention = checked("flash_attention", flash_attention,
+                                      flash_attention_plain)
+        att.decode_attention = checked("decode_attention", decode_attention,
+                                       decode_attention_ref_4d)
+        vops.vta_gemm = checked("vta_gemm", vta_gemm, vta_gemm_ref)
+        ssm.gla_chunk = checked("gla_chunk", gla_chunk, gla_chunk_plain)
+        return self
+
+
+def lm_engine(cfg, params, counters, forced=None, slots=LM_SLOTS,
+              max_len=LM_MAX_LEN):
+    """A ServeEngine (float32 caches) that times each prefill
+    (add_request) and decode step (both end in a host read of the chosen
+    tokens), counts the kernels' launches in each, keeps every call's
+    logits on the card, and, when `forced` is given, takes those tokens in
+    place of its own choice."""
     import torch
     from repro_torch.launch.serve import ServeEngine
 
     class Engine(ServeEngine):
         def __init__(self):
-            super().__init__(cfg, params, batch_slots=LM_SLOTS,
-                             max_len=LM_MAX_LEN, dtype=torch.float32,
+            super().__init__(cfg, params, batch_slots=slots,
+                             max_len=max_len, dtype=torch.float32,
                              torch_device=DEVICE)
             self.logits, self.chosen = [], []
             self.prefill_ms, self.step_ms = [], []
@@ -1348,10 +1479,10 @@ def lm_engine(cfg, params, counters, forced=None):
     return Engine()
 
 
-def compare_logits(kernel_eng, plain_eng, what):
+def compare_logits(kernel_eng, plain_eng, what, limit=LM_LOGIT_TOL):
     """Every call's logits, kernel run against the teacher-forced plain
     run: the largest |difference| over max|plain logit|, and the share of
-    rows whose argmax agrees."""
+    rows whose argmax agrees; fails above `limit` (None: never)."""
     import torch
     if len(kernel_eng.logits) != len(plain_eng.logits):
         fail(f"{what}: {len(kernel_eng.logits)} logit calls against "
@@ -1364,9 +1495,9 @@ def compare_logits(kernel_eng, plain_eng, what):
         worst = max(worst, rel)
         agree += int((a.argmax(-1) == b.argmax(-1)).sum())
         rows += a.shape[0]
-    if worst > LM_LOGIT_TOL:
+    if limit is not None and worst > limit:
         fail(f"{what}: logits differ from the plain run by {worst:.4f} of "
-             f"max|logit| (limit {LM_LOGIT_TOL})")
+             f"max|logit| (limit {limit})")
     return worst, agree / rows
 
 
@@ -1388,6 +1519,87 @@ def lm_summary(eng, done, wall_s):
                 launches_per_step=per(eng.step_launches))
 
 
+def lm_weights(arch):
+    """An arch's config at full width, its random weights from
+    torch.Generator seed 0 (the reference's distributions) on the card,
+    and their int8 PTQ; the seconds both took."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantized import quantize_params
+    cfg = get_arch(arch).model
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        params = T.init_params(cfg, torch.Generator(device=DEVICE)
+                               .manual_seed(0), torch_device=DEVICE)
+        qparams = quantize_params(params)
+    torch.cuda.synchronize()
+    return cfg, params, qparams, time.perf_counter() - t0
+
+
+def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
+              max_len=LM_MAX_LEN, floor=False):
+    """Serve `requests()` with the counts set to 0 just before and read
+    just after; replay them with PlainOps, teacher-forced on the kernel
+    run's tokens, every call's logits within LM_LOGIT_TOL of max|logit|.
+    With `floor`, a second plain replay (the scan by its step recurrence)
+    measures the model's own rounding floor, the largest gap between the
+    two plain runs; where twice that floor exceeds LM_LOGIT_TOL, the
+    kernel run is held to twice the floor instead.  Returns the run's
+    summary, with its launch counts."""
+    import torch
+    eng = lm_engine(cfg, params, counters, slots=slots, max_len=max_len)
+    reqs = requests()
+    counters.reset()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    if len(done) != len(reqs) or any(len(r.out_tokens) != r.max_new
+                                     for r in done):
+        fail(f"{what}: served {len(done)} of {len(reqs)} requests")
+    summary = lm_summary(eng, done, wall)
+    with PlainOps():
+        plain = lm_engine(cfg, params, counters, forced=eng.chosen,
+                          slots=slots, max_len=max_len)
+        plain.run(requests())
+    limit, floor_gap = LM_LOGIT_TOL, None
+    if floor:
+        with PlainOps(scan="recurrence"):
+            alt = lm_engine(cfg, params, counters, forced=eng.chosen,
+                            slots=slots, max_len=max_len)
+            alt.run(requests())
+        floor_gap, _ = compare_logits(alt, plain, what, limit=None)
+        limit = max(LM_LOGIT_TOL, 2 * floor_gap)
+    worst, agree = compare_logits(eng, plain, what, limit=limit)
+    summary.update(launches=launches, logit_max_rel_err=worst,
+                   logit_limit=limit, logit_floor=floor_gap,
+                   argmax_agreement=agree,
+                   tokens_head={r.rid: r.out_tokens[:8] for r in done},
+                   prefill_launches=eng.prefill_launches,
+                   step_launches=eng.step_launches)
+    lp, ls = summary["launches_per_prefill"], summary["launches_per_step"]
+    log(f"  {what}: {summary['requests']} requests, "
+        f"{summary['tokens']} tokens in {wall:.2f} s "
+        f"({summary['tokens_per_s']:.1f} tokens/s); prefill median "
+        f"{summary['prefill_ms_median']:.2f} ms; decode step median "
+        f"{summary['step_ms_median']:.2f} ms, p90 "
+        f"{summary['step_ms_p90']:.2f} ms over "
+        f"{summary['decode_steps']} steps")
+    log("    launches per prefill: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in lp.items() if v)
+        + "; per decode step: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ls.items() if v))
+    log(f"    against the plain run (teacher-forced): logits within "
+        f"{worst:.3e} of max|logit| (limit {limit:.3e}); argmax "
+        f"agreement {agree:.4f}"
+        + ("" if floor_gap is None else
+           f"; the two plain runs (chunked scan, step recurrence) differ "
+           f"by {floor_gap:.3e}"))
+    return summary
+
+
 def phase_lm(rec, counters):
     """llama3.2-3b at full width (28 layers, d 3072, 24/8 heads, hd 128,
     d_ff 8192, vocab 128256, bf16, tied embeddings, rope theta 5e5): random
@@ -1396,23 +1608,13 @@ def phase_lm(rec, counters):
     float32 caches) to the reference CLI's traffic (6 requests, 16-token
     prompts from np.random.default_rng(0), 16 new tokens each); then 2
     requests through the bf16 weights (no vta_gemm).  Each run is
-    replayed with the three kernels swapped for their plain versions,
+    replayed with the kernels swapped for their plain versions,
     teacher-forced on the kernel run's tokens, and every call's logits
     held within LM_LOGIT_TOL of max|logit|.  The counts are set to 0 just
     before each served run and read just after."""
     import torch
-    from repro_torch.configs import get_arch
     from repro_torch.launch.serve import make_requests
-    from repro_torch.models import transformer as T
-    from repro_torch.models.quantized import quantize_params
-    cfg = get_arch(LM_ARCH).model
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        params = T.init_params(cfg, torch.Generator(device=DEVICE)
-                               .manual_seed(0), torch_device=DEVICE)
-        qparams = quantize_params(params)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    cfg, params, qparams, init_s = lm_weights(LM_ARCH)
     n_params = sum(t.numel() for t in params.state_dict().values())
     log(f"  {LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
         f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.hd}, d_ff {cfg.d_ff}, "
@@ -1425,46 +1627,16 @@ def phase_lm(rec, counters):
     out = {}
     for name, p, n_req in (("int8", qparams, LM_REQUESTS),
                            ("bf16", params, LM_BF16_REQUESTS)):
-        eng = lm_engine(cfg, p, counters)
-        reqs = make_requests(cfg, n_req, LM_MAX_NEW)
-        counters.reset()
-        t0 = time.perf_counter()
-        done = eng.run(reqs)
-        wall = time.perf_counter() - t0
-        launches = counters.read()
-        if len(done) != n_req or any(len(r.out_tokens) != LM_MAX_NEW
-                                     for r in done):
-            fail(f"LM {name}: served {len(done)} of {n_req} requests")
+        summary = serve_run(
+            cfg, f"LM {name} weights", p,
+            lambda n=n_req: make_requests(cfg, n, LM_MAX_NEW), counters)
+        launches = summary["launches"]
         want = {"flash_attention": 1, "decode_attention": 1,
                 "vta_gemm": int(name == "int8")}
         for k, need in want.items():
             if (launches[k] > 0) != bool(need):
                 fail(f"LM {name}: {k} launched {launches[k]} times")
-        summary = lm_summary(eng, done, wall)
-        with PlainOps():
-            plain = lm_engine(cfg, p, counters, forced=eng.chosen)
-            plain.run(make_requests(cfg, n_req, LM_MAX_NEW))
-        worst, agree = compare_logits(eng, plain, f"LM {name}")
-        summary.update(launches=launches, logit_max_rel_err=worst,
-                       logit_limit=LM_LOGIT_TOL, argmax_agreement=agree,
-                       tokens_head={r.rid: r.out_tokens[:8] for r in done})
         out[name] = summary
-        lp, ls = summary["launches_per_prefill"], summary["launches_per_step"]
-        log(f"  {name} weights: {summary['requests']} requests, "
-            f"{summary['tokens']} tokens in {wall:.2f} s "
-            f"({summary['tokens_per_s']:.1f} tokens/s); prefill median "
-            f"{summary['prefill_ms_median']:.2f} ms; decode step median "
-            f"{summary['step_ms_median']:.2f} ms, p90 "
-            f"{summary['step_ms_p90']:.2f} ms over "
-            f"{summary['decode_steps']} steps")
-        log("    launches per prefill: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in lp.items() if v)
-            + "; per decode step: " + ", ".join(
-            f"{k} {v:.2f}" for k, v in ls.items() if v))
-        log(f"    against the plain run (teacher-forced): logits within "
-            f"{worst:.3e} of max|logit| (limit {LM_LOGIT_TOL}); argmax "
-            f"agreement {agree:.4f}")
-        del eng, plain
     out["lm_profile"] = lm_step_profile(cfg, qparams, counters)
     rec["lm"] = dict(arch=LM_ARCH, params=n_params, init_s=init_s,
                      slots=LM_SLOTS, max_len=LM_MAX_LEN,
@@ -1474,15 +1646,17 @@ def phase_lm(rec, counters):
     return out
 
 
-def lm_step_profile(cfg, params, counters):
-    """Device idle share of one profiled decode step with 4 active slots
-    (after a warm one): device busy time over the profiled wall time."""
+def lm_step_profile(cfg, params, counters, slots=LM_SLOTS,
+                    max_len=LM_MAX_LEN, label="LM"):
+    """Device idle share of one profiled decode step with every slot
+    active (after a warm one): device busy time over the profiled wall
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import make_requests
-    eng = lm_engine(cfg, params, counters)
-    for r in make_requests(cfg, LM_SLOTS, LM_MAX_NEW, seed=7):
+    eng = lm_engine(cfg, params, counters, slots=slots, max_len=max_len)
+    for r in make_requests(cfg, slots, LM_MAX_NEW, seed=7):
         eng.add_request(r)
     eng.step()
     torch.cuda.synchronize()
@@ -1504,7 +1678,8 @@ def lm_step_profile(cfg, params, counters):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     out = dict(step_ms=plain_ms, profiled_ms=wall_ms, device_busy_ms=dev_ms,
                idle_share=1 - dev_ms / wall_ms, top_device_ms=top)
-    log(f"  profile of one LM decode step (4 slots, int8): {plain_ms:.2f} ms "
+    log(f"  profile of one {label} decode step ({slots} slots, int8): "
+        f"{plain_ms:.2f} ms "
         f"({wall_ms:.2f} ms profiled); device busy {dev_ms:.3f} ms -> idle "
         f"share {1 - dev_ms / wall_ms:.4f}")
     for k, t in top[:5]:
@@ -1512,20 +1687,248 @@ def lm_step_profile(cfg, params, counters):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 9: the hybrid serve path (the fourth main path)
+# ----------------------------------------------------------------------
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_SLOTS, HYBRID_MAX_LEN = 4, 1024
+#: one long prompt: 8 chunks of 64, so the state crosses chunks on the card
+HYBRID_LONG_PROMPT = 512
+
+
+def hybrid_launches(cfg, quantized):
+    """The launches one prefill and one decode step must make: a gla_chunk
+    per Mamba2 layer in prefill only; per application of the shared block
+    one flash_attention (prefill) or decode_attention (decode); with int8
+    weights a vta_gemm per quantized linear (in_proj and out_proj of each
+    layer, wq wk wv wo and the MLP's wi wg wo of each application)."""
+    pattern = cfg.block_pattern()
+    shared = pattern.count("mamba2_sharedattn")
+    gemms = (2 * len(pattern) + shared * (4 + 3)) * int(quantized)
+    prefill = {"gla_chunk": len(pattern), "flash_attention": shared,
+               "decode_attention": 0, "vta_gemm": gemms}
+    step = {"gla_chunk": 0, "flash_attention": 0,
+            "decode_attention": shared, "vta_gemm": gemms}
+    return prefill, step
+
+
+def phase_hybrid(rec, counters):
+    """zamba2-1.2b at full width (38 Mamba2 layers, d 2048, d_inner 4096,
+    64 SSM heads, N = P = 64, conv 4; the shared attention block, 32 heads
+    at hd 64 with a swiglu MLP of d_ff 8192, applied after layers 6, 12,
+    ..., 36; vocab 32000, untied head, bf16): random weights from
+    torch.Generator seed 0, int8 PTQ, served by ServeEngine(4 slots,
+    max_len 1024, float32 caches) to the reference CLI's traffic (6
+    requests, 16-token prompts, 16 new tokens each), then to one request
+    with a 512-token prompt (16 new tokens), then 2 requests through the
+    bf16 weights and 2 through a float32 copy of them.  Each run is
+    replayed with the kernels swapped for their plain versions
+    (teacher-forced) and again with the scan by its step recurrence: in
+    float32 the kernel run is held within LM_LOGIT_TOL of max|logit|; in
+    bf16 and int8 the two plain runs alone differ by more than that (the
+    model carries a rounding difference anywhere into every logit), and
+    the kernel run is held within twice their gap (serve_run).  Every
+    launch of the three served runs is then held to its plain version on
+    the same inputs (CheckedOps, an untimed run), and every prefill and
+    decode step to hybrid_launches.  The counts are set to 0 just before
+    each served run and read just after."""
+    import torch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.transformer import LMParams
+    cfg, params, qparams, init_s = lm_weights(HYBRID_ARCH)
+
+    def to_f32(tree):
+        return {k: to_f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    cfg32, params32 = cfg.replace(dtype="float32"), \
+        LMParams(to_f32(params.tree()))
+    n_elems = sum(t.numel() for t in params.state_dict().values())
+    log(f"  {HYBRID_ARCH}: {cfg.n_layers} Mamba2 layers, d {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads, N "
+        f"{cfg.ssm_state}, P {cfg.ssm_head_dim}; shared attention every "
+        f"{cfg.attn_every} layers, {cfg.n_heads} heads, hd {cfg.hd}, d_ff "
+        f"{cfg.d_ff}; vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"ModelConfig.n_params {cfg.n_params} ({n_elems} elements with "
+        f"norms, conv and SSM vectors), init + PTQ {init_s:.1f} s")
+    kw = dict(slots=HYBRID_SLOTS, max_len=HYBRID_MAX_LEN)
+    for p in (qparams, params):
+        lm_engine(cfg, p, counters, **kw).run(
+            make_requests(cfg, 1, 2, seed=99))
+    torch.cuda.synchronize()
+    runs = (
+        ("int8", cfg, qparams, lambda: make_requests(cfg, LM_REQUESTS,
+                                                     LM_MAX_NEW)),
+        ("int8_long", cfg, qparams, lambda: make_requests(
+            cfg, 1, LM_MAX_NEW, prompt_len=HYBRID_LONG_PROMPT, seed=1)),
+        ("bf16", cfg, params, lambda: make_requests(cfg, LM_BF16_REQUESTS,
+                                                    LM_MAX_NEW)),
+        ("f32", cfg32, params32, lambda: make_requests(
+            cfg, LM_BF16_REQUESTS, LM_MAX_NEW)))
+    out = {}
+    for name, c, p, requests in runs:
+        summary = serve_run(c, f"{HYBRID_ARCH} {name}", p, requests,
+                            counters, floor=True, **kw)
+        want_prefill, want_step = hybrid_launches(cfg, p is qparams)
+        for what, got, want in (
+                ("prefill", summary["prefill_launches"], want_prefill),
+                ("decode step", summary["step_launches"], want_step)):
+            for i, d in enumerate(got):
+                bad = {k: d[k] for k in want if d[k] != want[k]}
+                if bad:
+                    fail(f"{HYBRID_ARCH} {name}: {what} {i} launched "
+                         f"{bad}, not {want}")
+        out[name] = summary
+    checks = {}
+    for name, c, p, requests in runs[:3]:
+        with CheckedOps() as chk:
+            lm_engine(c, p, counters, **kw).run(requests())
+        checks[name] = dict(worst=chk.worst, launches=chk.calls)
+        log(f"  {HYBRID_ARCH} {name}, every launch against its plain "
+            f"version on the same inputs: " + ", ".join(
+                f"{k} x{chk.calls[k]} within {v:.2e} of max|plain|"
+                for k, v in sorted(chk.worst.items())))
+    out["launch_checks"] = checks
+    out["profile"] = lm_step_profile(cfg, qparams, counters, label=
+                                     HYBRID_ARCH, **kw)
+    rec["hybrid"] = dict(arch=HYBRID_ARCH, n_params=cfg.n_params,
+                         elements=n_elems, init_s=init_s, **kw,
+                         max_new=LM_MAX_NEW, **out)
+    del params, qparams, params32
+    torch.cuda.empty_cache()
+    return out
+
+
+def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
+    """The larger of the bytes (q and k once, counted once where they are
+    broadcast over heads; v, la and h0 read; y and h written) at the
+    memory rate and the operations (2Q^2 N + 2Q^2 P + 4QNP per chunk and
+    head) at the bf16 dense tensor-core peak."""
+    qk = 2 * B * S * N * (1 if broadcast else H) * qk_elt
+    nbytes = qk + B * S * H * (P + 1) * 4 + B * S * H * P * y_elt \
+        + B * H * N * P * 4 * (1 + bool(h0))
+    ops = B * H * (S // Q) * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P)
+    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+#: zamba2-1.2b's prefill scan at long prompts: (B, S, H, N, P, chunk)
+ZAMBA2_PREFILL = [(1, 4096, 64, 64, 64, 64), (1, 32768, 64, 64, 64, 64)]
+
+
+def gla_inputs(B, S, H, N, P, seed, qk_dtype="float32", broadcast=True,
+               h0=True):
+    """Unit-normal q, k (one row per step broadcast over heads, as Mamba2
+    gives them, or one per head), v; la = -0.3 |normal|; h0 0.1 normal."""
+    import torch
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    dt = getattr(torch, qk_dtype)
+    if broadcast:
+        q = t(B, S, N).to(dt)[:, :, None].expand(B, S, H, N)
+        k = t(B, S, N).to(dt)[:, :, None].expand(B, S, H, N)
+    else:
+        q, k = t(B, S, H, N).to(dt), t(B, S, H, N).to(dt)
+    return (q, k, t(B, S, H, P), -t(B, S, H).abs() * 0.3,
+            t(B, H, N, P) * 0.1 if h0 else None)
+
+
+def phase_gla_kernel(rec, main_shapes):
+    """gla_chunk against its plain version within 3e-4 absolute plus 3e-4
+    relative (the reference's own limit for its kernel against its
+    oracle), y in float32 as chunked_gla asks, and bitwise equal over two
+    calls; timed at every shape the hybrid path launched and at
+    zamba2-1.2b's prefill at S 4096 and 32768."""
+    import torch
+    from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
+    cases = []
+    for (B, S, H, N, P, Q, dt, bc), n in main_shapes.items():
+        cases.append(((B, S, H, N, P, Q), dt, bc, False, n))
+    cases += [(sh, "float32", True, False, -1) for sh in ZAMBA2_PREFILL]
+    # the reference's kernel-test shapes (tests/test_kernels.py), nonzero
+    # h0, one q and k per head; Q = 16; bf16 q and k over heads broadcast
+    cases += [((2, 256, 3, 32, 32, 64), "float32", False, True, 0),
+              ((1, 512, 2, 64, 64, 128), "float32", False, True, 0),
+              ((2, 128, 4, 16, 48, 32), "float32", False, True, 0),
+              ((1, 16, 64, 64, 64, 64), "float32", True, True, 0),
+              ((1, 512, 64, 64, 64, 64), "bfloat16", True, True, 0),
+              ((4, 256, 64, 64, 64, 64), "bfloat16", False, True, 0)]
+    rows, max_err = [], 0.0
+    for (B, S, H, N, P, Q), dt, bc, h0, launches in cases:
+        q, k, v, la, h = gla_inputs(B, S, H, N, P, S + H + N + P, dt, bc,
+                                    h0)
+        kw = dict(chunk=Q, y_dtype=torch.float32)
+        got = gla_chunk(q, k, v, la, h, **kw)
+        again = gla_chunk(q, k, v, la, h, **kw)
+        want = gla_chunk_plain(q, k, v, la, h, **kw)
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b, c in zip(got, again, want):
+            if not torch.equal(a, b):
+                fail(f"gla_chunk {(B, S, H, N, P, Q, dt, bc)}: two calls "
+                     f"differ")
+            d = (a - c).abs()
+            if not bool((d <= 3e-4 + 3e-4 * c.abs()).all()):
+                fail(f"gla_chunk {(B, S, H, N, P, Q, dt, bc)}: error "
+                     f"{float(d.max())} beyond 3e-4 + 3e-4 |plain|")
+            err = max(err, float(d.max()))
+        max_err = max(max_err, err)
+        shape = dict(B=B, S=S, H=H, N=N, P=P, chunk=Q, qk_dtype=dt,
+                     heads_broadcast=bc, h0=h0)
+        if launches == 0:
+            rows.append(dict(shape, launches=0, timed=False,
+                             max_abs_err=err))
+            continue
+        big = S >= 32768
+        reps = 5 if big else 20
+        call = lambda: gla_chunk(q, k, v, la, h, **kw)  # noqa: E731
+        call_ms = cuda_time_ms(call, reps=reps, warmup=1)
+        ms = kernel_ms(call, "gla_kernel", call_ms, reps=reps)
+        plain = cuda_time_ms(lambda: gla_chunk_plain(q, k, v, la, h, **kw),
+                             reps=2 if big else 5, warmup=1)
+        bound, by = gla_bound_ms(B, S, H, N, P, Q, q.element_size(), 4, h0,
+                                 bc)
+        rows.append(dict(shape, launches=max(launches, 0), timed=True,
+                         hybrid_path=launches > 0, ms=ms, call_ms=call_ms,
+                         plain_ms=plain, library_ms=None, bound_ms=bound,
+                         bound_by=by, max_abs_err=err))
+        log(f"  gla_chunk B={B} S={S} H={H} N={N} P={P} chunk={Q} {dt}"
+            f"{' heads broadcast' if bc else ''}: kernel {ms:.4f} ms, call "
+            f"{call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
+            f"{plain:.4f} ms; library none); max_abs_err {err:.3e} "
+            + (f"x{launches}" if launches > 0 else "(zamba2 prefill)"))
+        del q, k, v, la, h, got, again, want
+        torch.cuda.empty_cache()
+    for r in rows:
+        if not r["timed"]:
+            log(f"  gla_chunk checked B={r['B']} S={r['S']} H={r['H']} "
+                f"N={r['N']} P={r['P']} chunk={r['chunk']} {r['qk_dtype']}"
+                f"{' heads broadcast' if r['heads_broadcast'] else ''}"
+                f"{' h0' if r['h0'] else ''}: max_abs_err "
+                f"{r['max_abs_err']:.3e}")
+    rec["gla_chunk_shapes"] = rows
+    return rows, max_err
+
+
 class Counters:
-    """The launch counts of the five kernels: reset to 0 just before a
+    """The launch counts of the six kernels: reset to 0 just before a
     main path runs, read just after."""
 
     def __init__(self):
         from repro_torch.kernels.decode_attention import decode_attention
         from repro_torch.kernels.flash_attention import flash_attention
+        from repro_torch.kernels.gla_chunk import gla_chunk
         from repro_torch.kernels.lut_gemm import lut_gemm
         from repro_torch.kernels.tensor_alu import tensor_alu
         from repro_torch.kernels.vta_gemm import vta_gemm
         self.ops = {"vta_gemm": vta_gemm, "tensor_alu": tensor_alu,
                     "lut_gemm": lut_gemm,
                     "decode_attention": decode_attention,
-                    "flash_attention": flash_attention}
+                    "flash_attention": flash_attention,
+                    "gla_chunk": gla_chunk}
         self.shapes = {k: {} for k in self.ops}
 
     def reset(self):
@@ -1659,18 +2062,43 @@ def main():
         for sh, n in counters.shapes[k].items():
             main_set[sh] = main_set.get(sh, 0) + n
     flash_shapes = dict(counters.shapes["flash_attention"])
+    lm_flash = set(flash_shapes)
     rec["lm_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                         for k, v in counters.shapes.items()}
+
+    # ---- phase 9: the hybrid serve path (counts from 0 before each run) --
+    log("phase 9: the hybrid serve path (zamba2-1.2b at full width, int8 "
+        "PTQ and bf16 weights, ServeEngine)")
+    counters.shapes = {k: {} for k in counters.ops}
+    hy = phase_hybrid(rec, counters)
+    hy_runs = {name: hy[name]["launches"]
+               for name in ("int8", "int8_long", "bf16", "f32")}
+    hy_launches = {k: sum(r[k] for r in hy_runs.values())
+                   for k in counters.ops}
+    for k in ("gla_chunk", "flash_attention", "decode_attention",
+              "vta_gemm"):
+        if hy_launches[k] <= 0:
+            fail(f"{k} was never launched on the hybrid serve path")
+    # the hybrid path's shapes are timed in phases 1 and 7 too
+    for main_set, k in ((gemm_shapes, "vta_gemm"),
+                        (attn_shapes, "decode_attention"),
+                        (flash_shapes, "flash_attention")):
+        for sh, n in counters.shapes[k].items():
+            main_set[sh] = main_set.get(sh, 0) + n
+    gla_shapes = dict(counters.shapes["gla_chunk"])
+    rec["hybrid_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
+                            for k, v in counters.shapes.items()}
 
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
     a_rows, a_err = phase_alu_kernel(rec, alu_shapes)
-    log("phase 7: the decode-path and LM-path kernels against their plain "
-        "versions")
+    log("phase 7: the decode-path, LM-path and hybrid-path kernels against "
+        "their plain versions")
     l_rows, l_err = phase_lut_kernel(rec, lut_shapes)
     d_rows, d_err = phase_attn_kernel(rec, attn_shapes)
     f_rows, f_err = phase_flash_kernel(rec, flash_shapes)
+    s_rows, s_err = phase_gla_kernel(rec, gla_shapes)
 
     # ---- phase 3: engines against each other ----------------------------
     log("phase 3: the engines against each other")
@@ -1689,7 +2117,9 @@ def main():
              source="src/repro_torch/kernels/vta_gemm/csrc/vta_gemm.cu",
              replaces="src/repro/kernels/vta_gemm/kernel.py:72",
              launches=main_launches["vta_gemm"],
-             lm_serve_launches=lm_launches["vta_gemm"], max_abs_err=g_err,
+             lm_serve_launches=lm_launches["vta_gemm"],
+             hybrid_serve_launches=hy_launches["vta_gemm"],
+             max_abs_err=g_err,
              ms=g["ms"], call_ms=g["call_ms"], plain_ms=g["plain_ms"],
              bound_ms=g["bound_ms"],
              bound_by=g["bound_by"], library_ms=g["library_ms"],
@@ -1731,6 +2161,7 @@ def main():
              replaces="src/repro/kernels/decode_attention/kernel.py:67",
              launches=decode_launches["decode_attention"],
              lm_serve_launches=lm_launches["decode_attention"],
+             hybrid_serve_launches=hy_launches["decode_attention"],
              max_abs_err=d_err["float32"],
              max_abs_err_bf16=d_err["bfloat16"],
              ms=dg["ms"], call_ms=dg["call_ms"], plain_ms=dg["plain_ms"],
@@ -1740,9 +2171,12 @@ def main():
                         D=dg["D"], dtype=dg["dtype"],
                         kv_len=dg["kv_len"])),
     ]
-    # flash_attention at its heaviest LM-path shape; the Llama prefill
-    # shapes (S 4096 and 32768) are in the record and on the lines above
-    fg = max((r for r in f_rows if r.get("lm_path")),
+    # flash_attention at its heaviest phase-8 shape; the Llama prefill
+    # shapes (S 4096 and 32768) and the hybrid path's are in the record
+    # and on the lines above
+    fg = max((r for r in f_rows if r.get("lm_path") and (
+        r["B"], r["S"], r["Sk"], r["HQ"], r["KH"], r["D"], r["causal"],
+        r["dtype"]) in lm_flash),
              key=lambda r: r["B"] * r["HQ"] * r["S"] * r["Sk"])
     kernels.append(dict(
         name="flash_attention", route="cuda",
@@ -1750,16 +2184,35 @@ def main():
                "flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:76",
         launches=lm_launches["flash_attention"],
+        hybrid_serve_launches=hy_launches["flash_attention"],
         max_abs_err=f_err["float32"], max_abs_err_bf16=f_err["bfloat16"],
         ms=fg["ms"], call_ms=fg["call_ms"], plain_ms=fg["plain_ms"],
         bound_ms=fg["bound_ms"], bound_by=fg["bound_by"],
         library_ms=fg["library_ms"], checked=True,
         shape={k: fg[k] for k in ("B", "S", "Sk", "HQ", "KH", "D", "causal",
                                    "dtype")}))
+    # gla_chunk at its heaviest hybrid-path shape; zamba2's prefill at S
+    # 4096 and 32768 is in the record and on the lines above
+    sg = max((r for r in s_rows if r.get("hybrid_path")),
+             key=lambda r: r["B"] * r["H"] * r["S"])
+    kernels.append(dict(
+        name="gla_chunk", route="cuda",
+        source="src/repro_torch/kernels/gla_chunk/csrc/gla_chunk.cu",
+        replaces="src/repro/kernels/gla_chunk/kernel.py:73",
+        launches=hy_launches["gla_chunk"], launches_by_run={
+            k: v["gla_chunk"] for k, v in hy_runs.items()},
+        max_abs_err=s_err, ms=sg["ms"], call_ms=sg["call_ms"],
+        plain_ms=sg["plain_ms"], bound_ms=sg["bound_ms"],
+        bound_by=sg["bound_by"], library_ms=None, checked=True,
+        shape={k: sg[k] for k in ("B", "S", "H", "N", "P", "chunk",
+                                   "qk_dtype", "heads_broadcast")}))
     rec["profiler_retries"] = PROFILER_RETRIES
     rec["profiler_drops"] = PROFILER_DROPS
+    rec["profiler_fallbacks"] = PROFILER_FALLBACKS
     log(f"profiler windows taken again: {len(PROFILER_RETRIES)}; windows "
-        f"with lost launch records: {len(PROFILER_DROPS)}")
+        f"with lost launch records: {len(PROFILER_DROPS)}; kernel times "
+        f"from CUDA events for want of any record: "
+        f"{PROFILER_FALLBACKS or 'none'}")
     if args.record is not None:
         rec["kernels"] = kernels
         args.record.parent.mkdir(parents=True, exist_ok=True)

@@ -1,7 +1,7 @@
 """Models: the quantized decoder served through the compiled stack, dense
-layers through the program-level JIT, and the LM (dense family) with its
-serve-time PTQ."""
-from . import (attention, layers, quantized, transformer,  # noqa: F401
+layers through the program-level JIT, and the LM (dense and hybrid Mamba2
+families) with its serve-time PTQ."""
+from . import (attention, layers, quantized, ssm, transformer,  # noqa: F401
                vta_decoder)
 from .quantized import (VtaLinear, quantize_params,  # noqa: F401
                         vta_linear_from_params)

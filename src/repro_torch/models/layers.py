@@ -127,6 +127,13 @@ def sinusoidal_embedding(S: int, d: int,
 # ----------------------------------------------------------------------
 # MLP
 # ----------------------------------------------------------------------
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu as the reference computes it: x * sigmoid(x), the
+    sigmoid as 1 / (1 + exp(-x)), each step rounded in x's dtype (so a
+    bfloat16 x rounds where the reference's does)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_init(gen: torch.Generator, cfg, d: int, d_ff: int,
              device: torch.device, lead: Tuple[int, ...] = ()) -> Params:
     dt = torch_dtype(cfg)
@@ -140,7 +147,7 @@ def mlp_init(gen: torch.Generator, cfg, d: int, d_ff: int,
 
 def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
     if cfg.mlp == "swiglu":
-        h = F.silu(linear_apply(p["wg"], x)) * linear_apply(p["wi"], x)
+        h = silu(linear_apply(p["wg"], x)) * linear_apply(p["wi"], x)
     else:
         # jax.nn.gelu is the tanh approximation by default
         h = F.gelu(linear_apply(p["wi"], x), approximate="tanh")

@@ -1,8 +1,11 @@
 """The LM for the dense family (olmo-1b, llama3.2-3b, minitron-8b,
-starcoder2-7b): parameters, caches, prefill and decode.
+starcoder2-7b) and the hybrid Mamba2 family (zamba2-1.2b): parameters,
+caches, prefill and decode.
 
 The port of the serving half of the reference's ``models/transformer.py``
-for the ``"attn"`` block type.  Weights sit in an :class:`LMParams`
+for the ``"attn"``, ``"mamba2"`` and ``"mamba2_sharedattn"`` block types
+(the last applies one globally shared attention block, with a KV cache of
+its own per application).  Weights sit in an :class:`LMParams`
 ``nn.Module``, stacked over layers as in the reference, with state-dict
 keys that are the reference's tree paths joined by ``.`` (for example
 ``layers.attn.attn.wq.w``); the math is plain functions on the nested
@@ -11,7 +14,7 @@ over the stacked layers; here a Python loop indexes them, and caches are
 updated in place.
 
 Not ported yet (``NotImplementedError`` names the ROADMAP item): the
-other block types (moe, mamba2, mlstm, slstm), the vision and audio
+other block types (moe, mlstm, slstm), the vision and audio
 frontends, the whisper encoder and cross-attention, and training
 (``forward_train``).
 """
@@ -25,6 +28,7 @@ from torch import nn
 from repro_torch.core.driver import TorchDeviceLike, resolve_torch_device
 
 from . import attention as attn
+from . import ssm as ssm_mod
 from .config import ModelConfig
 from .layers import (embed_apply, embed_init, linear_init, mlp_apply,
                      mlp_init, norm_apply, norm_init, torch_dtype)
@@ -32,8 +36,9 @@ from .layers import (embed_apply, embed_init, linear_init, mlp_apply,
 Params = Dict[str, Any]
 
 _NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 10: the LM "
-               "substrate's ssm, xlstm, moe, cross-attention and frontend "
+               "substrate's xlstm, moe, cross-attention and frontend "
                "modules)")
+_PORTED_BLOCKS = {"attn", "mamba2", "mamba2_sharedattn"}
 
 
 class LMParams(nn.Module):
@@ -59,7 +64,7 @@ class LMParams(nn.Module):
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.block_pattern())
-    if kinds != {"attn"}:
+    if not kinds <= _PORTED_BLOCKS:
         raise NotImplementedError(f"block types {sorted(kinds)} of "
                                   f"{cfg.name}: {_NOT_PORTED}")
     if cfg.encoder_layers:
@@ -74,9 +79,11 @@ def _check_supported(cfg: ModelConfig) -> None:
 # ----------------------------------------------------------------------
 def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str, n: int,
                 device: torch.device) -> Params:
-    """A stack of n blocks of type `btype` ("attn", the one ported; the
-    entry points refuse the others) with leading layer dim n."""
+    """A stack of n blocks of type `btype` with leading layer dim n."""
     d, lead = cfg.d_model, (n,)
+    if btype in ("mamba2", "mamba2_sharedattn"):
+        return {"ln1": norm_init(cfg, d, device, lead),
+                "mamba": ssm_mod.mamba2_init(gen, cfg, device, lead)}
     return {"ln1": norm_init(cfg, d, device, lead),
             "attn": attn.attn_init(gen, cfg, device, lead),
             "ln2": norm_init(cfg, d, device, lead),
@@ -86,23 +93,47 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str, n: int,
 def _block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
                  dtype: torch.dtype, device: torch.device,
                  n: int) -> Params:
-    return {"kv": attn.init_kv_cache(cfg, batch, max_len, dtype, device,
-                                     (n,))}
+    if btype == "attn":
+        return {"kv": attn.init_kv_cache(cfg, batch, max_len, dtype, device,
+                                         (n,))}
+    c = ssm_mod.init_ssm_cache(cfg, batch, dtype, device, (n,))
+    if btype == "mamba2_sharedattn":
+        # the shared block's weights are global, but each application
+        # attends over its own history: a KV cache per layer
+        c["shared_kv"] = attn.init_kv_cache(cfg, batch, max_len, dtype,
+                                            device, (n,))
+    return c
 
 
-def _block_apply(p: Params, cfg: ModelConfig, btype: str, x: torch.Tensor,
-                 mode: str, cache: Params,
-                 pos: Optional[int]) -> torch.Tensor:
-    """One "attn" block on x in `mode` ("prefill" or "decode"); its cache
-    is updated in place."""
+def _attn_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
+              kv: Params, pos: Optional[int]) -> torch.Tensor:
+    """Pre-norm attention then MLP, each with its residual; `kv` is
+    updated in place."""
     h = norm_apply(cfg, p["ln1"], x)
     if mode == "prefill":
-        o, _ = attn.attn_prefill(p["attn"], cfg, h, cache["kv"])
+        o, _ = attn.attn_prefill(p["attn"], cfg, h, kv)
     else:
-        o, _ = attn.attn_decode(p["attn"], cfg, h, cache["kv"], pos)
+        o, _ = attn.attn_decode(p["attn"], cfg, h, kv, pos)
     x = x + o
     h = norm_apply(cfg, p["ln2"], x)
     return x + mlp_apply(p["mlp"], h, cfg)
+
+
+def _block_apply(p: Params, cfg: ModelConfig, btype: str, x: torch.Tensor,
+                 mode: str, cache: Params, pos: Optional[int],
+                 shared_p: Optional[Params] = None) -> torch.Tensor:
+    """One block on x in `mode` ("prefill" or "decode"); its cache is
+    updated in place.  `shared_p` is zamba2's shared attention block."""
+    if btype == "attn":
+        return _attn_mlp(p, cfg, x, mode, cache["kv"], pos)
+    h = norm_apply(cfg, p["ln1"], x)
+    mamba = ssm_mod.mamba2_prefill if mode == "prefill" \
+        else ssm_mod.mamba2_decode
+    o, _ = mamba(p["mamba"], cfg, h, cache)
+    x = x + o
+    if btype == "mamba2_sharedattn" and shared_p is not None:
+        x = _attn_mlp(shared_p, cfg, x, mode, cache["shared_kv"], pos)
+    return x
 
 
 # ----------------------------------------------------------------------
@@ -126,6 +157,12 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     pattern = cfg.block_pattern()
     p["layers"] = {b: _block_init(gen, cfg, b, pattern.count(b), dev)
                    for b in sorted(set(pattern))}
+    if "mamba2_sharedattn" in pattern:
+        d = cfg.d_model
+        p["shared_attn"] = {"ln1": norm_init(cfg, d, dev),
+                            "attn": attn.attn_init(gen, cfg, dev),
+                            "ln2": norm_init(cfg, d, dev),
+                            "mlp": mlp_init(gen, cfg, d, cfg.d_ff, dev)}
     return LMParams(p)
 
 
@@ -184,11 +221,13 @@ def _run_stack_cached(params: Params, cfg: ModelConfig, x: torch.Tensor,
                       caches: Params, mode: str,
                       pos: Optional[int]) -> torch.Tensor:
     counters = {b: 0 for b in set(cfg.block_pattern())}
+    shared_p = params.get("shared_attn")
     for btype in cfg.block_pattern():
         i = counters[btype]
         counters[btype] += 1
         x = _block_apply(_index(params["layers"][btype], i), cfg, btype, x,
-                         mode, _index(caches["layers"][btype], i), pos)
+                         mode, _index(caches["layers"][btype], i), pos,
+                         shared_p)
     return x
 
 

@@ -18,6 +18,10 @@ float32 caches and for G = 9 query heads per kv head (starcoder2-7b).
 absolute on unit-normal inputs (sums in another order: a D-long dot per
 score, a running softmax over 64-key tiles), bfloat16 within 2^-6 *
 max|want| as above; bitwise equal over two calls.
+``gla_chunk`` against its plain version: within 3e-4 absolute plus 3e-4
+relative (the reference's own limit for its kernel against its oracle:
+float32 sums in another order, and tiles of at most 64 rows against the
+plain version's chunk); bitwise equal over two calls.
 """
 import numpy as np
 import pytest
@@ -35,6 +39,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref_4d)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
+from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
 from repro_torch.kernels.lut_gemm import lut_gemm, lut_gemm_ref
 from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_ref
 from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
@@ -258,6 +263,100 @@ def test_flash_attention_reads_strided_views(cuda_dev):
                                  v.contiguous(), causal=True)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5
+
+
+GLA_CASES = [
+    # (B, S, H, N, P, chunk)
+    (1, 16, 64, 64, 64, 64),      # zamba2-1.2b, a 16-token prompt: Q = 16
+    (1, 512, 64, 64, 64, 64),     # zamba2-1.2b, 8 chunks
+    (4, 128, 64, 64, 64, 64),     # zamba2-1.2b, 4 sequences
+    (2, 256, 3, 32, 32, 64),      # the reference's kernel-test shapes
+    (1, 512, 2, 64, 64, 128),     # chunk 128 walked as 64-row tiles
+    (2, 128, 4, 16, 48, 32),      # N != P
+    (1, 96, 2, 64, 40, 96),       # chunk 96: tiles of 64 and 32 rows
+]
+
+
+def _gla_inputs(dev, B, S, H, N, P, seed, qk_dtype=torch.float32,
+                broadcast=False):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rng.normal(size=shape) * scale)
+                                .astype(np.float32)).to(dev)
+    if broadcast:
+        q = t(B, S, N).to(qk_dtype)[:, :, None].expand(B, S, H, N)
+        k = t(B, S, N).to(qk_dtype)[:, :, None].expand(B, S, H, N)
+    else:
+        q, k = t(B, S, H, N).to(qk_dtype), t(B, S, H, N).to(qk_dtype)
+    v = t(B, S, H, P)
+    la = -t(B, S, H).abs() * 0.3
+    return q, k, v, la, t(B, H, N, P, scale=0.1)
+
+
+def _gla_check(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs()
+        assert bool((err <= 3e-4 + 3e-4 * w.float().abs()).all()), \
+            err.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", [False, True], ids=["zero_h0", "h0"])
+@pytest.mark.parametrize("case", GLA_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_gla_chunk_kernel_matches_plain(cuda_dev, case, h0):
+    B, S, H, N, P, chunk = case
+    q, k, v, la, h = _gla_inputs(cuda_dev, B, S, H, N, P, S + H + N + P)
+    h = h if h0 else None
+    before = gla_chunk.launches
+    got = gla_chunk(q, k, v, la, h, chunk=chunk)
+    again = gla_chunk(q, k, v, la, h, chunk=chunk)
+    want = gla_chunk_plain(q, k, v, la, h, chunk=chunk)
+    torch.cuda.synchronize()
+    assert gla_chunk.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _gla_check(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("y_dtype", [None, torch.float32],
+                         ids=["y_bf16", "y_f32"])
+@pytest.mark.parametrize("broadcast", [False, True],
+                         ids=["heads", "stride0_heads"])
+def test_gla_chunk_bf16_q_k_and_broadcast_heads(cuda_dev, broadcast,
+                                                y_dtype):
+    """Mamba2's operands: C and B broadcast over heads (stride 0, read in
+    place), in bfloat16 over bfloat16 caches; y in float32 for
+    chunked_gla, in q's dtype through the op's own contract."""
+    q, k, v, la, h = _gla_inputs(cuda_dev, 2, 192, 64, 64, 64, 5,
+                                 torch.bfloat16, broadcast)
+    assert (q.stride(2) == 0) == broadcast
+    got = gla_chunk(q, k, v, la, h, chunk=64, y_dtype=y_dtype)
+    again = gla_chunk(q, k, v, la, h, chunk=64, y_dtype=y_dtype)
+    want = gla_chunk_plain(q, k, v, la, h, chunk=64, y_dtype=y_dtype)
+    torch.cuda.synchronize()
+    assert got[0].dtype == (y_dtype or torch.bfloat16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if y_dtype is None:       # both round one float32 value to bfloat16
+        err = (got[0].float() - want[0].float()).abs()
+        assert bool((err <= 3e-4 + 2.0 ** -7 * want[0].float().abs()).all())
+        _gla_check(got[1:], want[1:])
+    else:
+        _gla_check(got, want)
+
+
+@pytest.mark.cuda
+def test_gla_chunk_refuses_what_it_has_no_instance_for(cuda_dev):
+    q, k, v, la, h = _gla_inputs(cuda_dev, 1, 64, 2, 72, 16, 6)
+    with pytest.raises(ValueError, match="N a multiple of 4"):
+        gla_chunk(q, k, v, la, h)
+    q, k, v, la, h = _gla_inputs(cuda_dev, 1, 64, 2, 16, 16, 7)
+    with pytest.raises(TypeError, match="float32 v"):
+        gla_chunk(q, k, v.bfloat16(), la, h)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        gla_chunk(q, k, v, la, h, chunk=48)
 
 
 @pytest.mark.cuda
