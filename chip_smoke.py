@@ -10,7 +10,9 @@ without the repository beside it, it exits non-zero before printing any
 result.
 
 Phases, in the order they run:
-  0. the card's name and power limit (nvidia-smi) and the kernel build;
+  0. the card's name and power limit (nvidia-smi) and the kernel build,
+     with each kernel instance's registers, spills and static shared
+     memory (nvcc -Xptxas -v);
   2. the first main path, with every kernel's launch count set to 0 just
      before and read just after: each accelerator layer C2-C12 of
      ResNet-18's Table 1 at its published shape as a one-layer Program
@@ -45,7 +47,8 @@ Phases, in the order they run:
   7. lut_gemm and decode_attention the same way, at every decode-path
      shape (timed), every other shape phases 5 and 6 launched (checked)
      and at Llama-3.2-3B's decode shapes (src/repro/configs/llama32_3b.py);
-     decode_attention in bfloat16 within 2^-6 * max|want|;
+     decode_attention in bfloat16 within 2^-6 * max|want|; lut_gemm at
+     Llama's M 1 and 16 for bits 1, 2 and 4 beside torch._int_mm;
   8. the third main path, the LM serve path: llama3.2-3b at full width
      (src/repro_torch/configs/llama32_3b.py; random weights from
      torch.Generator seed 0, int8 PTQ) served by launch.serve.ServeEngine
@@ -59,7 +62,9 @@ Phases, in the order they run:
      decode_attention shapes are timed in phases 1 and 7, and
      flash_attention is checked and timed in phase 7 at those shapes and
      at Llama-3.2-3B's prefill (S 4096 float32 and bfloat16, S 32768
-     bfloat16 against the chunked plain version), a non-causal ragged
+     bfloat16 against the chunked plain version; bfloat16 runs the wgmma
+     kernel, float32 the FMA one, each timed under its own kernel name
+     beside scaled_dot_product_attention), a non-causal ragged
      shape and a causal one with Sk > S; decode_attention also at
      starcoder2-7b's G = 9 and with a bfloat16 query over float32 caches;
   9. the fourth main path, the hybrid serve path: zamba2-1.2b at full
@@ -1213,6 +1218,9 @@ def phase_attn_kernel(rec, main_shapes):
 # phase 7 (continued): flash_attention against its plain version
 # ----------------------------------------------------------------------
 BF16_TENSOR_OPS_PER_S = 989e12
+#: the CUDA kernel each dtype's flash_attention call launches
+FLASH_KERNEL_NAMES = {"bfloat16": "flash_wgmma_kernel",
+                      "float32": "flash_kernel"}
 
 
 def flash_bound_ms(B, S, Sk, HQ, KH, D, causal, elt):
@@ -1271,7 +1279,7 @@ def phase_flash_kernel(rec, main_shapes):
         reps = 3 if big else 20
         call = lambda: flash_attention(q, k, v, causal=causal)  # noqa
         call_ms = cuda_time_ms(call, reps=reps, warmup=1)
-        ms = kernel_ms(call, "flash_kernel", call_ms, reps=reps)
+        ms = kernel_ms(call, FLASH_KERNEL_NAMES[dt], call_ms, reps=reps)
         plain = cuda_time_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal), reps=1 if big else 5, warmup=1)
         lib = lib_err = None
@@ -1283,7 +1291,8 @@ def phase_flash_kernel(rec, main_shapes):
         bound, by = flash_bound_ms(B, S, Sk, HQ, KH, D, causal,
                                    q.element_size())
         rows.append(dict(shape, launches=max(launches, 0), timed=True,
-                         lm_path=launches > 0, ms=ms, call_ms=call_ms,
+                         lm_path=launches > 0, kernel=FLASH_KERNEL_NAMES[dt],
+                         ms=ms, call_ms=call_ms,
                          plain_ms=plain, library_ms=lib,
                          library_max_abs_err=lib_err, bound_ms=bound,
                          bound_by=by, max_abs_err=err, limit=tol))
@@ -1556,6 +1565,10 @@ def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counters.read()
+    # flash_attention's two kernels by dtype: wgmma for bf16, FMA for f32
+    flash_by_dtype = {}
+    for key, n in counters.ops["flash_attention"].shapes.items():
+        flash_by_dtype[key[-1]] = flash_by_dtype.get(key[-1], 0) + n
     if len(done) != len(reqs) or any(len(r.out_tokens) != r.max_new
                                      for r in done):
         fail(f"{what}: served {len(done)} of {len(reqs)} requests")
@@ -1573,7 +1586,8 @@ def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
         floor_gap, _ = compare_logits(alt, plain, what, limit=None)
         limit = max(LM_LOGIT_TOL, 2 * floor_gap)
     worst, agree = compare_logits(eng, plain, what, limit=limit)
-    summary.update(launches=launches, logit_max_rel_err=worst,
+    summary.update(launches=launches, flash_by_dtype=flash_by_dtype,
+                   logit_max_rel_err=worst,
                    logit_limit=limit, logit_floor=floor_gap,
                    argmax_agreement=agree,
                    tokens_head={r.rid: r.out_tokens[:8] for r in done},
@@ -1913,6 +1927,38 @@ def phase_gla_kernel(rec, main_shapes):
     return rows, max_err
 
 
+def ptxas_report(text):
+    """Per kernel instance in one nvcc -Xptxas -v log: its demangled-ish
+    name (the template arguments kept), registers, spill bytes and static
+    shared memory (dynamic shared memory is set at launch)."""
+    import re
+    out, cur = [], None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            core = re.search(r"(\d+)([a-z_]+_kernel[A-Za-z_]*)(I.*?E)?E?v",
+                             name)
+            cur = dict(function=(core.group(2) + (core.group(3) or ""))
+                       if core else name, registers=None, spill_stores=None,
+                       spill_loads=None, static_smem=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", ln)
+        if m:
+            cur["static_smem"] = int(m.group(1))
+    return out
+
+
 class Counters:
     """The launch counts of the six kernels: reset to 0 just before a
     main path runs, read just after."""
@@ -1983,10 +2029,14 @@ def main():
     log(f"  built {sorted(secs)} in {time.perf_counter() - t0:.1f} s "
         f"(per kernel: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                       sorted(secs.items())) + ")")
-    for k, v in sorted(_build.BUILD_LOGS.items()):
-        regs = [ln.strip() for ln in v.splitlines() if "Used" in ln]
-        log(f"  {k}: " + "; ".join(regs))
-    rec["build"] = dict(seconds=secs, logs=_build.BUILD_LOGS)
+    ptxas = {k: ptxas_report(v) for k, v in _build.BUILD_LOGS.items()}
+    for k, fns in sorted(ptxas.items()):
+        log(f"  {k}: " + "; ".join(
+            f"{f['function']}: {f['registers']} registers, "
+            f"{f['spill_stores']}/{f['spill_loads']} bytes spilled "
+            f"(stores/loads), {f['static_smem']} bytes static smem"
+            for f in fns))
+    rec["build"] = dict(seconds=secs, logs=_build.BUILD_LOGS, ptxas=ptxas)
 
     # ---- phase 2: the main path (counts from 0) ------------------------
     log("phase 2: the slice at full width (pynq spec, torch_device=cuda, "
@@ -2171,26 +2221,37 @@ def main():
                         D=dg["D"], dtype=dg["dtype"],
                         kv_len=dg["kv_len"])),
     ]
-    # flash_attention at its heaviest phase-8 shape; the Llama prefill
-    # shapes (S 4096 and 32768) and the hybrid path's are in the record
-    # and on the lines above
-    fg = max((r for r in f_rows if r.get("lm_path") and (
-        r["B"], r["S"], r["Sk"], r["HQ"], r["KH"], r["D"], r["causal"],
-        r["dtype"]) in lm_flash),
-             key=lambda r: r["B"] * r["HQ"] * r["S"] * r["Sk"])
-    kernels.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/flash_attention/csrc/"
-               "flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:76",
-        launches=lm_launches["flash_attention"],
-        hybrid_serve_launches=hy_launches["flash_attention"],
-        max_abs_err=f_err["float32"], max_abs_err_bf16=f_err["bfloat16"],
-        ms=fg["ms"], call_ms=fg["call_ms"], plain_ms=fg["plain_ms"],
-        bound_ms=fg["bound_ms"], bound_by=fg["bound_by"],
-        library_ms=fg["library_ms"], checked=True,
-        shape={k: fg[k] for k in ("B", "S", "Sk", "HQ", "KH", "D", "causal",
-                                   "dtype")}))
+    # flash_attention's two kernels, each at its heaviest main-path shape:
+    # the bf16 wgmma kernel at phase 8's (the Llama prefill), the float32
+    # FMA kernel at phase 9's float32 run; the Llama prefill shapes (S 4096
+    # and 32768) and every other shape are in the record and on the lines
+    # above
+    hy_summaries = [hy[n] for n in hy_runs]
+    for dt, run, src in (("bfloat16", lm["int8"], "flash_wgmma.cu"),
+                         ("float32", hy["f32"], "flash_attention.cu")):
+        n_main = run["flash_by_dtype"].get(dt, 0)
+        if n_main <= 0:
+            fail(f"the {dt} flash_attention kernel was never launched on "
+                 f"its main path")
+        fg = max((r for r in f_rows if r.get("lm_path")
+                  and r["dtype"] == dt and (dt == "float32" or (
+                      r["B"], r["S"], r["Sk"], r["HQ"], r["KH"], r["D"],
+                      r["causal"], r["dtype"]) in lm_flash)),
+                 key=lambda r: r["B"] * r["HQ"] * r["S"] * r["Sk"])
+        kernels.append(dict(
+            name="flash_attention" if dt == "bfloat16"
+            else "flash_attention_f32", route="cuda",
+            source="src/repro_torch/kernels/flash_attention/csrc/" + src,
+            replaces="src/repro/kernels/flash_attention/kernel.py:76",
+            kernel=FLASH_KERNEL_NAMES[dt], dtype=dt, launches=n_main,
+            hybrid_serve_launches=sum(h["flash_by_dtype"].get(dt, 0)
+                                      for h in hy_summaries),
+            max_abs_err=f_err[dt],
+            ms=fg["ms"], call_ms=fg["call_ms"], plain_ms=fg["plain_ms"],
+            bound_ms=fg["bound_ms"], bound_by=fg["bound_by"],
+            library_ms=fg["library_ms"], checked=True,
+            shape={k: fg[k] for k in ("B", "S", "Sk", "HQ", "KH", "D",
+                                       "causal", "dtype")}))
     # gla_chunk at its heaviest hybrid-path shape; zamba2's prefill at S
     # 4096 and 32768 is in the record and on the lines above
     sg = max((r for r in s_rows if r.get("hybrid_path")),

@@ -1,5 +1,9 @@
 // flash_attention: causal or non-causal GQA prefill attention on Hopper
-// (sm_90a), float32 and bfloat16, with an online softmax in float32.
+// (sm_90a) in float32, with an online softmax in float32.  bfloat16
+// operands go to the tensor-core kernel beside this one (flash_wgmma.cu);
+// float32 stays here because wgmma has no float32 operand, and TF32 would
+// round q and k to 10 mantissa bits, far outside the 1e-5 float32 check
+// (this kernel beats PyTorch's float32 attention call at Llama's S 4096).
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 // flash_attention_pallas (body _flash_kernel), the TPU kernel behind the LM
@@ -14,8 +18,8 @@
 // oracles' mask; at S = Sk it is the TPU kernel's q_pos >= k_pos).  q is
 // scaled before the product, as the TPU kernel does; m, l and acc are kept
 // per query row in float32; l is clamped at 1e-30 before the division, so
-// a row that sees no key gives zeros; the output is in q's dtype.  Query
-// head h reads kv head h / group in place: no KV copy.
+// a row that sees no key gives zeros.  Query head h reads kv head
+// h / group in place: no KV copy.
 //
 // Operands: q and out are (B, S, HQ, D) and k, v are (B, Sk, KH, D), each
 // read through its own strides with a contiguous last dim (the model's
@@ -25,10 +29,9 @@
 //
 // What bounds it on this card: two matrix products per tile, 4 * S * Sk * D
 // operations per head (half of them with `causal`), against a few bytes per
-// score; the card's bound is its bf16 tensor-core rate.  This first kernel
-// runs both products as float32 FMAs on the CUDA cores (67 TFLOP/s at best),
-// so it sits an order of magnitude or more above that bound: wgmma, TMA
-// and a pipelined K/V ring are for a later kernel.
+// score.  In float32 the products run as FMAs on the CUDA cores (67
+// TFLOP/s at best), an order of magnitude above the bf16 tensor-core bound
+// the time is measured against.
 //
 // What the design does: one block of 128 threads per (64 query rows, batch
 // x query head), heaviest causal tiles launched first.  The Q tile (scaled,
@@ -40,7 +43,6 @@
 // masked scores are -inf and get zero weight.  K tiles above the causal
 // diagonal are not visited.  Every sum runs in a fixed order and nothing is
 // atomic, so two calls are bitwise equal.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -52,31 +54,10 @@ constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
 constexpr float NEG_INF = -1e30f;
 
-template <typename T>
-struct Io;
-
-template <>
-struct Io<float> {
-  __device__ static void load4(const float* p, float (&f)[4]) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
-  }
-  __device__ static void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct Io<__nv_bfloat16> {
-  __device__ static void load4(const __nv_bfloat16* p, float (&f)[4]) {
-    const uint2 x = *reinterpret_cast<const uint2*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
-    const float2 a = __bfloat1622float2(h[0]);
-    const float2 b = __bfloat1622float2(h[1]);
-    f[0] = a.x; f[1] = a.y; f[2] = b.x; f[3] = b.y;
-  }
-  __device__ static void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
-};
+__device__ __forceinline__ void load4(const float* p, float (&f)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+}
 
 template <int DP>
 constexpr size_t smem_floats() {
@@ -88,11 +69,11 @@ constexpr size_t smem_floats() {
 }
 
 // grid (ceil(S / BQ), B * HQ); DP = D rounded up to 64 or 128.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int HQ, int KH,
-             int S, int Sk, int D, long long qsb, long long qss,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, int HQ,
+             int KH, int S, int Sk, int D, long long qsb, long long qss,
              long long qsh, long long ksb, long long kss, long long ksh,
              long long vsb, long long vss, long long vsh, long long osb,
              long long oss, long long osh, int causal, float scale) {
@@ -115,16 +96,16 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = t % 8;    // micro-tile columns tx*4 + 32*j
   const int ty = t / 8;    // micro-tile rows ty*4 .. ty*4+3
 
-  const T* qb = q + (size_t)b * qsb + (size_t)h * qsh;
-  const T* kb = k + (size_t)b * ksb + (size_t)hk * ksh;
-  const T* vb = v + (size_t)b * vsb + (size_t)hk * vsh;
+  const float* qb = q + (size_t)b * qsb + (size_t)h * qsh;
+  const float* kb = k + (size_t)b * ksb + (size_t)hk * ksh;
+  const float* vb = v + (size_t)b * vsb + (size_t)hk * vsh;
 
   // Q tile, scaled and transposed: Qt[d][r]; lanes walk rows
   for (int e = t; e < BQ * (DP / 4); e += THREADS) {
     const int r = e % BQ;
     const int d = (e / BQ) * 4;
     float f[4] = {0.f, 0.f, 0.f, 0.f};
-    if (q0 + r < S && d < D) Io<T>::load4(qb + (size_t)(q0 + r) * qss + d, f);
+    if (q0 + r < S && d < D) load4(qb + (size_t)(q0 + r) * qss + d, f);
 #pragma unroll
     for (int i = 0; i < 4; ++i) Qt[(d + i) * BQ + r] = f[i] * scale;
   }
@@ -149,7 +130,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = (e / BK) * 4;
       float f[4] = {0.f, 0.f, 0.f, 0.f};
       if (k0 + c < Sk && d < D)
-        Io<T>::load4(kb + (size_t)(k0 + c) * kss + d, f);
+        load4(kb + (size_t)(k0 + c) * kss + d, f);
 #pragma unroll
       for (int i = 0; i < 4; ++i) Kt[(d + i) * BK + c] = f[i];
     }
@@ -159,7 +140,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = e / (DP / 4);
       float f[4] = {0.f, 0.f, 0.f, 0.f};
       if (k0 + c < Sk && d < D)
-        Io<T>::load4(vb + (size_t)(k0 + c) * vss + d, f);
+        load4(vb + (size_t)(k0 + c) * vss + d, f);
       *reinterpret_cast<float4*>(Vs + c * DP + d) =
           make_float4(f[0], f[1], f[2], f[3]);
     }
@@ -254,67 +235,56 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + ty * 4 + i;
     if (r >= S) continue;
     const float l = fmaxf(l_s[ty * 4 + i], 1e-30f);
-    T* o = out + (size_t)b * osb + (size_t)r * oss + (size_t)h * osh;
+    float* o = out + (size_t)b * osb + (size_t)r * oss + (size_t)h * osh;
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int d = j * 32 + tx * 4 + e;
-        if (d < D) Io<T>::store(o + d, acc[i][j * 4 + e] / l);
+        if (d < D) o[d] = acc[i][j * 4 + e] / l;
       }
   }
 }
 
-template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
+template <int DP>
+int launch(const float* q, const float* k, const float* v, float* out, int B,
            int HQ, int KH, int S, int Sk, int D, const long long* st,
            int causal, float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<DP>() * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      flash_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, B * HQ);
-  flash_kernel<T, DP><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), HQ, KH, S, Sk, D, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-      st[11], causal, scale);
+  flash_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      q, k, v, out, HQ, KH, S, Sk, D, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], causal, scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch_d(const void* q, const void* k, const void* v, void* out, int B,
-               int HQ, int KH, int S, int Sk, int D, const long long* st,
-               int causal, float scale, cudaStream_t stream) {
-  if (D <= 64)
-    return launch<T, 64>(q, k, v, out, B, HQ, KH, S, Sk, D, st, causal,
-                         scale, stream);
-  if (D <= 128)
-    return launch<T, 128>(q, k, v, out, B, HQ, KH, S, Sk, D, st, causal,
-                          scale, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (or the error of
-// cudaFuncSetAttribute), cudaErrorInvalidValue for D > 128 or an unknown
-// dtype code (0 float32, 1 bfloat16).  `strides` holds 12 element strides:
-// q (b, s, h), k (b, s, h), v (b, s, h), out (b, s, h); the last dim of
-// each is contiguous.  The wrapper checks shapes, strides and alignment,
-// allocates `out`, and never calls this with B, S or HQ equal to 0.
+// cudaFuncSetAttribute), cudaErrorInvalidValue for D > 128.  `strides`
+// holds 12 element strides: q (b, s, h), k (b, s, h), v (b, s, h), out
+// (b, s, h); the last dim of each is contiguous.  The wrapper checks
+// shapes, strides and alignment, allocates `out`, and never calls this
+// with B, S or HQ equal to 0.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int dtype,
-                                      int B, int HQ, int KH, int S, int Sk,
-                                      int D, const long long* strides,
-                                      int causal, float scale, void* stream) {
+                                      const void* v, void* out, int B, int HQ,
+                                      int KH, int S, int Sk, int D,
+                                      const long long* strides, int causal,
+                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, B, HQ, KH, S, Sk, D, strides,
-                             causal, scale, st);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, B, HQ, KH, S, Sk, D,
-                                     strides, causal, scale, st);
+  const float* qf = static_cast<const float*>(q);
+  const float* kf = static_cast<const float*>(k);
+  const float* vf = static_cast<const float*>(v);
+  float* of = static_cast<float*>(out);
+  if (D <= 64)
+    return launch<64>(qf, kf, vf, of, B, HQ, KH, S, Sk, D, strides, causal,
+                      scale, st);
+  if (D <= 128)
+    return launch<128>(qf, kf, vf, of, B, HQ, KH, S, Sk, D, strides, causal,
+                       scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,60 +1,143 @@
-"""ctypes binding of the CUDA flash_attention kernel
-(``csrc/flash_attention.cu``; the design note is at the top of that file).
-Built at first call by :mod:`repro_torch.kernels._build`, never at
-import."""
+"""ctypes bindings of the two CUDA flash_attention kernels (the design
+notes are at the top of each source): ``csrc/flash_wgmma.cu`` for
+bfloat16 operands (wgmma and TMA) and ``csrc/flash_attention.cu`` for
+float32 ones (FMA).  :func:`route` picks one by dtype and
+:func:`wgmma_plan` turns the operands' shapes and strides into the
+tensor maps of the bfloat16 kernel; both are plain Python, so the CPU
+tests reach them.  Built at first call by :mod:`repro_torch.kernels._build`,
+never at import."""
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import List, Tuple
 
 import torch
 
 from .. import _build
 
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest head dim the kernel is instantiated for
+#: the largest head dim either kernel is instantiated for
 MAX_D = 128
+#: log2(e): the bf16 kernel's exponentials are exp2 of log2e-scaled scores
+LOG2E = 1.4426950408889634
 
 
-def _launcher():
-    fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+def route(dtype: torch.dtype) -> str:
+    """The kernel a CUDA call of this dtype launches: "wgmma" (bfloat16)
+    or "fma" (float32).  Nothing falls back from one to the other."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+
+
+def wgmma_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+               ) -> Tuple[List[int], List[int]]:
+    """The bf16 kernel's TMA tensor maps: for q, k and v in turn, the dims
+    (D, S, H, B), innermost first, and the byte strides of dims S, H and
+    B.  The maps read each operand in place, so every stride the kernel
+    uses and the base must be multiples of 16 bytes; a dim of extent 1 is
+    never stepped, so its stride is replaced by one that is.  Raises
+    ValueError for a layout TMA cannot read."""
+    dims, strides = [], []
+    D = q.shape[-1]
+    if D % 16 or D > MAX_D:
+        raise ValueError(f"the bf16 flash_attention kernel takes D a "
+                         f"multiple of 16 up to {MAX_D}, got {D}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        esz = t.element_size()
+        if t.stride(-1) != 1:
+            raise ValueError(f"flash_attention {name} needs a contiguous "
+                             f"last dim, got strides {t.stride()}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention {name}'s base is not "
+                             f"16-byte aligned")
+        B, S, H, _ = t.shape
+        extent = D * esz
+        row = []
+        for size, st in ((S, t.stride(1)), (H, t.stride(2)),
+                         (B, t.stride(0))):
+            nbytes = st * esz if size > 1 else -(-extent // 16) * 16
+            if nbytes % 16:
+                raise ValueError(f"flash_attention {name}'s strides "
+                                 f"{t.stride()} are not multiples of 16 "
+                                 f"bytes: TMA cannot read it in place")
+            row.append(nbytes)
+            extent = max(extent, nbytes * size)
+        dims += [D, S, H, B]
+        strides += row
+    return dims, strides
+
+
+def _launcher(name, argtypes):
+    fn = getattr(_build.load(name), f"{name}_launch")
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool) -> torch.Tensor:
-    """q (B, S, HQ, D), k and v (B, Sk, KH, D) on one CUDA device, of one
-    dtype (float32 or bfloat16), each with a contiguous last dim and
-    strides that are multiples of 4 elements.  Returns (B, S, HQ, D) in
-    q's dtype, contiguous."""
+def _fma(q, k, v, out, causal):
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k "
-                        f"and v of one dtype, got {q.dtype}, {k.dtype}, "
-                        f"{v.dtype}")
-    if D % 4 or D > MAX_D:
-        raise ValueError(f"the flash_attention kernel takes D a multiple of "
-                         f"4 up to {MAX_D}, got {D}")
+    if D % 4:
+        raise ValueError(f"the float32 flash_attention kernel takes D a "
+                         f"multiple of 4 up to {MAX_D}, got {D}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]):
             raise ValueError(f"flash_attention {name} needs a contiguous "
                              f"last dim and strides that are multiples of "
                              f"4, got {t.stride()}")
-        if t.data_ptr() % (4 * t.element_size()):
+        if t.data_ptr() % 16:
             raise ValueError(f"flash_attention {name} is not aligned to 4 "
                              f"elements")
+    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                       *v.stride()[:3], *out.stride()[:3])
+    fn = _launcher("flash_attention", [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_void_p])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              HQ, KH, S, Sk, D, ctypes.cast(strides, ctypes.c_void_p),
+              int(causal), float(1.0 / math.sqrt(D)), stream)
+
+
+def _wgmma(q, k, v, out, causal):
+    B, S, HQ, D = q.shape
+    _, Sk, KH, _ = k.shape
+    dims, strides = wgmma_plan(q, k, v)
+    c_dims = (ctypes.c_ulonglong * 12)(*dims)
+    c_strides = (ctypes.c_ulonglong * 9)(*strides)
+    fn = _launcher("flash_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+              HQ, KH, S, Sk, D, ctypes.cast(c_dims, ctypes.c_void_p),
+              ctypes.cast(c_strides, ctypes.c_void_p), int(causal),
+              float(LOG2E / math.sqrt(D)), stream)
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool) -> torch.Tensor:
+    """q (B, S, HQ, D), k and v (B, Sk, KH, D) on one CUDA device, of one
+    dtype.  bfloat16 launches the wgmma kernel (D a multiple of 16,
+    strides and base multiples of 16 bytes), float32 the FMA kernel (D a
+    multiple of 4, strides multiples of 4 elements); both read strided
+    operands in place and raise ValueError for what they cannot read.
+    Returns (B, S, HQ, D) in q's dtype, contiguous."""
+    B, S, HQ, D = q.shape
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention takes q, k and v of one dtype, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    which = route(q.dtype)
+    if D > MAX_D:
+        raise ValueError(f"flash_attention kernels take D up to {MAX_D}, "
+                         f"got {D}")
     out = torch.empty((B, S, HQ, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *out.stride()[:3])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), DTYPES[q.dtype], B, HQ, KH, S, Sk, D,
-                      ctypes.cast(strides, ctypes.c_void_p), int(causal),
-                      float(1.0 / (D ** 0.5)), stream)
-    _build.check(err, "flash_attention")
+    err = (_wgmma if which == "wgmma" else _fma)(q, k, v, out, causal)
+    _build.check(err, f"flash_attention ({which})")
     return out

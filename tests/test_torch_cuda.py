@@ -147,6 +147,65 @@ def test_lut_gemm_kernel_matches_plain(cuda_dev, T, M, K, N, bits, group):
         assert torch.equal(got, want), (bits, group, ep, sh)
 
 
+
+def _lut_check(dev, T, M, K, N, bits, group, cases, seed):
+    rng = np.random.default_rng(seed)
+    lo = -(1 << (bits - 1))
+    a = torch.from_numpy(rng.integers(-128, 128, (T, M, K),
+                                      dtype=np.int8)).to(dev)
+    w = torch.from_numpy(rng.integers(lo, -lo, (T, N, K), dtype=np.int8)) \
+        .to(dev).transpose(1, 2)
+    for ep, sh in cases:
+        before = lut_gemm.launches
+        got = lut_gemm(a, w, bits=bits, group=group, epilogue=ep, shift=sh)
+        again = lut_gemm(a, w, bits=bits, group=group, epilogue=ep, shift=sh)
+        want = lut_gemm_ref(a, w, epilogue=ep, shift=sh)
+        torch.cuda.synchronize()
+        assert lut_gemm.launches == before + 2
+        assert torch.equal(got, want), (T, M, K, N, bits, group, ep, sh)
+        assert torch.equal(again, want)
+
+
+LUT_EPILOGUES = [("none", 0), ("requant", 0), ("requant", 5),
+                 ("requant", 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1040, 100])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("group", [2, 4, 8])
+@pytest.mark.parametrize("M", [1, 2, 5, 16])
+def test_lut_gemm_row_instances_match_plain(cuda_dev, M, bits, group, K):
+    """Every row instance (1, 2, 8 and 16 rows; 4 in passes for group 8)
+    byte-equal to the dense plain version, with every epilogue, on a
+    ragged N, with K of three chunks with a ragged end and a short K whose
+    columns are spread over a warp's lanes."""
+    _lut_check(cuda_dev, 1, M, K, 200, bits, group, LUT_EPILOGUES,
+               M * 100 + bits * 10 + group + K)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("T,M,K,N", [(1, 1, 4096, 192), (1, 2, 4096, 192),
+                                     (1, 16, 4096, 192), (1, 1, 8192, 3072),
+                                     (1, 16, 8192, 3072), (2, 4, 4096, 192)])
+def test_lut_gemm_split_k_matches_plain(cuda_dev, T, M, K, N, bits):
+    """Shapes whose column blocks leave SMs idle take the split of K (the
+    decoder's N 192, Llama's N 3072): partials in scratch, the last block
+    of each column block adds them and runs the epilogue."""
+    from repro_torch.kernels.lut_gemm.kernel import lut_plan
+    sms = torch.cuda.get_device_properties(cuda_dev).multi_processor_count
+    assert lut_plan(T, M, N, K, 4, sms)[2] > 1
+    _lut_check(cuda_dev, T, M, K, N, bits, 4, LUT_EPILOGUES, K + N + M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_lut_gemm_decoder_shape_matches_plain(cuda_dev, bits):
+    """The int4 decoder's launch: T1 M2 N192 K64, requant and none."""
+    _lut_check(cuda_dev, 1, 2, 64, 192, bits, 4, LUT_EPILOGUES, 64 + bits)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2.0 ** -6)],
@@ -263,6 +322,92 @@ def test_flash_attention_reads_strided_views(cuda_dev):
                                  v.contiguous(), causal=True)
     torch.cuda.synchronize()
     assert (got - want).abs().max().item() <= 1e-5
+
+
+
+WGMMA_CASES = [
+    # (B, S, Sk, HQ, KH, D, causal): the bf16 route, the wgmma kernel
+    (1, 16, 16, 24, 8, 128, True),       # Llama's 16-token prompt, G 3
+    (1, 40, 40, 4, 4, 64, True),         # S < 64, G 1
+    (1, 40, 40, 4, 4, 64, False),
+    (2, 33, 33, 6, 2, 128, False),
+    (1, 77, 130, 8, 2, 128, True),       # ragged, Sk > S
+    (1, 77, 130, 8, 8, 64, False),
+    (1, 1000, 1500, 9, 1, 64, True),     # ragged tiles, G 9
+    (2, 1000, 1500, 9, 1, 128, False),
+    (1, 512, 512, 32, 32, 64, True),     # zamba2-1.2b's 512-token prompt
+    (1, 300, 300, 6, 2, 96, True),       # D 96, padded to 128
+    (1, 100, 36, 3, 1, 32, True),        # Sk < S: rows that see no key
+]
+
+
+def _bf16_flash_check(q, k, v, causal):
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert got.is_contiguous()
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    limit = 2.0 ** -6 * want.float().abs().max().item()
+    assert err <= limit, (err, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGMMA_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_wgmma_kernel_matches_plain(cuda_dev, case):
+    B, S, Sk, HQ, KH, D, causal = case
+    rng = np.random.default_rng(S * 7 + Sk + HQ + D)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(cuda_dev).to(torch.bfloat16)
+    _bf16_flash_check(t(B, S, HQ, D), t(B, Sk, KH, D), t(B, Sk, KH, D),
+                      causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wgmma_reads_strided_views(cuda_dev, D):
+    """bf16 q, k, v as views of one fused (B, S, HQ + 2 KH, D) projection
+    and a (B, H, S, D) transposed view: the tensor maps read them in
+    place."""
+    rng = np.random.default_rng(D)
+    B, S, HQ, KH = 2, 150, 6, 2
+    qkv = torch.from_numpy(rng.normal(size=(B, S, HQ + 2 * KH, D))
+                           .astype(np.float32)).to(cuda_dev) \
+        .to(torch.bfloat16)
+    q, k, v = qkv[:, :, :HQ], qkv[:, :, HQ:HQ + KH], qkv[:, :, HQ + KH:]
+    _bf16_flash_check(q, k, v, True)
+    kt = k.transpose(1, 2).contiguous().transpose(1, 2)  # (B, KH, S, D)
+    _bf16_flash_check(q, kt, v, False)
+
+
+@pytest.mark.cuda
+def test_flash_wgmma_refuses_misaligned_operands(cuda_dev):
+    """A bf16 operand TMA cannot read in place raises ValueError: no
+    fallback to another kernel or a copy."""
+    B, S, H, D = 1, 64, 2, 64
+    buf = torch.zeros(B * S * (H * D + 4) + 8, dtype=torch.bfloat16,
+                      device=cuda_dev)
+    good = torch.zeros((B, S, H, D), dtype=torch.bfloat16, device=cuda_dev)
+    odd_stride = torch.as_strided(buf, (B, S, H, D),
+                                  (S * (H * D + 4), H * D + 4, D, 1))
+    odd_base = torch.as_strided(buf, (B, S, H, D),
+                                (S * H * D, H * D, D, 1), 1)
+    before = flash_attention.launches
+    for bad in (odd_stride, odd_base):
+        with pytest.raises(ValueError):
+            flash_attention(bad, good, good)
+        with pytest.raises(ValueError):
+            flash_attention(good, good, bad)
+    with pytest.raises(ValueError):
+        flash_attention(good[..., :40], good[..., :40], good[..., :40])
+    assert flash_attention.launches == before
 
 
 GLA_CASES = [

@@ -174,3 +174,66 @@ def test_meta_tensors_have_no_kernel():
         flash_attention(q, q, q)
     with pytest.raises(ValueError, match="shapes"):
         flash_attention(q, q[:, :, :1, :8], q[:, :, :1, :8])
+
+
+# ----------------------------------------------------------------------
+# the CUDA route and the bf16 kernel's tensor maps (plain Python)
+# ----------------------------------------------------------------------
+def test_route_by_dtype_has_no_fallback():
+    from repro_torch.kernels.flash_attention.kernel import route
+    assert route(torch.bfloat16) == "wgmma"
+    assert route(torch.float32) == "fma"
+    with pytest.raises(TypeError):
+        route(torch.float16)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+def test_wgmma_plan_contiguous_and_gqa_9():
+    """Dims innermost first (D, S, H, B) and byte strides of S, H, B; a kv
+    head axis of extent 1 (G = 9 over one kv head) gets a stride TMA
+    accepts, since it is never stepped."""
+    from repro_torch.kernels.flash_attention.kernel import wgmma_plan
+    B, S, HQ, D = 2, 100, 9, 128
+    q, k = _bf16(B, S, HQ, D), _bf16(B, 300, 1, D)
+    dims, strides = wgmma_plan(q, k, k)
+    assert dims == [D, S, HQ, B] + [D, 300, 1, B] * 2
+    assert strides[:3] == [HQ * D * 2, D * 2, S * HQ * D * 2]
+    kb = D * 2                       # k's S stride: one head of D
+    assert strides[3] == kb and strides[5] == 300 * D * 2
+    assert strides[4] % 16 == 0 and strides[4] >= 300 * kb
+    assert strides[3:6] == strides[6:9]
+
+
+def test_wgmma_plan_reads_fused_qkv_in_place():
+    """q, k, v as views of one (B, S, HQ + 2 KH, D) projection: the maps
+    take the views' own strides, no copy."""
+    from repro_torch.kernels.flash_attention.kernel import wgmma_plan
+    B, S, HQ, KH, D = 2, 70, 6, 2, 64
+    qkv = _bf16(B, S, HQ + 2 * KH, D)
+    q, k, v = qkv[:, :, :HQ], qkv[:, :, HQ:HQ + KH], qkv[:, :, HQ + KH:]
+    dims, strides = wgmma_plan(q, k, v)
+    row = (HQ + 2 * KH) * D * 2
+    assert dims == [D, S, HQ, B, D, S, KH, B, D, S, KH, B]
+    assert strides == [row, D * 2, S * row] * 3
+    assert (k.data_ptr() - q.data_ptr()) % 16 == 0
+
+
+def test_wgmma_plan_refuses_what_tma_cannot_read():
+    from repro_torch.kernels.flash_attention.kernel import wgmma_plan
+    B, S, H, D = 1, 64, 2, 64
+    buf = _bf16(B * S * (H * D + 4) + 8)
+    good = _bf16(B, S, H, D)
+    odd_stride = torch.as_strided(buf, (B, S, H, D),
+                                  (S * (H * D + 4), H * D + 4, D, 1))
+    odd_base = torch.as_strided(buf, (B, S, H, D), (S * H * D, H * D, D, 1),
+                                1)
+    for bad in (odd_stride, odd_base, good.transpose(2, 3)):
+        with pytest.raises(ValueError):
+            wgmma_plan(good, bad, good)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        wgmma_plan(*(_bf16(B, S, H, 40),) * 3)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        wgmma_plan(*(_bf16(B, S, H, 144),) * 3)

@@ -121,6 +121,103 @@ def test_lut_gemm_tile_axis_and_edges():
         lut_gemm(a.to(torch.int32), w, bits=4)
 
 
+
+@pytest.mark.parametrize("parts", [1, 3, 7])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+@pytest.mark.parametrize("group,M", [(2, 16), (4, 16), (4, 1), (8, 5)])
+def test_lut_table_ref_exact_at_the_extremes(group, M, bits, parts):
+    """The kernel's packed 16-bit row pairs at their largest sums: every
+    activation -128 and every weight at the b-bit minimum make each lane
+    product +128 * 2^(b-1), so one 16-lane vector sums to 16384 in each
+    half (the bound the kernel's note gives); K 8192 in 1, 3 and 7 parts.
+    Equal to the dense GEMM, and to it again with the signs mixed."""
+    K, N = 8192, 3
+    a = torch.full((M, K), -128, dtype=torch.int8)
+    w = torch.full((K, N), -(1 << (bits - 1)), dtype=torch.int8)
+    for ep, sh in [("none", 0), ("requant", 12)]:
+        want = vta_gemm_ref(a, w, epilogue=ep, shift=sh)
+        got = lut_gemm_table_ref(a, w, bits=bits, group=group, epilogue=ep,
+                                 shift=sh, parts=parts)
+        assert torch.equal(got, want), (ep, sh)
+    mixed = a.clone()
+    mixed[::2] = 127
+    assert torch.equal(lut_gemm_table_ref(mixed, w, bits=bits, group=group,
+                                          parts=parts),
+                       vta_gemm_ref(mixed, w))
+
+
+@pytest.mark.parametrize("parts", [1, 3])
+@pytest.mark.parametrize("group", [2, 4, 8])
+def test_lut_table_ref_split_matches_reference(group, parts):
+    """Seeded numpy inputs, K of three chunks with a ragged end, rows
+    that take two passes: the table model, split or not, equals the
+    reference's lut_gemm (Pallas, interpret mode)."""
+    rng = np.random.default_rng(group * 10 + parts)
+    for bits, (M, K, N) in [(4, (2, 1100, 24)), (2, (18, 600, 10)),
+                            (1, (1, 1040, 33))]:
+        lo = -(1 << (bits - 1))
+        a = rng.integers(-128, 128, size=(M, K)).astype(np.int8)
+        w = rng.integers(lo, -lo, size=(K, N)).astype(np.int8)
+        want = np.asarray(r_lut_gemm(jnp.asarray(a), jnp.asarray(w),
+                                     bits=bits, group=group,
+                                     use_pallas=True))
+        got = lut_gemm_table_ref(torch.from_numpy(a), torch.from_numpy(w),
+                                 bits=bits, group=group, parts=parts)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("group", [2, 4, 8])
+def test_lut_table_layout_is_a_conflict_free_permutation(group):
+    """For every row instance: the kernel's table layout is a permutation
+    of the chunk's table words, and the lanes of one shared-memory
+    wavefront (LW lanes, each loading UW words of one group and plane)
+    land in distinct banks whatever patterns their weights select."""
+    from repro_torch.kernels.lut_gemm.kernel import (ROW_INSTANCES,
+                                                     table_layout,
+                                                     table_word)
+    rng = np.random.default_rng(group)
+    for mt in ROW_INSTANCES[group]:
+        L = table_layout(group, mt)
+        v = torch.arange(32)[:, None, None, None]
+        gs = torch.arange(L["GPV"])[None, :, None, None]
+        wi = torch.arange(L["WPP"])[None, None, :, None]
+        p = torch.arange(L["P"])[None, None, None, :]
+        words = table_word(group, mt, v, gs, wi, p).reshape(-1)
+        assert torch.equal(words.sort().values, torch.arange(L["WORDS"]))
+        for _ in range(20):
+            for w0 in range(0, 32, L["LW"]):
+                lanes = torch.arange(w0, w0 + L["LW"])
+                pats = torch.from_numpy(rng.integers(0, L["P"], L["LW"]))
+                gsub = int(rng.integers(0, L["GPV"]))
+                nu = int(rng.integers(0, L["NU"]))
+                banks = torch.stack([table_word(group, mt, lanes, gsub,
+                                                nu * L["UW"] + k, pats) % 32
+                                     for k in range(L["UW"])]).reshape(-1)
+                assert banks.unique().numel() == banks.numel()
+
+
+def test_lut_plan_rows_vectors_and_split():
+    """The row instance is the least >= M (group 8 stops at 4 rows); a
+    short K spreads a warp's columns over its lanes (vw vectors a column,
+    at least 32 / C); K is split across blocks when the column blocks
+    leave SMs idle, and never when the rows take more than one pass."""
+    from repro_torch.kernels.lut_gemm.kernel import (columns_per_block,
+                                                     lut_plan)
+    assert lut_plan(1, 2, 192, 64, 4) == (2, 4, 1, 1)      # the decoder
+    assert lut_plan(1, 1, 64, 128, 4)[:3] == (1, 8, 1)
+    assert lut_plan(1, 16, 64, 64, 4)[:2] == (16, 8)       # C 4: vw >= 8
+    assert lut_plan(1, 5, 50, 70, 8)[:3] == (4, 8, 1)
+    assert lut_plan(1, 16, 8192, 3072, 4)[:2] == (16, 32)
+    for mt in (1, 2, 4, 8, 16):
+        assert columns_per_block(mt) * lut_plan(1, mt, 8, 16, 4)[1] >= 256
+    for T, M, N, K in [(1, 1, 192, 4096), (1, 16, 3072, 8192),
+                       (1, 1, 8192, 3072)]:
+        mt, vw, splits, cps = lut_plan(T, M, N, K, 4)
+        assert vw == 32 and splits > 1
+        assert (splits - 1) * cps < -(-K // 512) <= splits * cps
+    assert lut_plan(1, 18, 192, 4096, 4)[2] == 1           # two row passes
+    assert lut_plan(1, 9, 192, 4096, 8)[2] == 1
+
 # ----------------------------------------------------------------------
 # packed programs on both port engines
 # ----------------------------------------------------------------------
