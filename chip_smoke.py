@@ -43,21 +43,35 @@ Phases, in the order they run:
      and every epilogue, with CUDA-event times beside the least time the
      card could take; and at every shape phases 5 and 6 launched (the
      int8 decoder's 1-2 row GEMMs, the decoders' epilogues), checked but
-     not timed;
+     not timed; vta_gemm's skinny instance (M <= 16) at M 1, 3, 16 and 17
+     with K and N ragged, and at every LM shape phases 8 and 9 launched
+     (timed, beside torch._int_mm with M padded to 32: the GEMM alone);
+     quantized_linear's fused route bitwise against its plain chain at
+     every (M, N, K, x dtype) phases 8 and 9 served, in bfloat16 and
+     float32 x, on x.5 ties and an amax below 1e-6, timed beside the
+     PyTorch-op chain the port ran before;
   7. lut_gemm and decode_attention the same way, at every decode-path
      shape (timed), every other shape phases 5 and 6 launched (checked)
      and at Llama-3.2-3B's decode shapes (src/repro/configs/llama32_3b.py);
      decode_attention in bfloat16 within 2^-6 * max|want|; lut_gemm at
-     Llama's M 1 and 16 for bits 1, 2 and 4 beside torch._int_mm;
+     Llama's M 1 and 16 for bits 1, 2 and 4 beside torch._int_mm; the
+     LM paths' decode shapes timed at the full cache and at the served
+     kv_len 32, beside one scaled_dot_product_attention call (a bfloat16
+     query upcast to float32 first where the caches are float32);
   8. the third main path, the LM serve path: llama3.2-3b at full width
      (src/repro_torch/configs/llama32_3b.py; random weights from
      torch.Generator seed 0, int8 PTQ) served by launch.serve.ServeEngine
      (4 slots, max_len 256, float32 caches) to the reference CLI's
      traffic (6 requests, 16-token prompts, 16 new tokens each), then 2
-     requests through the bf16 weights; each run replayed with the three
-     kernel ops swapped for their plain versions (PlainOps), teacher-forced
-     on the kernel run's tokens, every call's logits within
-     LM_LOGIT_TOL of max|logit|; launches per prefill and per decode step;
+     requests through the bf16 weights and 2 through the int8 weights
+     with the int8 KV cache (kv_cache_quant: decode_attention over the
+     dequantized bf16 caches); each run replayed with the kernel ops
+     swapped for their plain versions (PlainOps, no kernel launched),
+     teacher-forced on the kernel run's tokens, every call's logits within
+     LM_LOGIT_TOL of max|logit| (the int8 KV cache run within twice the
+     gap between two plain replays, materialized and chunked attention
+     oracles, where that is larger, and every launch of it held to its
+     plain version); launches per prefill and per decode step;
      the device idle share of one profiled decode step.  Its vta_gemm and
      decode_attention shapes are timed in phases 1 and 7, and
      flash_attention is checked and timed in phase 7 at those shapes and
@@ -527,6 +541,7 @@ def phase_gemm_kernel(rec, main_shapes):
     import numpy as np
     import torch
     from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+    from repro_torch.kernels.vta_gemm.kernel import gemm_plan
     dev = torch.device("cuda")
     cases = [(k, n) for k, n in main_shapes.items()]
     extra = [((1, 37, 50, 70, e, s, b), 0)
@@ -535,6 +550,11 @@ def phase_gemm_kernel(rec, main_shapes):
              for b in (False, True)]
     extra += [((3, 130, 72, 200, "requant", 9, False), 0),
               ((1, 1, 3, 5, "none", 0, True), 0)]
+    # the skinny instance's edges: M 1, 3, 16 and 17 (past the cut), K not
+    # a multiple of 16, N not a multiple of 8, every epilogue, with bias
+    extra += [((1, m, 203, 1000, e, s, True), 0) for m in (1, 3, 16, 17)
+              for e, s in (("none", 0), ("requant", 9), ("dequant", 0))]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, max_err = [], 0
     for (T, M, N, K, epi, shift, has_bias), launches in cases + extra:
         rng = np.random.default_rng(T * 131 + M * 7 + N * 3 + K)
@@ -550,46 +570,146 @@ def phase_gemm_kernel(rec, main_shapes):
                                  * 1e-3).to(dev)
         kw = dict(epilogue=epi, shift=shift)
         got = vta_gemm(a, w, bias, scale, **kw)
+        again = vta_gemm(a, w, bias, scale, **kw)
         want = vta_gemm_ref(a, w, bias, scale, **kw)
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
+        if not torch.equal(got, want) or not torch.equal(again, want):
             fail(f"vta_gemm {(T, M, N, K, epi, shift, has_bias)} differs "
                  f"from its plain version")
         max_err = max(max_err, int((got.to(torch.float64)
                                     - want.to(torch.float64)).abs().max()))
         if launches == 0:
             continue
+        instance = gemm_plan(T, M, N, K, sms).route
         call_ms = cuda_time_ms(lambda: vta_gemm(a, w, bias, scale, **kw))
         ms = kernel_ms(lambda: vta_gemm(a, w, bias, scale, **kw),
-                       "vta_gemm_kernel", call_ms)
+                       "vta_gemm_", call_ms)
         plain = cuda_time_ms(lambda: vta_gemm_ref(a, w, bias, scale, **kw),
                              reps=5, warmup=1)
-        lib = None
-        if epi == "none" and not has_bias and T == 1 and M > 16 \
-                and K % 8 == 0 and N % 8 == 0:
-            # one PyTorch call computing the same function (never used by
-            # the port): int8 x int8 -> int32 on the tensor cores
-            a2, b2 = a[0].contiguous(), w_nk[0].t()
+        lib = lib_what = None
+        if not has_bias and T == 1 and K % 8 == 0 and N % 8 == 0 and (
+                (epi == "none" and M > 16) or epi == "dequant"):
+            # one PyTorch call (never used by the port): int8 x int8 ->
+            # int32 on the tensor cores; it takes at least 17 rows, so the
+            # LM rows go in padded to 32, and there it is the GEMM alone,
+            # without the dequantization
+            a2 = a[0].contiguous() if M > 16 else torch.cat(
+                [a[0], a.new_zeros((32 - M, K))])
+            b2 = w_nk[0].t()
             try:
                 lib_out = torch._int_mm(a2, b2)
             except RuntimeError as e:      # shape or layout it refuses
                 log(f"  torch._int_mm refused {(M, N, K)}: {e}")
             else:
-                if not torch.equal(lib_out, want[0]):
+                acc = want[0] if epi == "none" else vta_gemm_ref(
+                    a, w, epilogue="none")[0]
+                if not torch.equal(lib_out[:M], acc):
                     fail("torch._int_mm disagrees with the plain version")
                 lib = cuda_time_ms(lambda: torch._int_mm(a2, b2))
+                lib_what = "torch._int_mm" + (
+                    "" if M > 16 else ", M padded to 32") + (
+                    "" if epi == "none" else ": GEMM only, no dequant")
         bound, by = gemm_bound_ms(T, M, N, K, epi, has_bias)
         rows.append(dict(T=T, M=M, N=N, K=K, epilogue=epi, shift=shift,
-                         bias=has_bias, launches=launches, ms=ms,
-                         call_ms=call_ms, plain_ms=plain, library_ms=lib,
+                         bias=has_bias, launches=launches, instance=instance,
+                         ms=ms, call_ms=call_ms, plain_ms=plain,
+                         library_ms=lib, library_what=lib_what,
                          bound_ms=bound, bound_by=by))
         log(f"  vta_gemm T={T} M={M} N={N} K={K} {epi}/{shift}"
-            f"{' +bias' if has_bias else ''}: kernel {ms:.4f} ms, call "
-            f"{call_ms:.4f} ms (bound {bound:.5f} "
+            f"{' +bias' if has_bias else ''} ({instance}): kernel "
+            f"{ms:.4f} ms, call {call_ms:.4f} ms (bound {bound:.5f} "
             f"ms by {by}; plain {plain:.4f} ms; library "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}) x{launches}")
+            f"{'n/a' if lib is None else f'{lib:.4f} ms ({lib_what})'}) "
+            f"x{launches}")
     rec["vta_gemm_shapes"] = rows
     return rows, max_err
+
+
+def qlinear_inputs(M, K, N, dt, case, seed):
+    """x (M, K) in dtype `dt` on the card ("normal": 4 x unit normal;
+    "ties": every x / x_scale on k + 0.5, x_scale exactly 1/16; "tiny":
+    amax below 1e-6), w_q (K, N) over (N, K) storage, w_scale (N,)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    if case == "normal":
+        x = rng.normal(size=(M, K)) * 4
+    elif case == "ties":
+        x = (2 * rng.integers(-127, 127, size=(M, K)) + 1) / 32.0
+        x.reshape(-1)[0] = 127 / 16
+    else:
+        x = rng.integers(-64, 64, size=(M, K)) * 2.0 ** -33
+    w_nk = rng.integers(-128, 128, size=(N, K), dtype=np.int8)
+    sc = rng.random(N) * 1e-2 + 1e-4
+    dev = torch.device(DEVICE)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev)
+            .to(getattr(torch, dt)),
+            torch.from_numpy(w_nk).to(dev).t(),
+            torch.from_numpy(sc.astype(np.float32)).to(dev))
+
+
+def qlinear_bound_ms(M, N, K, elt):
+    """x read, the int8 weights and their scales read, y written, at the
+    memory rate, or the int8 operations at the tensor-core peak."""
+    nbytes = M * K * elt + N * K + 4 * N + M * N * elt
+    ops = 2 * M * N * K
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT8_TENSOR_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def phase_qlinear_kernel(rec, served):
+    """quantized_linear's fused route against its plain chain on the card,
+    bitwise (torch.equal), at every (M, N, K, x dtype) phases 8 and 9
+    served, in bfloat16 and float32 x, on unit-scale inputs, on x.5 ties
+    and on an amax below 1e-6; timed at each served shape beside the
+    chain as the port ran it before (amax, scale, quantization and
+    dequantization as PyTorch ops around a vta_gemm launch)."""
+    import torch
+    from repro_torch.kernels.vta_gemm import (quantized_linear,
+                                              quantized_linear_ref, vta_gemm)
+    from repro_torch.kernels.vta_gemm.kernel import gemm_plan
+    dev = torch.device(DEVICE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, checked = [], 0
+    for (M, N, K, dt), launches in sorted(served.items()):
+        for xdt in ("bfloat16", "float32"):
+            for case in ("normal", "ties", "tiny"):
+                x, w_q, ws = qlinear_inputs(M, K, N, xdt, case,
+                                            M + N + K + len(case))
+                got = quantized_linear(x, w_q, ws)
+                again = quantized_linear(x, w_q, ws)
+                want = quantized_linear_ref(x, w_q, ws)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want) or not torch.equal(again,
+                                                                 want):
+                    fail(f"quantized_linear {(M, N, K, xdt, case)} differs "
+                         f"from its plain chain")
+                checked += 1
+        x, w_q, ws = qlinear_inputs(M, K, N, dt, "normal", M + N + K)
+        plan = gemm_plan(1, M, N, K, sms)
+        call = lambda: quantized_linear(x, w_q, ws)  # noqa: E731
+        call_ms = cuda_time_ms(call)
+        ms = kernel_ms(call, "vta_gemm_", call_ms)
+        chain_ms = cuda_time_ms(
+            lambda: quantized_linear_ref(x, w_q, ws, gemm=vta_gemm))
+        plain = cuda_time_ms(lambda: quantized_linear_ref(x, w_q, ws),
+                             reps=5, warmup=1)
+        bound, by = qlinear_bound_ms(M, N, K, x.element_size())
+        rows.append(dict(M=M, N=N, K=K, dtype=dt, launches=launches,
+                         instance=plan.route, splits=plan.splits, ms=ms,
+                         call_ms=call_ms, chain_call_ms=chain_ms,
+                         plain_ms=plain, bound_ms=bound, bound_by=by))
+        log(f"  quantized_linear M={M} N={N} K={K} {dt} ({plan.route}, "
+            f"{plan.splits} K slices): kernels {ms:.4f} ms, call "
+            f"{call_ms:.4f} ms; the PyTorch-op chain around vta_gemm "
+            f"{chain_ms:.4f} ms a call (bound {bound:.5f} ms by {by}; plain "
+            f"{plain:.4f} ms) x{launches}")
+    log(f"  quantized_linear: {len(served)} served shapes, {checked} checks "
+        f"bitwise equal to the plain chain (bfloat16 and float32 x; normal, "
+        f"x.5 ties, amax below 1e-6)")
+    rec["quantized_linear_shapes"] = rows
+    return rows
 
 
 def alu_library_call(chain, d, s):
@@ -1128,6 +1248,45 @@ def sdpa_call(q, k, v, causal):
     return call
 
 
+#: the kv_len of the LM paths' last decode step (16-token prompts, 16 new)
+LM_SERVED_KV = 32
+
+
+def attn_timing(q, k, v, kv_len, qdt, kvdt):
+    """decode_attention's kernel and call ms at one kv_len, beside its
+    plain version, its bound and one scaled_dot_product_attention call
+    over the [:, :kv_len] views (a query of another dtype than the caches
+    is upcast before the timed call)."""
+    import torch
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref_4d)
+    from repro_torch.kernels.decode_attention.kernel import decode_plan
+    B, S, KH, D = k.shape
+    HQ = q.shape[2]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits, split_len = decode_plan(B, KH, HQ // KH, S, kv_len, sms)
+    call = lambda: decode_attention(q, k, v, kv_len)  # noqa: E731
+    call_ms = cuda_time_ms(call)
+    ms = kernel_ms(call, "decode_", call_ms)
+    plain = cuda_time_ms(lambda: decode_attention_ref_4d(q, k, v, kv_len),
+                         reps=5, warmup=1)
+    want = decode_attention_ref_4d(q, k, v, kv_len)
+    ql = q if qdt == kvdt else q.float()
+    lib = lib_err = None
+    lib_call = sdpa_call(ql, k[:, :kv_len], v[:, :kv_len], False)
+    if lib_call is not None:
+        lib_err = float((lib_call().transpose(1, 2).float()
+                         - want.float()).abs().max())
+        lib = cuda_time_ms(lib_call)
+    bound, by = attn_bound_ms(B, S, HQ, KH, D, kv_len, k.element_size(),
+                              q.element_size())
+    return dict(kv_len=kv_len, splits=splits, split_len=split_len, ms=ms,
+                call_ms=call_ms, plain_ms=plain, library_ms=lib,
+                library_what="" if qdt == kvdt else
+                " (q upcast to float32 before the call)",
+                library_max_abs_err=lib_err, bound_ms=bound, bound_by=by)
+
+
 def phase_attn_kernel(rec, main_shapes):
     """decode_attention against its plain version, within attn_tolerance,
     and bitwise equal over two calls."""
@@ -1137,7 +1296,8 @@ def phase_attn_kernel(rec, main_shapes):
     dev = torch.device(DEVICE)
     cases = []
     for (B, S, HQ, KH, D, qdt, kvdt), launches in main_shapes.items():
-        cases.append(((B, S, HQ, KH, D, qdt, kvdt), [1, S // 2, S],
+        cases.append(((B, S, HQ, KH, D, qdt, kvdt),
+                      sorted({1, min(LM_SERVED_KV, S), S // 2, S}),
                       launches))
     for B, S in LLAMA_DECODE_BS:
         for dt in ("float32", "bfloat16"):
@@ -1177,34 +1337,24 @@ def phase_attn_kernel(rec, main_shapes):
                                     limit=tol))
         if launches == 0:
             continue
-        kv_len = lens[-1]
-        call = lambda: decode_attention(q, k, v, kv_len)  # noqa: E731
-        call_ms = cuda_time_ms(call)
-        ms = kernel_ms(call, "decode_", call_ms)
-        plain = cuda_time_ms(lambda: decode_attention_ref_4d(q, k, v, kv_len),
-                             reps=5, warmup=1)
-        lib = lib_err = None
-        if qdt == kvdt:
-            lib_call = sdpa_call(q, k[:, :kv_len], v[:, :kv_len], False)
-            if lib_call is not None:
-                lib_err = float((lib_call().transpose(1, 2).float()
-                                 - want.float()).abs().max())
-                lib = cuda_time_ms(lib_call)
-        bound, by = attn_bound_ms(B, S, HQ, KH, D, kv_len, k.element_size(),
-                                  q.element_size())
-        rows.append(dict(B=B, S=S, HQ=HQ, KH=KH, D=D, dtype=qdt,
-                         cache_dtype=kvdt, kv_len=kv_len,
-                         launches=max(launches, 0),
-                         decode_path=launches > 0, ms=ms, call_ms=call_ms,
-                         plain_ms=plain, library_ms=lib,
-                         library_max_abs_err=lib_err, bound_ms=bound,
-                         bound_by=by))
-        log(f"  decode_attention B={B} S={S} HQ={HQ} KH={KH} D={D} {qdt}"
-            f"/{kvdt} kv_len={kv_len}: kernel {ms:.4f} ms, call "
-            f"{call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
-            f"{plain:.4f} ms; sdpa "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}) "
-            + (f"x{launches}" if launches > 0 else "(Llama-3.2-3B)"))
+        # timed at the full cache and, on the LM paths, at the served
+        # kv_len (the last decode step of 16 + 16 tokens)
+        for kv_len in [lens[-1]] + ([LM_SERVED_KV] if launches > 0
+                                    and S > LM_SERVED_KV else []):
+            row = attn_timing(q, k, v, kv_len, qdt, kvdt)
+            row.update(B=B, S=S, HQ=HQ, KH=KH, D=D, dtype=qdt,
+                       cache_dtype=kvdt, launches=max(launches, 0),
+                       decode_path=launches > 0)
+            rows.append(row)
+            log(f"  decode_attention B={B} S={S} HQ={HQ} KH={KH} D={D} "
+                f"{qdt}/{kvdt} kv_len={kv_len} ({row['splits']} splits): "
+                f"kernel {row['ms']:.4f} ms, call {row['call_ms']:.4f} ms "
+                f"(bound {row['bound_ms']:.5f} ms by bytes; plain "
+                f"{row['plain_ms']:.4f} ms; sdpa "
+                + ("n/a" if row["library_ms"] is None else
+                   f"{row['library_ms']:.4f} ms{row['library_what']}")
+                + ") " + (f"x{launches}" if launches > 0
+                          else "(Llama-3.2-3B)"))
     rec["decode_attention_shapes"] = rows
     rec["decode_attention_limits"] = limits
     for r in limits["bfloat16"]:
@@ -1316,6 +1466,9 @@ LM_ARCH = "llama3.2-3b"
 LM_SLOTS, LM_MAX_LEN = 4, 256
 LM_REQUESTS, LM_MAX_NEW = 6, 16          # the reference CLI's defaults
 LM_BF16_REQUESTS = 2
+#: requests served with the int8 KV cache (kv_cache_quant: int8 values and
+#: per-row scales, dequantized to bf16 caches for decode_attention)
+LM_KVQ_REQUESTS = 2
 #: logits of the kernel run against the plain run (teacher-forced), as a
 #: share of the plain run's max|logit| at that call
 LM_LOGIT_TOL = 0.05
@@ -1343,34 +1496,57 @@ def gla_by_recurrence(q, k, v, la, h0=None, *, chunk=64, y_dtype=None):
             h.reshape(B, H, N, P))
 
 
+def flash_by_chunks(q, k, v, causal=True):
+    """The flash_attention op's function by the chunked oracle (a loop over
+    key blocks with a running softmax; plain PyTorch, float32), at every
+    size: the same math as the materialized oracle that the plain version
+    runs at the LM paths' shapes, with its sums in another order."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref_chunked
+    return attention_ref_chunked(q, k, v, group=q.shape[2] // k.shape[2],
+                                 causal=causal)
+
+
 class PlainOps:
-    """Swap the LM paths' four kernel ops for their plain versions
-    (flash_attention, decode_attention, the vta_gemm under
-    quantized_linear, and the gla_chunk under Mamba2's chunked_gla), for
-    the duration of the block; with scan="recurrence" the scan is
-    gla_by_recurrence."""
+    """Swap the LM paths' kernel ops for their plain versions
+    (flash_attention, decode_attention, quantized_linear at the name
+    models/layers.py calls it by, the vta_gemm under its CPU chain, and
+    the gla_chunk under Mamba2's chunked_gla), for the duration of the
+    block; with scan="recurrence" the scan is gla_by_recurrence, with
+    flash="chunked" the prefill attention is flash_by_chunks.
+    serve_run holds every kernel op's launch count still across a plain
+    replay."""
 
-    def __init__(self, scan="chunked"):
-        self.scan = scan
+    def __init__(self, scan="chunked", flash="plain"):
+        self.scan, self.flash = scan, flash
 
-    def __enter__(self):
+    @staticmethod
+    def _sites():
         import repro_torch.kernels.vta_gemm.ops as vops
         import repro_torch.models.attention as att
+        import repro_torch.models.layers as layers
         import repro_torch.models.ssm as ssm
+        return [(att, "flash_attention"), (att, "decode_attention"),
+                (layers, "quantized_linear"), (vops, "vta_gemm"),
+                (ssm, "gla_chunk")]
+
+    def _swap(self, fns):
+        self.saved = [(mod, name, getattr(mod, name))
+                      for mod, name in self._sites()]
+        for (mod, name), fn in zip(self._sites(), fns):
+            setattr(mod, name, fn)
+
+    def __enter__(self):
         from repro_torch.kernels.decode_attention import \
             decode_attention_ref_4d
         from repro_torch.kernels.flash_attention import flash_attention_plain
         from repro_torch.kernels.gla_chunk import gla_chunk_plain
-        from repro_torch.kernels.vta_gemm import vta_gemm_ref
-        self.saved = [(att, "flash_attention", att.flash_attention),
-                      (att, "decode_attention", att.decode_attention),
-                      (vops, "vta_gemm", vops.vta_gemm),
-                      (ssm, "gla_chunk", ssm.gla_chunk)]
-        att.flash_attention = flash_attention_plain
-        att.decode_attention = decode_attention_ref_4d
-        vops.vta_gemm = vta_gemm_ref
-        ssm.gla_chunk = gla_chunk_plain if self.scan == "chunked" \
-            else gla_by_recurrence
+        from repro_torch.kernels.vta_gemm import (quantized_linear_ref,
+                                                  vta_gemm_ref)
+        self._swap([flash_attention_plain if self.flash == "plain"
+                    else flash_by_chunks, decode_attention_ref_4d,
+                    quantized_linear_ref, vta_gemm_ref,
+                    gla_chunk_plain if self.scan == "chunked"
+                    else gla_by_recurrence])
         return self
 
     def __exit__(self, *exc):
@@ -1380,27 +1556,27 @@ class PlainOps:
 
 
 class CheckedOps(PlainOps):
-    """For the duration of the block, every launch of the four kernel ops
-    also computes its plain version on the same inputs and is held to it:
-    vta_gemm bitwise, gla_chunk within 3e-4 + 3e-4 |plain| elementwise,
-    the attention kernels within attn_tolerance.  `worst` keeps each op's
-    largest error relative to max|plain|, `calls` its launches."""
+    """For the duration of the block, every launch of the kernel ops also
+    computes its plain version on the same inputs and is held to it:
+    quantized_linear and vta_gemm bitwise, gla_chunk within 3e-4 + 3e-4
+    |plain| elementwise, the attention kernels within attn_tolerance.
+    `worst` keeps each op's largest error relative to max|plain|, `calls`
+    its launches."""
 
     def __enter__(self):
         import torch
-        import repro_torch.kernels.vta_gemm.ops as vops
-        import repro_torch.models.attention as att
-        import repro_torch.models.ssm as ssm
         from repro_torch.kernels.decode_attention import (
             decode_attention, decode_attention_ref_4d)
         from repro_torch.kernels.flash_attention import (
             flash_attention, flash_attention_plain)
         from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
-        from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+        from repro_torch.kernels.vta_gemm import (quantized_linear,
+                                                  quantized_linear_ref,
+                                                  vta_gemm, vta_gemm_ref)
         self.worst, self.calls = {}, {}
 
         def close(name, a, b):
-            if name == "vta_gemm":
+            if name in ("vta_gemm", "quantized_linear"):
                 return torch.equal(a, b)
             d = (a.float() - b.float()).abs()
             if name == "gla_chunk":
@@ -1423,19 +1599,16 @@ class CheckedOps(PlainOps):
                     self.worst[name] = max(self.worst.get(name, 0.0), rel)
                 self.calls[name] = self.calls.get(name, 0) + 1
                 return got
-            # vta_gemm counts its launches on the name it is called by
-            call.launches, call.shapes = 0, {}
             return call
-        self.saved = [(att, "flash_attention", att.flash_attention),
-                      (att, "decode_attention", att.decode_attention),
-                      (vops, "vta_gemm", vops.vta_gemm),
-                      (ssm, "gla_chunk", ssm.gla_chunk)]
-        att.flash_attention = checked("flash_attention", flash_attention,
-                                      flash_attention_plain)
-        att.decode_attention = checked("decode_attention", decode_attention,
-                                       decode_attention_ref_4d)
-        vops.vta_gemm = checked("vta_gemm", vta_gemm, vta_gemm_ref)
-        ssm.gla_chunk = checked("gla_chunk", gla_chunk, gla_chunk_plain)
+        self._swap([
+            checked("flash_attention", flash_attention,
+                    flash_attention_plain),
+            checked("decode_attention", decode_attention,
+                    decode_attention_ref_4d),
+            checked("quantized_linear", quantized_linear,
+                    quantized_linear_ref),
+            checked("vta_gemm", vta_gemm, vta_gemm_ref),
+            checked("gla_chunk", gla_chunk, gla_chunk_plain)])
         return self
 
 
@@ -1546,16 +1719,27 @@ def lm_weights(arch):
     return cfg, params, qparams, time.perf_counter() - t0
 
 
+#: the second plain replays that measure a model's own rounding floor:
+#: the same function with its float sums in another order
+FLOOR_REPLAYS = {
+    "recurrence": ("chunked scan, step recurrence",
+                   dict(scan="recurrence")),
+    "chunked_flash": ("materialized and chunked attention oracles",
+                      dict(flash="chunked")),
+}
+
+
 def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
-              max_len=LM_MAX_LEN, floor=False):
+              max_len=LM_MAX_LEN, floor=None):
     """Serve `requests()` with the counts set to 0 just before and read
     just after; replay them with PlainOps, teacher-forced on the kernel
-    run's tokens, every call's logits within LM_LOGIT_TOL of max|logit|.
-    With `floor`, a second plain replay (the scan by its step recurrence)
-    measures the model's own rounding floor, the largest gap between the
-    two plain runs; where twice that floor exceeds LM_LOGIT_TOL, the
-    kernel run is held to twice the floor instead.  Returns the run's
-    summary, with its launch counts."""
+    run's tokens (no kernel op may launch in a replay), every call's
+    logits within LM_LOGIT_TOL of max|logit|.  With `floor` (a key of
+    FLOOR_REPLAYS), a second plain replay measures the model's own
+    rounding floor, the largest gap between the two plain runs; where
+    twice that floor exceeds LM_LOGIT_TOL, the kernel run is held to
+    twice the floor instead.  Returns the run's summary, with its launch
+    counts."""
     import torch
     eng = lm_engine(cfg, params, counters, slots=slots, max_len=max_len)
     reqs = requests()
@@ -1573,16 +1757,25 @@ def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
                                      for r in done):
         fail(f"{what}: served {len(done)} of {len(reqs)} requests")
     summary = lm_summary(eng, done, wall)
-    with PlainOps():
-        plain = lm_engine(cfg, params, counters, forced=eng.chosen,
-                          slots=slots, max_len=max_len)
-        plain.run(requests())
+
+    def replay(**kind):
+        """The plain replay, teacher-forced; no kernel op launches."""
+        before = {k: op.launches for k, op in counters.ops.items()}
+        with PlainOps(**kind):
+            eng_p = lm_engine(cfg, params, counters, forced=eng.chosen,
+                              slots=slots, max_len=max_len)
+            eng_p.run(requests())
+        moved = {k: op.launches - before[k]
+                 for k, op in counters.ops.items()
+                 if op.launches != before[k]}
+        if moved:
+            fail(f"{what}: a plain replay ({kind}) launched kernels: "
+                 f"{moved}")
+        return eng_p
+    plain = replay()
     limit, floor_gap = LM_LOGIT_TOL, None
     if floor:
-        with PlainOps(scan="recurrence"):
-            alt = lm_engine(cfg, params, counters, forced=eng.chosen,
-                            slots=slots, max_len=max_len)
-            alt.run(requests())
+        alt = replay(**FLOOR_REPLAYS[floor][1])
         floor_gap, _ = compare_logits(alt, plain, what, limit=None)
         limit = max(LM_LOGIT_TOL, 2 * floor_gap)
     worst, agree = compare_logits(eng, plain, what, limit=limit)
@@ -1609,8 +1802,8 @@ def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
         f"{worst:.3e} of max|logit| (limit {limit:.3e}); argmax "
         f"agreement {agree:.4f}"
         + ("" if floor_gap is None else
-           f"; the two plain runs (chunked scan, step recurrence) differ "
-           f"by {floor_gap:.3e}"))
+           f"; the two plain runs ({FLOOR_REPLAYS[floor][0]}) differ by "
+           f"{floor_gap:.3e}"))
     return summary
 
 
@@ -1621,10 +1814,13 @@ def phase_lm(rec, counters):
     int8 PTQ (quantize_params), served by ServeEngine(4 slots, max_len 256,
     float32 caches) to the reference CLI's traffic (6 requests, 16-token
     prompts from np.random.default_rng(0), 16 new tokens each); then 2
-    requests through the bf16 weights (no vta_gemm).  Each run is
-    replayed with the kernels swapped for their plain versions,
-    teacher-forced on the kernel run's tokens, and every call's logits
-    held within LM_LOGIT_TOL of max|logit|.  The counts are set to 0 just
+    requests through the bf16 weights (no vta_gemm), then 2 through the
+    int8 weights with the int8 KV cache.  Each run is replayed with the
+    kernels swapped for their plain versions, teacher-forced on the kernel
+    run's tokens, and every call's logits held within LM_LOGIT_TOL of
+    max|logit| (the int8 KV cache run within twice the gap between two
+    plain oracles where that is larger, and every launch of it held to
+    its plain version).  The counts are set to 0 just
     before each served run and read just after."""
     import torch
     from repro_torch.launch.serve import make_requests
@@ -1639,18 +1835,34 @@ def phase_lm(rec, counters):
         lm_engine(cfg, p, counters).run(make_requests(cfg, 1, 2, seed=99))
     torch.cuda.synchronize()
     out = {}
-    for name, p, n_req in (("int8", qparams, LM_REQUESTS),
-                           ("bf16", params, LM_BF16_REQUESTS)):
+    cfg_kvq = cfg.replace(kv_cache_quant=True)
+    for name, c, p, n_req in (
+            ("int8", cfg, qparams, LM_REQUESTS),
+            ("bf16", cfg, params, LM_BF16_REQUESTS),
+            ("int8_kvq", cfg_kvq, qparams, LM_KVQ_REQUESTS)):
+        # the int8 KV cache run, whose model alone differs from itself by
+        # more than LM_LOGIT_TOL between two plain oracles, is held as
+        # phase 9's runs are (serve_run's floor)
         summary = serve_run(
-            cfg, f"LM {name} weights", p,
-            lambda n=n_req: make_requests(cfg, n, LM_MAX_NEW), counters)
+            c, f"LM {name} weights" + (", int8 KV cache" if
+                                       c.kv_cache_quant else ""), p,
+            lambda n=n_req: make_requests(cfg, n, LM_MAX_NEW), counters,
+            floor="chunked_flash" if c.kv_cache_quant else None)
         launches = summary["launches"]
         want = {"flash_attention": 1, "decode_attention": 1,
-                "vta_gemm": int(name == "int8")}
+                "vta_gemm": int(p is qparams)}
         for k, need in want.items():
             if (launches[k] > 0) != bool(need):
                 fail(f"LM {name}: {k} launched {launches[k]} times")
         out[name] = summary
+    with CheckedOps() as chk:
+        lm_engine(cfg_kvq, qparams, counters).run(
+            make_requests(cfg, LM_KVQ_REQUESTS, LM_MAX_NEW))
+    out["kvq_launch_checks"] = dict(worst=chk.worst, launches=chk.calls)
+    log("  LM int8 weights, int8 KV cache, every launch against its plain "
+        "version on the same inputs: " + ", ".join(
+            f"{k} x{chk.calls[k]} within {v:.2e} of max|plain|"
+            for k, v in sorted(chk.worst.items())))
     out["lm_profile"] = lm_step_profile(cfg, qparams, counters)
     rec["lm"] = dict(arch=LM_ARCH, params=n_params, init_s=init_s,
                      slots=LM_SLOTS, max_len=LM_MAX_LEN,
@@ -1781,7 +1993,7 @@ def phase_hybrid(rec, counters):
     out = {}
     for name, c, p, requests in runs:
         summary = serve_run(c, f"{HYBRID_ARCH} {name}", p, requests,
-                            counters, floor=True, **kw)
+                            counters, floor="recurrence", **kw)
         want_prefill, want_step = hybrid_launches(cfg, p is qparams)
         for what, got, want in (
                 ("prefill", summary["prefill_launches"], want_prefill),
@@ -1960,8 +2172,9 @@ def ptxas_report(text):
 
 
 class Counters:
-    """The launch counts of the six kernels: reset to 0 just before a
-    main path runs, read just after."""
+    """The launch counts of the six kernels, and the shapes each launched
+    (quantized_linear's fused calls by (M, N, K, x dtype) as well): reset
+    to 0 just before a main path runs, read just after."""
 
     def __init__(self):
         from repro_torch.kernels.decode_attention import decode_attention
@@ -1969,21 +2182,26 @@ class Counters:
         from repro_torch.kernels.gla_chunk import gla_chunk
         from repro_torch.kernels.lut_gemm import lut_gemm
         from repro_torch.kernels.tensor_alu import tensor_alu
-        from repro_torch.kernels.vta_gemm import vta_gemm
+        from repro_torch.kernels.vta_gemm import quantized_linear, vta_gemm
         self.ops = {"vta_gemm": vta_gemm, "tensor_alu": tensor_alu,
                     "lut_gemm": lut_gemm,
                     "decode_attention": decode_attention,
                     "flash_attention": flash_attention,
                     "gla_chunk": gla_chunk}
-        self.shapes = {k: {} for k in self.ops}
+        self.shaped = dict(self.ops, quantized_linear=quantized_linear)
+        self.clear_shapes()
+
+    def clear_shapes(self):
+        self.shapes = {k: {} for k in self.shaped}
 
     def reset(self):
         for op in self.ops.values():
             op.launches = 0
+        for op in self.shaped.values():
             op.shapes.clear()
 
     def read(self):
-        for k, op in self.ops.items():
+        for k, op in self.shaped.items():
             for shape, n in op.shapes.items():
                 self.shapes[k][shape] = self.shapes[k].get(shape, 0) + n
         return {k: op.launches for k, op in self.ops.items()}
@@ -2099,7 +2317,7 @@ def main():
     # ---- phase 8: the LM serve path (counts from 0 before each run) ------
     log("phase 8: the LM serve path (llama3.2-3b at full width, int8 PTQ "
         "and bf16 weights, ServeEngine)")
-    counters.shapes = {k: {} for k in counters.ops}
+    counters.clear_shapes()
     lm = phase_lm(rec, counters)
     lm_launches = lm["int8"]["launches"]
     for k in ("flash_attention", "decode_attention", "vta_gemm"):
@@ -2112,6 +2330,7 @@ def main():
         for sh, n in counters.shapes[k].items():
             main_set[sh] = main_set.get(sh, 0) + n
     flash_shapes = dict(counters.shapes["flash_attention"])
+    ql_shapes = dict(counters.shapes["quantized_linear"])
     lm_flash = set(flash_shapes)
     rec["lm_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                         for k, v in counters.shapes.items()}
@@ -2119,7 +2338,7 @@ def main():
     # ---- phase 9: the hybrid serve path (counts from 0 before each run) --
     log("phase 9: the hybrid serve path (zamba2-1.2b at full width, int8 "
         "PTQ and bf16 weights, ServeEngine)")
-    counters.shapes = {k: {} for k in counters.ops}
+    counters.clear_shapes()
     hy = phase_hybrid(rec, counters)
     hy_runs = {name: hy[name]["launches"]
                for name in ("int8", "int8_long", "bf16", "f32")}
@@ -2132,7 +2351,8 @@ def main():
     # the hybrid path's shapes are timed in phases 1 and 7 too
     for main_set, k in ((gemm_shapes, "vta_gemm"),
                         (attn_shapes, "decode_attention"),
-                        (flash_shapes, "flash_attention")):
+                        (flash_shapes, "flash_attention"),
+                        (ql_shapes, "quantized_linear")):
         for sh, n in counters.shapes[k].items():
             main_set[sh] = main_set.get(sh, 0) + n
     gla_shapes = dict(counters.shapes["gla_chunk"])
@@ -2142,6 +2362,7 @@ def main():
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
+    q_rows = phase_qlinear_kernel(rec, ql_shapes)
     a_rows, a_err = phase_alu_kernel(rec, alu_shapes)
     log("phase 7: the decode-path, LM-path and hybrid-path kernels against "
         "their plain versions")
@@ -2155,11 +2376,14 @@ def main():
     phase_engines(rec)
 
     # ---- phase 4: the kernels line --------------------------------------
-    # the line reports each kernel at its heaviest main-path shape (for
-    # vta_gemm one that a single library call also computes, if any);
-    # every shape is in the record
-    g = max(g_rows, key=lambda r: (r["library_ms"] is not None,
-                                   r["M"] * r["N"] * r["K"] * r["T"]))
+    # the line reports each kernel at its heaviest main-path shape: for
+    # vta_gemm the LM linear with the most weight bytes (the most launched
+    # of those), with the instance it ran and its fused quantized_linear
+    # call; every shape is in the record
+    g = max((r for r in g_rows if r["epilogue"] == "dequant"),
+            key=lambda r: (r["N"] * r["K"], r["launches"]))
+    gq = [r for r in q_rows if (r["M"], r["N"], r["K"]) ==
+          (g["M"], g["N"], g["K"])]
     a = max(a_rows, key=lambda r: r["launches"] * r["shape"][0]
             * r["shape"][1])
     kernels = [
@@ -2173,7 +2397,11 @@ def main():
              ms=g["ms"], call_ms=g["call_ms"], plain_ms=g["plain_ms"],
              bound_ms=g["bound_ms"],
              bound_by=g["bound_by"], library_ms=g["library_ms"],
-             checked=True,
+             library_what=g["library_what"], checked=True,
+             instance=g["instance"],
+             quantized_linear_call_ms=gq[0]["call_ms"] if gq else None,
+             quantized_linear_chain_call_ms=gq[0]["chain_call_ms"]
+             if gq else None,
              shape=dict(T=g["T"], M=g["M"], N=g["N"], K=g["K"],
                         epilogue=g["epilogue"])),
         dict(name="tensor_alu", route="cuda",

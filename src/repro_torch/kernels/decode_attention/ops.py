@@ -1,7 +1,7 @@
 """Public op: batched GQA decode step over a (possibly padded) KV cache.
 
 A CPU tensor takes the plain version (``ref.decode_attention_ref_4d``); a
-CUDA tensor launches the CUDA kernels; any other device raises.  There is
+CUDA tensor launches the CUDA kernel; any other device raises.  There is
 no fallback between the two.
 """
 from __future__ import annotations

@@ -10,8 +10,9 @@ from typing import Optional
 
 import torch
 
-from .kernel import EPILOGUES, OUT_DTYPES, vta_gemm_cuda
-from .ref import vta_gemm_ref
+from .kernel import (EPILOGUES, OUT_DTYPES, X_DTYPES, quantized_linear_cuda,
+                     vta_gemm_cuda)
+from .ref import quantized_linear_ref, vta_gemm_ref
 
 
 def vta_gemm(a: torch.Tensor, w: torch.Tensor,
@@ -61,9 +62,7 @@ def vta_gemm(a: torch.Tensor, w: torch.Tensor,
         bias.to(torch.int32).contiguous() if bias is not None else None,
         scale.to(torch.float32).contiguous() if scale is not None else None,
         epilogue, shift)
-    vta_gemm.launches += 1
-    key = (T, M, N, K, epilogue, shift, bias is not None)
-    vta_gemm.shapes[key] = vta_gemm.shapes.get(key, 0) + 1
+    _count((T, M, N, K, epilogue, shift, bias is not None))
     return out if a.dim() == 3 else out[0]
 
 
@@ -71,6 +70,14 @@ def vta_gemm(a: torch.Tensor, w: torch.Tensor,
 vta_gemm.launches = 0
 #: (T, M, N, K, epilogue, shift, has_bias) -> launches at that shape
 vta_gemm.shapes = {}
+#: the op itself: the counts stay on it whatever function a caller swaps
+#: in at this module's name `vta_gemm`
+_VTA_GEMM = vta_gemm
+
+
+def _count(key) -> None:
+    _VTA_GEMM.launches += 1
+    _VTA_GEMM.shapes[key] = _VTA_GEMM.shapes.get(key, 0) + 1
 
 
 def quantized_linear(x: torch.Tensor, w_q: torch.Tensor,
@@ -78,23 +85,49 @@ def quantized_linear(x: torch.Tensor, w_q: torch.Tensor,
                      x_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """LM serving path: y = (x_q @ w_q) * (sx * sw[n]), in x's dtype.
 
-    x: float activations, dynamically quantized to int8 per tensor;
-    w_q: (K, N) int8 with per-channel scales w_scale (N,) float32.  A
-    transposed view of a contiguous (N, K) matrix (what
+    x: float activations, dynamically quantized to int8 per tensor
+    (``ref.quantize_activations``: the reference's dtype steps); w_q: (K,
+    N) int8 with per-channel scales w_scale (N,) float32.  A transposed
+    view of a contiguous (N, K) matrix (what
     ``models.quantized.quantize_params`` stores) reaches the kernel with no
-    copy.  The dtype steps are the reference's: amax is taken and divided
-    by 127 in x's dtype, then cast to float32; x is divided by that scale
-    in float32 (torch keeps a bfloat16 tensor over a 0-d float32 tensor in
-    bfloat16, JAX promotes it, so the cast is explicit), rounded half to
-    even and clipped.
+    copy.  A CPU tensor runs the plain chain through :func:`vta_gemm`; a
+    CUDA tensor (float32 or bfloat16 x) runs the quantization, GEMM and
+    dequantization in the vta_gemm kernels, one launch (two above 16
+    rows), bitwise equal to ``ref.quantized_linear_ref``.
     """
+    if x.dim() < 1 or w_q.dim() != 2 or x.shape[-1] != w_q.shape[0] \
+            or w_scale.shape != (w_q.shape[1],):
+        raise ValueError(f"quantized_linear shapes {tuple(x.shape)} @ "
+                         f"{tuple(w_q.shape)}, w_scale "
+                         f"{tuple(w_scale.shape)}")
+    dev = x.device
+    if dev.type == "cpu":
+        return quantized_linear_ref(x, w_q, w_scale, x_scale, gemm=vta_gemm)
+    if dev.type != "cuda":
+        raise ValueError(f"quantized_linear has no kernel for device {dev}")
+    if x.dtype not in X_DTYPES or w_q.dtype != torch.int8:
+        raise TypeError(f"quantized_linear on the card takes float32 or "
+                        f"bfloat16 x and int8 w_q, got {x.dtype}, "
+                        f"{w_q.dtype}")
+    if w_q.device != dev or w_scale.device != dev or (
+            x_scale is not None and x_scale.device != dev):
+        raise ValueError("quantized_linear operands on different devices")
     orig_shape = x.shape
-    x2 = x.reshape(-1, orig_shape[-1])
-    if x_scale is None:
-        amax = x2.abs().amax().clamp_min(1e-6)
-        x_scale = (amax / 127.0).to(torch.float32)
-    x_q = torch.round(x2.to(torch.float32) / x_scale) \
-        .clamp(-128, 127).to(torch.int8)
-    scale = w_scale.to(torch.float32) * x_scale
-    y = vta_gemm(x_q, w_q, scale=scale, epilogue="dequant")
-    return y.reshape(*orig_shape[:-1], w_q.shape[1]).to(x.dtype)
+    K, N = w_q.shape
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    if M == 0 or N == 0:
+        return torch.empty((*orig_shape[:-1], N), dtype=x.dtype, device=dev)
+    xs = None if x_scale is None \
+        else x_scale.to(torch.float32).reshape(1).contiguous()
+    y = quantized_linear_cuda(x2, w_q.t().contiguous(),
+                              w_scale.to(torch.float32).contiguous(), xs)
+    _count((1, M, N, K, "dequant", 0, False))
+    qkey = (M, N, K, str(x.dtype).split(".")[-1])
+    quantized_linear.shapes[qkey] = quantized_linear.shapes.get(qkey, 0) + 1
+    return y.reshape(*orig_shape[:-1], N)
+
+
+#: (M, N, K, x dtype) -> fused launches at that shape (each is also one of
+#: vta_gemm.launches, under vta_gemm's own key)
+quantized_linear.shapes = {}

@@ -12,7 +12,8 @@ version (lane groups, then splits): float32 within 1e-5 absolute on
 unit-scale inputs; bfloat16, compared in float32, within 2^-6 * max|want|
 (four bf16 ulps at 2^-8 * max|want| each), a limit that follows the
 output's scale; two calls on the same inputs are bitwise equal (no
-atomics, fixed split count).  The same holds for a bfloat16 query over
+float atomics; the split length is fixed by S, so a host and a device
+kv_len split alike).  The same holds for a bfloat16 query over
 float32 caches and for G = 9 query heads per kv head (starcoder2-7b).
 ``flash_attention`` against its plain version: float32 within 1e-5
 absolute on unit-normal inputs (sums in another order: a D-long dot per
@@ -42,9 +43,13 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
 from repro_torch.kernels.lut_gemm import lut_gemm, lut_gemm_ref
 from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_ref
-from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
+from repro_torch.kernels.vta_gemm import (quantized_linear,
+                                          quantized_linear_ref, vta_gemm,
+                                          vta_gemm_ref)
+from repro_torch.kernels.vta_gemm.kernel import gemm_plan
 from repro_torch.models.vta_decoder import DecoderConfig, QuantDecoder
-from torch_cases import EPILOGUES, SHAPES, alu_cases, gemm_inputs
+from torch_cases import (EPILOGUES, QLINEAR_CASES, SHAPES, SKINNY_SHAPES,
+                         alu_cases, gemm_inputs, qlinear_w, qlinear_x)
 
 
 @pytest.fixture
@@ -84,6 +89,108 @@ def test_vta_gemm_tile_axis_kernel_matches_plain(cuda_dev):
                         shift=9)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("epilogue,shift", EPILOGUES)
+@pytest.mark.parametrize("M,K,N", SKINNY_SHAPES)
+def test_vta_gemm_skinny_instance_matches_plain(cuda_dev, M, K, N, epilogue,
+                                                shift, use_bias):
+    """The instance for at most 16 rows (split K, atomic int32 partials),
+    and M 17 just past the cut, bitwise; twice, so the scratch sums and
+    tickets are seen to be left zeroed."""
+    a, w, bias, scale = (torch.from_numpy(x).to(cuda_dev)
+                         for x in gemm_inputs(M, K, N, seed=M + N + K))
+    w = w.t().contiguous().t()              # (K, N) over (N, K) storage
+    b = bias if use_bias else None
+    want = vta_gemm_ref(a, w, b, scale, epilogue=epilogue, shift=shift)
+    for _ in range(2):
+        got = vta_gemm(a, w, b, scale, epilogue=epilogue, shift=shift)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_vta_gemm_skinny_tile_axis_matches_plain(cuda_dev):
+    rng = np.random.default_rng(10)
+    a = torch.from_numpy(rng.integers(-128, 128, (3, 4, 1152),
+                                      dtype=np.int8)).to(cuda_dev)
+    w_nk = torch.from_numpy(rng.integers(-128, 128, (3, 200, 1152),
+                                         dtype=np.int8)).to(cuda_dev)
+    assert gemm_plan(3, 4, 200, 1152).route == "skinny"
+    got = vta_gemm(a, w_nk.transpose(1, 2), epilogue="requant", shift=9)
+    want = vta_gemm_ref(a, w_nk.transpose(1, 2), epilogue="requant",
+                        shift=9)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+QLINEAR_SHAPES = [(1, 1000, 203), (4, 3072, 1024), (4, 8192, 3072),
+                  (4, 2048, 8384), (16, 3072, 3072), (17, 1000, 203),
+                  (64, 2048, 520)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", QLINEAR_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M,K,N", QLINEAR_SHAPES)
+def test_quantized_linear_fused_bitwise(cuda_dev, M, K, N, dtype, case):
+    """The fused route (amax, quantization, GEMM and dequantization in the
+    kernels) against the plain chain on the card: the same bits, in x's
+    dtype; one vta_gemm launch a call."""
+    x = torch.from_numpy(qlinear_x(M, K, case, M + K)).to(cuda_dev) \
+        .to(dtype)
+    w_nk, sc = qlinear_w(K, N, N)
+    w_q = torch.from_numpy(w_nk).to(cuda_dev).t()
+    w_scale = torch.from_numpy(sc).to(cuda_dev)
+    want = quantized_linear_ref(x, w_q, w_scale)
+    before = vta_gemm.launches
+    for _ in range(2):
+        got = quantized_linear(x, w_q, w_scale)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (M, N)
+        assert torch.equal(got, want)
+    assert vta_gemm.launches == before + 2
+    assert quantized_linear.shapes[(M, N, K, str(dtype)[6:])] >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [4, 40])
+def test_quantized_linear_given_scale_clips(cuda_dev, M, dtype):
+    """A given x_scale with x at +-127.5 and -128.5 of it: round half to
+    even, then the clip, on both routes."""
+    K, N = 512, 136
+    xs = torch.tensor(0.25, device=cuda_dev)
+    x = torch.full((M, K), 0.5, device=cuda_dev)
+    x[:, 0], x[:, 1], x[:, 2], x[:, 3] = 127.5 * 0.25, -127.5 * 0.25, \
+        -128.5 * 0.25, 1000.0
+    x = x.to(dtype)
+    w_nk, sc = qlinear_w(K, N, 3)
+    w_q = torch.from_numpy(w_nk).to(cuda_dev).t()
+    w_scale = torch.from_numpy(sc).to(cuda_dev)
+    got = quantized_linear(x, w_q, w_scale, xs)
+    want = quantized_linear_ref(x, w_q, w_scale, xs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quantized_linear_leading_dims(cuda_dev, dtype):
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 384)).astype(np.float32)) \
+        .to(cuda_dev).to(dtype)
+    w_nk, sc = qlinear_w(384, 72, 5)
+    w_q = torch.from_numpy(w_nk).to(cuda_dev).t()
+    w_scale = torch.from_numpy(sc).to(cuda_dev)
+    got = quantized_linear(x, w_q, w_scale)
+    assert got.shape == (2, 3, 72)
+    assert torch.equal(got, quantized_linear_ref(x, w_q, w_scale))
 
 
 @pytest.mark.cuda
@@ -268,6 +375,43 @@ def test_decode_attention_any_group_and_mixed_dtype(cuda_dev, B, S, HQ, KH,
         limit = 1e-5 if q_dtype == torch.float32 else \
             2.0 ** -6 * want.float().abs().max().item()
         assert err <= limit, (kv_len, err, limit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "bf16q-f32kv"])
+@pytest.mark.parametrize("B,S,HQ,KH,D", [(4, 256, 24, 8, 128),
+                                         (4, 1024, 32, 32, 64),
+                                         (1, 96, 2, 2, 32)],
+                         ids=["llama-step", "zamba2-step", "decoder"])
+def test_decode_attention_split_plan_matches_plain(cuda_dev, B, S, HQ, KH, D,
+                                                   q_dtype, kv_dtype):
+    """The served decode shapes at every kind of kv_len the plan meets:
+    none, one row, the served 32, one split boundary either side, S; a host
+    int and a device tensor give the same bits; one launch a call."""
+    rng = np.random.default_rng(S + HQ + 2)
+
+    def t(dtype, *shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(cuda_dev).to(dtype)
+    q = t(q_dtype, B, 1, HQ, D)
+    k, v = t(kv_dtype, B, S, KH, D), t(kv_dtype, B, S, KH, D)
+    for kv_len in (0, 1, 31, 32, 33, 65, S - 1, S):
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, kv_len)
+        again = decode_attention(q, k, v, torch.tensor(
+            [kv_len], dtype=torch.int32, device=cuda_dev))
+        want = decode_attention_ref_4d(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        assert decode_attention.launches == before + 2
+        assert torch.equal(got, again), kv_len
+        err = (got.float() - want.float()).abs().max().item()
+        limit = 1e-5 if q_dtype == torch.float32 else \
+            2.0 ** -6 * want.float().abs().max().item()
+        assert err <= limit, (kv_len, err, limit)
+        if kv_len == 0:
+            assert not got.float().abs().any()
 
 
 FLASH_CASES = [

@@ -52,3 +52,48 @@ def alu_cases():
         ("long_chain_split", dst, None, tuple(
             ("add", i) if i % 2 else ("mul", 3) for i in range(11))),
     ]
+
+
+# (M, K, N) of the skinny vta_gemm instance: M 1, 3, 16 and 17 (one past
+# the cut) with K not a multiple of 16 and N not a multiple of 8, and
+# Llama-3.2-3B's and zamba2-1.2b's decode-step linears at M 4
+SKINNY_SHAPES = [(1, 1000, 203), (3, 1000, 203), (16, 1000, 203),
+                 (17, 1000, 203), (4, 8192, 3072), (4, 3072, 8192),
+                 (4, 3072, 1024), (4, 2048, 8384)]
+#: activation cases of quantized_linear (see qlinear_x)
+QLINEAR_CASES = ("normal", "ties", "zeros", "tiny", "outlier")
+
+
+def qlinear_x(M, K, case, seed):
+    """(M, K) float32 activations for quantized_linear, exact in bfloat16
+    except "normal" and "outlier": "ties" puts every x / x_scale on k + 0.5
+    (amax 127/16, so x_scale = 1/16 exactly in both dtypes: round half to
+    even decides), "zeros" has amax 0 and "tiny" amax below 1e-6 (the
+    clamp decides the scale), "outlier" one value 1e4 among unit normals."""
+    rng = np.random.default_rng(seed)
+    if case == "normal":
+        return (rng.normal(size=(M, K)) * 4).astype(np.float32)
+    if case == "ties":
+        k = rng.integers(-127, 127, size=(M, K))
+        x = ((2 * k + 1) / 32.0).astype(np.float32)
+        x.reshape(-1)[0] = 127 / 16
+        return x
+    if case == "zeros":
+        return np.zeros((M, K), np.float32)
+    if case == "tiny":
+        return (rng.integers(-64, 64, size=(M, K)) * 2.0 ** -33) \
+            .astype(np.float32)
+    if case == "outlier":
+        x = rng.normal(size=(M, K)).astype(np.float32)
+        x.reshape(-1)[K // 2] = 1e4
+        return x
+    raise ValueError(case)
+
+
+def qlinear_w(K, N, seed):
+    """w_q (K, N) int8 as a transposed view of a contiguous (N, K) array,
+    and w_scale (N,) float32, as quantize_params stores them."""
+    rng = np.random.default_rng(seed)
+    w_nk = rng.integers(-128, 128, size=(N, K), dtype=np.int8)
+    scale = (rng.random(N) * 1e-2 + 1e-4).astype(np.float32)
+    return w_nk, scale

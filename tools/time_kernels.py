@@ -1,21 +1,32 @@
 #!/usr/bin/env python3
-"""Time the port's lut_gemm and flash_attention kernels of one checkout.
+"""Time the port's kernels of one checkout.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME] [--big]
-                                  [--ops lut_gemm,flash_attention]
+        [--ops lut_gemm,flash_attention,vta_gemm,quantized_linear,
+               decode_attention]
 
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``),
 builds its CUDA kernels, and times each op at the shapes ``chip_smoke.py``
-phase 7 times (the int4 decoder's lut_gemm launches, Llama-3.2-3B's
+phases 1 and 7 time (the int4 decoder's lut_gemm launches, Llama-3.2-3B's
 lut_gemm at M 1 and 16 for bits 1, 2 and 4, flash_attention at the Llama
-and zamba2 prefill shapes), with ``chip_smoke.kernel_ms`` (torch.profiler
-device time of every kernel whose name holds "lut_gemm" or "flash", per
-call).  With --big, flash_attention also at S 32768; --ops picks the
-ops.  One JSON line per shape on stdout.  Run it once per checkout, each
-in its own process, to hold two versions of the port against each other
-on one card, in turns (parent, change, change, parent): unpack the other
-version with `git archive` into a directory .gitignore lists (build/)
-and pass its src.  Needs a CUDA card; it imports no JAX.
+and zamba2 prefill shapes; vta_gemm at the task-ISA engine's T1 M112 N128
+K1152 and at the LM decode and prefill linears; quantized_linear, the
+whole call from float activations, at the LM decode linears;
+decode_attention at the decoder's and the LM steps' shapes, at kv_len S
+and at the served 32; lm_step, whole int8 decode steps of llama3.2-3b
+and zamba2-1.2b at 4 slots: the host-clock step ms of each of 8 steps,
+and of one more under torch.profiler the device busy ms, the idle share
+and the number of device operations), with ``chip_smoke.kernel_ms``
+(torch.profiler
+device time per call of every kernel whose name holds "lut_gemm",
+"flash", "vta_gemm" or "decode_") beside the call's CUDA-event time.
+With --big, flash_attention also at S 32768; --ops picks the ops (the
+default: the first two).  One JSON line per shape on stdout.  Run it
+once per checkout, each in its own process, to hold two versions of
+the port against each other on one card, in turns (parent, change,
+change, parent): unpack the other version with `git archive` into a
+directory .gitignore lists (build/) and pass its src.  Needs a CUDA
+card; it imports no JAX.
 """
 import argparse
 import json
@@ -41,6 +52,23 @@ FLASH_SHAPES = [(1, 16, 24, 8, 128, "bfloat16"),
                 (1, 16, 32, 32, 64, "float32"),
                 (1, 4096, 24, 8, 128, "bfloat16"),
                 (1, 4096, 24, 8, 128, "float32")]
+#: (T, M, N, K, epilogue): the task-ISA engine's row, then the LM linears
+#: (Llama-3.2-3B decode at M 4 and prefill at M 16, zamba2-1.2b decode)
+VTA_SHAPES = [(1, 112, 128, 1152, "none")] + [
+    (1, m, n, k, "dequant") for m, n, k in (
+        (4, 3072, 3072), (4, 1024, 3072), (4, 8192, 3072), (4, 3072, 8192),
+        (16, 3072, 8192), (4, 8384, 2048), (4, 2048, 4096),
+        (512, 8384, 2048))]
+#: (M, N, K, x dtype): the LM decode steps' quantized linears
+QLINEAR_SHAPES = [(4, 3072, 8192, "bfloat16"), (4, 8192, 3072, "bfloat16"),
+                  (4, 1024, 3072, "bfloat16"), (4, 8384, 2048, "bfloat16"),
+                  (4, 3072, 8192, "float32"), (512, 8384, 2048, "bfloat16")]
+#: (B, S, HQ, KH, D, q dtype, cache dtype, kv_len)
+DECODE_SHAPES = [(1, 96, 2, 2, 32, "float32", "float32", 96),
+                 (4, 256, 24, 8, 128, "bfloat16", "float32", 256),
+                 (4, 256, 24, 8, 128, "bfloat16", "float32", 32),
+                 (4, 1024, 32, 32, 64, "bfloat16", "float32", 1024),
+                 (4, 1024, 32, 32, 64, "bfloat16", "float32", 32)]
 
 
 def main():
@@ -97,7 +125,103 @@ def main():
               flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+    if "vta_gemm" in ops or "quantized_linear" in ops:
+        from repro_torch.kernels.vta_gemm import quantized_linear, vta_gemm
+    for T, M, N, K, epi in VTA_SHAPES * ("vta_gemm" in ops):
+        a = torch.randint(-128, 128, (T, M, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (T, N, K), generator=g, device=dev,
+                          dtype=torch.int8).transpose(1, 2)
+        sc = torch.rand(N, generator=g, device=dev) * 1e-3
+        call = lambda: vta_gemm(a, w, scale=sc, epilogue=epi)  # noqa
+        call_ms = cs.cuda_time_ms(call)
+        ms = cs.kernel_ms(call, "vta_gemm", call_ms)
+        print(json.dumps(dict(label=args.label, card=card, op="vta_gemm",
+                              T=T, M=M, N=N, K=K, epilogue=epi, ms=ms,
+                              call_ms=call_ms)), flush=True)
+    for M, N, K, dt in QLINEAR_SHAPES * ("quantized_linear" in ops):
+        x = torch.randn((M, K), generator=g, device=dev) \
+            .to(getattr(torch, dt))
+        w = torch.randint(-128, 128, (N, K), generator=g, device=dev,
+                          dtype=torch.int8).t()
+        sc = torch.rand(N, generator=g, device=dev) * 1e-3
+        call = lambda: quantized_linear(x, w, sc)  # noqa
+        call_ms = cs.cuda_time_ms(call)
+        ms = cs.kernel_ms(call, "vta_gemm", call_ms)
+        print(json.dumps(dict(label=args.label, card=card,
+                              op="quantized_linear", M=M, N=N, K=K,
+                              dtype=dt, gemm_ms=ms, call_ms=call_ms)),
+              flush=True)
+    if "decode_attention" in ops:
+        from repro_torch.kernels.decode_attention import decode_attention
+    for B, S, HQ, KH, D, qdt, kvdt, kv_len in DECODE_SHAPES * (
+            "decode_attention" in ops):
+        q = torch.randn((B, 1, HQ, D), generator=g, device=dev) \
+            .to(getattr(torch, qdt))
+        k = torch.randn((B, S, KH, D), generator=g, device=dev) \
+            .to(getattr(torch, kvdt))
+        v = torch.randn((B, S, KH, D), generator=g, device=dev) \
+            .to(getattr(torch, kvdt))
+        call = lambda: decode_attention(q, k, v, kv_len)  # noqa
+        call_ms = cs.cuda_time_ms(call)
+        ms = cs.kernel_ms(call, "decode_", call_ms)
+        print(json.dumps(dict(label=args.label, card=card,
+                              op="decode_attention", B=B, S=S, HQ=HQ, KH=KH,
+                              D=D, dtype=qdt, cache_dtype=kvdt,
+                              kv_len=kv_len, ms=ms, call_ms=call_ms)),
+              flush=True)
+    for arch, slots, max_len in LM_STEP_RUNS * ("lm_step" in ops):
+        print(json.dumps(dict(label=args.label, card=card, op="lm_step",
+                              arch=arch, slots=slots,
+                              **lm_steps(cs, arch, slots, max_len))),
+              flush=True)
     return 0
+
+
+#: (arch, slots, max_len) of the timed decode steps (chip_smoke's engines)
+LM_STEP_RUNS = [("llama3.2-3b", 4, 256), ("zamba2-1.2b", 4, 1024)]
+
+
+def lm_steps(cs, arch, slots, max_len, n_steps=8):
+    """Int8 decode steps of `arch` at full width (chip_smoke.lm_weights'
+    seeded weights), every slot active: host-clock ms of n_steps steps
+    (each ends in the host's read of the chosen tokens), then one step
+    under torch.profiler: its wall ms, the device's busy ms and idle
+    share, and its device operations (kernels and copies)."""
+    import statistics
+    import time
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import make_requests
+
+    class NoCounts:
+        ops = {}
+    cfg, params, qparams, _ = cs.lm_weights(arch)
+    del params
+    eng = cs.lm_engine(cfg, qparams, NoCounts(), slots=slots,
+                       max_len=max_len)
+    for r in make_requests(cfg, slots, n_steps + 3, seed=7):
+        eng.add_request(r)
+    eng.step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        eng.step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    del eng, qparams
+    torch.cuda.empty_cache()
+    return dict(step_ms=times, step_ms_median=statistics.median(times),
+                profiled_ms=wall, device_busy_ms=busy,
+                idle_share=1 - busy / wall, device_ops=len(dev))
 
 
 if __name__ == "__main__":
