@@ -99,10 +99,13 @@ Phases, in the order they run:
      of one profiled decode step.  Its vta_gemm, decode_attention and
      flash_attention shapes join phases 1 and 7, and phase 7 holds
      gla_chunk against its plain version at every shape the path launched
-     (timed), at zamba2-1.2b's prefill at S 4096 and 32768 (timed), at the
-     reference's kernel-test shapes with a nonzero h0, at Q = 16, with
-     bfloat16 q and k, with and without stride-0 heads; bitwise equal over
-     two calls;
+     (timed), at zamba2-1.2b's prefill at S 4096 and 32768 and at
+     xlstm-1.3b's mLSTM scan (N 256, P 1025, chunk 512, bf16 q and k per
+     head) at S 4096 (timed), at the reference's kernel-test shapes with a
+     nonzero h0, at Q = 16, with bfloat16 q and k, with and without
+     stride-0 heads, at N 256 with S = chunk = 512, N 72 and N 1; bitwise
+     equal over two calls; up to S 4096 also against the step recurrence
+     in float64, within 4x the plain version's error;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -2040,12 +2043,22 @@ def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
 
 #: zamba2-1.2b's prefill scan at long prompts: (B, S, H, N, P, chunk)
 ZAMBA2_PREFILL = [(1, 4096, 64, 64, 64, 64), (1, 32768, 64, 64, 64, 64)]
+#: xlstm-1.3b's mLSTM scan (src/repro/models/xlstm.py: 4 heads, q/k width
+#: N = max(64, 1024 / 4) = 256, v with its denominator channel P = 1025,
+#: chunk 512), bf16 q and k per head, at a 4096-token prompt
+XLSTM_PREFILL = (1, 4096, 4, 256, 1025, 512)
+#: the longest scan the float64 check replays step by step
+GLA_F64_MAX_S = 4096
 
 
 def gla_inputs(B, S, H, N, P, seed, qk_dtype="float32", broadcast=True,
                h0=True):
     """Unit-normal q, k (one row per step broadcast over heads, as Mamba2
-    gives them, or one per head), v; la = -0.3 |normal|; h0 0.1 normal."""
+    gives them, or one per head), v; la = -0.3 |normal|; h0 0.1 normal.
+    Above N 64, k is scaled by 1/sqrt(N) as the mLSTM scales it
+    (src/repro/models/xlstm.py): unit-normal k there gives scores of 16
+    and a plain float32 version whose own error against float64 exceeds
+    the 3e-4 limit."""
     import torch
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -2053,27 +2066,52 @@ def gla_inputs(B, S, H, N, P, seed, qk_dtype="float32", broadcast=True,
     def t(*shape):
         return torch.randn(shape, generator=g, device=dev)
     dt = getattr(torch, qk_dtype)
+    ks = N ** -0.5 if N > 64 else 1.0
     if broadcast:
         q = t(B, S, N).to(dt)[:, :, None].expand(B, S, H, N)
-        k = t(B, S, N).to(dt)[:, :, None].expand(B, S, H, N)
+        k = (t(B, S, N) * ks).to(dt)[:, :, None].expand(B, S, H, N)
     else:
-        q, k = t(B, S, H, N).to(dt), t(B, S, H, N).to(dt)
+        q, k = t(B, S, H, N).to(dt), (t(B, S, H, N) * ks).to(dt)
     return (q, k, t(B, S, H, P), -t(B, S, H).abs() * 0.3,
             t(B, H, N, P) * 0.1 if h0 else None)
+
+
+def gla_f64_errors(got, want, q, k, v, la, h0):
+    """Per output (y, h): the kernel's and the plain version's max error
+    against the step recurrence in float64, and the output's max|.|."""
+    import torch
+    from repro_torch.kernels.gla_chunk import gla_recurrence
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+
+    def to_bh(t):
+        return t.transpose(1, 2).reshape(B * H, 1, S, -1)
+    hi = torch.zeros((B * H, N, P), device=q.device) if h0 is None \
+        else h0.reshape(B * H, N, P)
+    y64, h64 = gla_recurrence(to_bh(q), to_bh(k), to_bh(v),
+                              to_bh(la[..., None])[..., 0], hi,
+                              dtype=torch.float64)
+    exact = (y64.reshape(B, H, S, P).transpose(1, 2), h64.reshape(B, H, N, P))
+    return [(float((g.double() - e).abs().max()),
+             float((w.double() - e).abs().max()), float(e.abs().max()))
+            for g, w, e in zip(got, want, exact)]
 
 
 def phase_gla_kernel(rec, main_shapes):
     """gla_chunk against its plain version within 3e-4 absolute plus 3e-4
     relative (the reference's own limit for its kernel against its
     oracle), y in float32 as chunked_gla asks, and bitwise equal over two
-    calls; timed at every shape the hybrid path launched and at
-    zamba2-1.2b's prefill at S 4096 and 32768."""
+    calls; up to S 4096 also against the step recurrence in float64, the
+    kernel's error at most 4x the plain version's or 1e-6 of the output's
+    max|.|; timed at every shape the hybrid path launched, at zamba2-1.2b's
+    prefill at S 4096 and 32768 and at xlstm-1.3b's at S 4096."""
     import torch
     from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
     cases = []
     for (B, S, H, N, P, Q, dt, bc), n in main_shapes.items():
         cases.append(((B, S, H, N, P, Q), dt, bc, False, n))
     cases += [(sh, "float32", True, False, -1) for sh in ZAMBA2_PREFILL]
+    cases += [(XLSTM_PREFILL, "bfloat16", False, True, -1)]
     # the reference's kernel-test shapes (tests/test_kernels.py), nonzero
     # h0, one q and k per head; Q = 16; bf16 q and k over heads broadcast
     cases += [((2, 256, 3, 32, 32, 64), "float32", False, True, 0),
@@ -2081,7 +2119,12 @@ def phase_gla_kernel(rec, main_shapes):
               ((2, 128, 4, 16, 48, 32), "float32", False, True, 0),
               ((1, 16, 64, 64, 64, 64), "float32", True, True, 0),
               ((1, 512, 64, 64, 64, 64), "bfloat16", True, True, 0),
-              ((4, 256, 64, 64, 64, 64), "bfloat16", False, True, 0)]
+              ((4, 256, 64, 64, 64, 64), "bfloat16", False, True, 0),
+              # xlstm's widths at a one-chunk prompt (S 512 = chunk 512),
+              # N 72 (not a multiple of 16) and N 1 (q and k padded)
+              ((1, 512, 4, 256, 1025, 512), "float32", False, True, 0),
+              ((1, 256, 3, 72, 40, 64), "float32", False, True, 0),
+              ((2, 128, 2, 1, 16, 32), "float32", False, True, 0)]
     rows, max_err = [], 0.0
     for (B, S, H, N, P, Q), dt, bc, h0, launches in cases:
         q, k, v, la, h = gla_inputs(B, S, H, N, P, S + H + N + P, dt, bc,
@@ -2104,6 +2147,15 @@ def phase_gla_kernel(rec, main_shapes):
         max_err = max(max_err, err)
         shape = dict(B=B, S=S, H=H, N=N, P=P, chunk=Q, qk_dtype=dt,
                      heads_broadcast=bc, h0=h0)
+        if S <= GLA_F64_MAX_S:
+            f64 = gla_f64_errors(got, want, q, k, v, la, h)
+            for what, (ek, ep, top) in zip(("y", "h"), f64):
+                if ek > max(4 * ep, 1e-6 * top):
+                    fail(f"gla_chunk {(B, S, H, N, P, Q, dt, bc)}: {what} "
+                         f"error {ek} against float64, over 4x the plain "
+                         f"version's {ep} and 1e-6 of max {top}")
+            shape["f64_err"] = {w: dict(kernel=ek, plain=ep, max=top)
+                                for w, (ek, ep, top) in zip(("y", "h"), f64)}
         if launches == 0:
             rows.append(dict(shape, launches=0, timed=False,
                              max_abs_err=err))
@@ -2124,8 +2176,9 @@ def phase_gla_kernel(rec, main_shapes):
         log(f"  gla_chunk B={B} S={S} H={H} N={N} P={P} chunk={Q} {dt}"
             f"{' heads broadcast' if bc else ''}: kernel {ms:.4f} ms, call "
             f"{call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
-            f"{plain:.4f} ms; library none); max_abs_err {err:.3e} "
-            + (f"x{launches}" if launches > 0 else "(zamba2 prefill)"))
+            f"{plain:.4f} ms; library none); max_abs_err {err:.3e}"
+            + gla_f64_note(shape)
+            + (f" x{launches}" if launches > 0 else " (long prefill)"))
         del q, k, v, la, h, got, again, want
         torch.cuda.empty_cache()
     for r in rows:
@@ -2134,9 +2187,19 @@ def phase_gla_kernel(rec, main_shapes):
                 f"N={r['N']} P={r['P']} chunk={r['chunk']} {r['qk_dtype']}"
                 f"{' heads broadcast' if r['heads_broadcast'] else ''}"
                 f"{' h0' if r['h0'] else ''}: max_abs_err "
-                f"{r['max_abs_err']:.3e}")
+                f"{r['max_abs_err']:.3e}" + gla_f64_note(r))
     rec["gla_chunk_shapes"] = rows
     return rows, max_err
+
+
+def gla_f64_note(row):
+    """The float64 errors of one gla_chunk row, for the log."""
+    f = row.get("f64_err")
+    if not f:
+        return ""
+    return "; against float64 " + ", ".join(
+        f"{w} kernel {e['kernel']:.3e} plain {e['plain']:.3e}"
+        for w, e in f.items())
 
 
 def ptxas_report(text):

@@ -1,47 +1,157 @@
 """ctypes binding of the CUDA gla_chunk kernel (``csrc/gla_chunk.cu``; the
-design note is at the top of that file).  Built at first call by
-:mod:`repro_torch.kernels._build`, never at import."""
+design note is at the top of that file) and its launch plan.  Built at
+first call by :mod:`repro_torch.kernels._build`, never at import."""
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest state width N the kernel is instantiated for
-MAX_N = 64
-#: the most rows of a tile: a longer chunk is walked in tiles of this many
+#: the largest state width N the kernel takes
+MAX_N = 256
+#: the most rows of a tile: a longer chunk is walked in tiles
 MAX_TILE = 64
+#: shared memory one block may use on an H100 (227 KB)
+SMEM_MAX = 232_448
+#: streaming multiprocessors of an H100 SXM: one block of the plan on each
+SMS = 132
+#: rows of a tile, and columns of a block's slice of P, the kernel takes
+TILES = (64, 32, 16)
+P_BLOCKS = (64, 32, 16)
+#: 16 x 8 tiles of a block's slice of the state (PB / 16 * NP / 8): at most
+#: 8 for each of the kernel's 8 warps to hold in registers
+MAX_H_TILES = 64
+
+
+@dataclass(frozen=True)
+class GlaPlan:
+    """How the kernel walks one call: tiles of `tile` rows, N padded to
+    `n_pad`, P cut into `p_slices` slices of `p_block` columns (the last
+    one ragged), a ring of `stages` (1-3) cp.async stages, `smem_bytes` of
+    dynamic shared memory, and the launch grid (B * H, p_slices)."""
+    tile: int
+    n_pad: int
+    p_block: int
+    p_slices: int
+    stages: int
+    smem_bytes: int
+    grid: Tuple[int, int]
+
+
+def _align16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def smem_bytes(T: int, N: int, pb: int, stages: int, esz: int) -> int:
+    """Dynamic shared memory of one block: `stages` copies of the q, k, v
+    and la tiles, the weighted score tile, hᵀ and the scan of la.  The row
+    strides are those of ``csrc/gla_chunk.cu:make_layout``, whose launcher
+    refuses a count that differs from this one."""
+    n_pad = -(-N // 8) * 8
+    qs = n_pad + (8 if n_pad % 16 == 0 else 0)
+    stage = 2 * _align16(T * qs * esz) + T * (pb + 8) * 4 + _align16(T * 4)
+    return (stages * stage + T * (T + 4) * 4 + pb * qs * 4
+            + (3 * T + 4) * 4)
+
+
+def _row_ops(T: int, n_pad: int, pb: int, exact_qk: bool) -> float:
+    """Tensor-core operations one block spends per row of the scan: the
+    causal part of the score tile and of its product with v, q h and the
+    state update, each counted 3 times (3xTF32), or fewer where a
+    bfloat16 q or k is exact in TF32."""
+    mt = T // 16
+    causal = sum(2 * m + 2 for m in range(mt)) / (mt * 2 * mt)
+    score = 2 * T * n_pad * causal * (1 if exact_qk else 3)
+    wv = 2 * T * pb * causal * 3
+    qh = 2 * n_pad * pb * (2 if exact_qk else 3)
+    return score + wv + qh + 2 * n_pad * pb * 3
+
+
+@functools.lru_cache(maxsize=256)
+def gla_plan(B: int, H: int, N: int, P: int, Q: int,
+             qk_dtype: torch.dtype) -> GlaPlan:
+    """The launch plan for q and k (B, S, H, N) of `qk_dtype`, v (B, S, H,
+    P) and tiles of at most Q rows.  The tile is the largest of 64, 32 and
+    16 rows that covers Q (a shorter chunk needs no longer tile) and fits
+    beside the slice of P in shared memory with a ring of at least two
+    stages (three where they fit), else with one.  The slice width (64, 32 or 16 columns) minimizes the
+    waves of blocks over the card's SMs times a block's operations per row:
+    narrower slices give more blocks, each of which recomputes the score
+    tile."""
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"the gla_chunk kernel takes N from 1 to {MAX_N}, "
+                         f"got {N}")
+    if Q < 1:
+        raise ValueError(f"gla_plan takes Q >= 1, got {Q}")
+    esz = 2 if qk_dtype == torch.bfloat16 else 4
+    n_pad = -(-N // 8) * 8
+    cap = next(T for T in reversed(TILES) if T >= min(Q, MAX_TILE))
+    best = None
+    for pb in P_BLOCKS:
+        if pb // 16 * n_pad // 8 > MAX_H_TILES:
+            continue
+        fits = [(T, st) for st in (3, 2, 1) for T in TILES
+                if T <= cap and smem_bytes(T, N, pb, st, esz) <= SMEM_MAX]
+        T, stages = next((T, st) for T, st in sorted(
+            fits, key=lambda f: (f[1] == 1, -f[0], -f[1])))
+        slices = -(-P // pb)
+        waves = -(-(B * H * slices) // SMS)
+        cost = waves * _row_ops(T, n_pad, pb, esz == 2)
+        if best is None or cost < best[0]:
+            best = (cost, GlaPlan(T, n_pad, pb, slices, stages,
+                                  smem_bytes(T, N, pb, stages, esz),
+                                  (B * H, slices)))
+    return best[1]
 
 
 def _launcher():
     fn = _build.load("gla_chunk").gla_chunk_launch
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 \
         + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _aligned(name: str, t: torch.Tensor, dims) -> None:
-    if t.stride(-1) != 1 or any(t.stride(d) % 4 for d in dims) \
-            or t.data_ptr() % (4 * t.element_size()):
+def _rows16(t: torch.Tensor) -> bool:
+    """Whether t's rows (its last dim, contiguous) start on 16 bytes: the
+    kernel copies them 16 bytes at a time."""
+    n = 16 // t.element_size()
+    return t.stride(-1) == 1 and not any(t.stride(d) % n for d in (0, 1, 2)) \
+        and t.data_ptr() % 16 == 0
+
+
+def _rows(name: str, t: torch.Tensor) -> torch.Tensor:
+    """q or k as the kernel reads them: rows that start on 16 bytes (4
+    float32 or 8 bfloat16 elements).  A contiguous tensor whose rows do not
+    (N not a multiple of that) is copied into one padded with zero
+    columns, which the kernel never reads; a view that does not fit
+    raises."""
+    n = 16 // t.element_size()
+    if t.is_contiguous() and t.shape[-1] % n:
+        return F.pad(t, (0, -t.shape[-1] % n))
+    if not _rows16(t):
         raise ValueError(f"gla_chunk {name} needs a contiguous last dim, "
-                         f"strides that are multiples of 4 and a start "
-                         f"aligned to 4 elements, got strides {t.stride()}")
+                         f"strides that are multiples of {n} and a start "
+                         f"aligned to 16 bytes, got strides {t.stride()}")
+    return t
 
 
 def gla_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    la: torch.Tensor, h0: Optional[torch.Tensor], tile: int,
                    y_dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k (B, S, H, N) float32 or bfloat16 of one dtype, v (B, S, H, P)
-    and la (B, S, H) float32, h0 (B, H, N, P) float32 or None (zeros), all
-    on one CUDA device; q and k may be stride-0 views over heads.  The scan
-    runs in tiles of `tile` rows (1..64).  Returns y (B, S, H, P) in
-    `y_dtype` (float32 or bfloat16) and h (B, H, N, P) float32, both
-    contiguous."""
+    """q, k (B, S, H, N) float32 or bfloat16 of one dtype, N from 1 to
+    256, v (B, S, H, P) and la (B, S, H) float32, h0 (B, H, N, P) float32
+    or None (zeros), all on one CUDA device; q and k may be stride-0 views
+    over heads.  The scan runs in tiles of at most `tile` rows (1..64; the
+    plan is :func:`gla_plan`).  Returns y (B, S, H, P) in `y_dtype`
+    (float32 or bfloat16) and h (B, H, N, P) float32, both contiguous."""
     B, S, H, N = q.shape
     P = v.shape[-1]
     if q.dtype not in DTYPES or k.dtype != q.dtype:
@@ -55,14 +165,11 @@ def gla_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if y_dtype not in DTYPES:
         raise TypeError(f"gla_chunk writes y in float32 or bfloat16, not "
                         f"{y_dtype}")
-    if N % 4 or not 4 <= N <= MAX_N:
-        raise ValueError(f"the gla_chunk kernel takes N a multiple of 4 up "
-                         f"to {MAX_N}, got {N}")
     if not 1 <= tile <= MAX_TILE:
         raise ValueError(f"the gla_chunk kernel takes tiles of 1 to "
                          f"{MAX_TILE} rows, got {tile}")
-    _aligned("q", q, (0, 1, 2))
-    _aligned("k", k, (0, 1, 2))
+    plan = gla_plan(B, H, N, P, tile, q.dtype)      # raises for N > 256
+    q, k = _rows("q", q), _rows("k", k)
     y = torch.empty((B, S, H, P), dtype=y_dtype, device=q.device)
     h = torch.empty((B, H, N, P), dtype=torch.float32, device=q.device)
     if B * H * P == 0:             # y and h are empty: nothing to compute
@@ -77,7 +184,9 @@ def gla_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       la.data_ptr(), 0 if h0 is None else h0.data_ptr(),
                       y.data_ptr(), h.data_ptr(), DTYPES[q.dtype],
-                      DTYPES[y_dtype], B, H, S, N, P, tile,
-                      ctypes.cast(strides, ctypes.c_void_p), stream)
+                      DTYPES[y_dtype], B, H, S, N, P, plan.tile,
+                      plan.p_block, plan.stages, plan.smem_bytes,
+                      int(_rows16(v)), ctypes.cast(strides, ctypes.c_void_p),
+                      stream)
     _build.check(err, "gla_chunk")
     return y, h

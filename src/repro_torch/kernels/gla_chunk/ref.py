@@ -65,15 +65,17 @@ def gla_chunk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def gla_recurrence(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                   la: torch.Tensor, h0: torch.Tensor
+                   la: torch.Tensor, h0: torch.Tensor,
+                   dtype: torch.dtype = torch.float32
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The step-by-step recurrence, in gla_chunk_ref's layout and float32:
-    y (BH, nc, Q, P) and the final h (BH, N, P)."""
+    """The step-by-step recurrence, in gla_chunk_ref's layout, computed in
+    `dtype` (float32, or float64 for an oracle of the float32 versions):
+    y (BH, nc, Q, P) and the final h (BH, N, P) in that dtype."""
     BH, nc, Q, N = q.shape
     P = v.shape[-1]
-    qf, kf, vf, laf = (x.reshape(BH, nc * Q, -1)
-                       for x in _f32(q, k, v, la[..., None]))
-    h = h0.to(torch.float32)
+    qf, kf, vf, laf = (x.to(dtype).reshape(BH, nc * Q, -1)
+                       for x in (q, k, v, la[..., None]))
+    h = h0.to(dtype)
     ys = []
     for t in range(nc * Q):
         h = h * torch.exp(laf[:, t])[:, :, None] \

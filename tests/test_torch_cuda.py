@@ -22,7 +22,13 @@ max|want| as above; bitwise equal over two calls.
 ``gla_chunk`` against its plain version: within 3e-4 absolute plus 3e-4
 relative (the reference's own limit for its kernel against its oracle:
 float32 sums in another order, and tiles of at most 64 rows against the
-plain version's chunk); bitwise equal over two calls.
+plain version's chunk); bitwise equal over two calls.  Both against the
+step recurrence in float64: the kernel's error at most 4x the plain
+version's, or 1e-6 of max|y| (max|h| for h) where that is larger.  At
+N 256 k is scaled by 1/sqrt(N), as the mLSTM scales it
+(src/repro/models/xlstm.py): unit-normal k there gives scores of 16
+and a plain float32 version whose own error against float64 exceeds the
+3e-4 limit.
 """
 import numpy as np
 import pytest
@@ -40,7 +46,8 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref_4d)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
+from repro_torch.kernels.gla_chunk import (gla_chunk, gla_chunk_plain,
+                                           gla_recurrence)
 from repro_torch.kernels.lut_gemm import lut_gemm, lut_gemm_ref
 from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_ref
 from repro_torch.kernels.vta_gemm import (quantized_linear,
@@ -563,11 +570,20 @@ GLA_CASES = [
     (1, 512, 2, 64, 64, 128),     # chunk 128 walked as 64-row tiles
     (2, 128, 4, 16, 48, 32),      # N != P
     (1, 96, 2, 64, 40, 96),       # chunk 96: tiles of 64 and 32 rows
+    (1, 256, 3, 72, 40, 64),      # N 72: not a multiple of 16
+    (2, 128, 2, 1, 16, 32),       # N 1: q and k padded to 4 columns
+]
+#: (B, S, H, N, P, chunk, q/k dtype): xlstm-1.3b's mLSTM scan (N 256, P
+#: 1025 with the denominator channel, chunk 512), k scaled by 1/sqrt(N)
+GLA_WIDE_CASES = [
+    (1, 512, 4, 256, 1025, 512, torch.float32),
+    (1, 512, 4, 256, 1025, 512, torch.bfloat16),
+    (1, 4096, 4, 256, 1025, 512, torch.bfloat16),
 ]
 
 
 def _gla_inputs(dev, B, S, H, N, P, seed, qk_dtype=torch.float32,
-                broadcast=False):
+                broadcast=False, k_scale=1.0):
     rng = np.random.default_rng(seed)
 
     def t(*shape, scale=1.0):
@@ -575,9 +591,11 @@ def _gla_inputs(dev, B, S, H, N, P, seed, qk_dtype=torch.float32,
                                 .astype(np.float32)).to(dev)
     if broadcast:
         q = t(B, S, N).to(qk_dtype)[:, :, None].expand(B, S, H, N)
-        k = t(B, S, N).to(qk_dtype)[:, :, None].expand(B, S, H, N)
+        k = t(B, S, N, scale=k_scale).to(qk_dtype)[:, :, None] \
+            .expand(B, S, H, N)
     else:
-        q, k = t(B, S, H, N).to(qk_dtype), t(B, S, H, N).to(qk_dtype)
+        q = t(B, S, H, N).to(qk_dtype)
+        k = t(B, S, H, N, scale=k_scale).to(qk_dtype)
     v = t(B, S, H, P)
     la = -t(B, S, H).abs() * 0.3
     return q, k, v, la, t(B, H, N, P, scale=0.1)
@@ -589,6 +607,27 @@ def _gla_check(got, want):
         err = (g.float() - w.float()).abs()
         assert bool((err <= 3e-4 + 3e-4 * w.float().abs()).all()), \
             err.max().item()
+
+
+def _gla_f64_check(got, want, q, k, v, la, h0):
+    """The kernel's error against the step recurrence in float64 at most
+    4x the plain version's, or 1e-6 of the output's largest magnitude."""
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+
+    def to_bh(x):
+        return x.transpose(1, 2).reshape(B * H, 1, S, -1)
+    hi = torch.zeros((B * H, N, P), device=q.device) if h0 is None \
+        else h0.reshape(B * H, N, P)
+    y64, h64 = gla_recurrence(to_bh(q), to_bh(k), to_bh(v),
+                              to_bh(la[..., None])[..., 0], hi,
+                              dtype=torch.float64)
+    exact = (y64.reshape(B, H, S, P).transpose(1, 2), h64.reshape(B, H, N, P))
+    for g, w, e in zip(got, want, exact):
+        err = float((g.double() - e).abs().max())
+        plain = float((w.double() - e).abs().max())
+        assert err <= max(4 * plain, 1e-6 * float(e.abs().max())), \
+            (err, plain)
 
 
 @pytest.mark.cuda
@@ -607,6 +646,30 @@ def test_gla_chunk_kernel_matches_plain(cuda_dev, case, h0):
     assert gla_chunk.launches == before + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     _gla_check(got, want)
+    _gla_f64_check(got, want, q, k, v, la, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h0", [False, True], ids=["zero_h0", "h0"])
+@pytest.mark.parametrize("case", GLA_WIDE_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_gla_chunk_kernel_at_xlstm_width(cuda_dev, case, h0):
+    """N 256, P 1025 (33 slices of P, the last one column wide), chunk
+    512 walked in tiles; y in float32 as chunked_gla asks."""
+    B, S, H, N, P, chunk, dt = case
+    q, k, v, la, h = _gla_inputs(cuda_dev, B, S, H, N, P, S + N, dt,
+                                 k_scale=N ** -0.5)
+    h = h if h0 else None
+    kw = dict(chunk=chunk, y_dtype=torch.float32)
+    before = gla_chunk.launches
+    got = gla_chunk(q, k, v, la, h, **kw)
+    again = gla_chunk(q, k, v, la, h, **kw)
+    want = gla_chunk_plain(q, k, v, la, h, **kw)
+    torch.cuda.synchronize()
+    assert gla_chunk.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _gla_check(got, want)
+    _gla_f64_check(got, want, q, k, v, la, h)
 
 
 @pytest.mark.cuda
@@ -638,8 +701,8 @@ def test_gla_chunk_bf16_q_k_and_broadcast_heads(cuda_dev, broadcast,
 
 @pytest.mark.cuda
 def test_gla_chunk_refuses_what_it_has_no_instance_for(cuda_dev):
-    q, k, v, la, h = _gla_inputs(cuda_dev, 1, 64, 2, 72, 16, 6)
-    with pytest.raises(ValueError, match="N a multiple of 4"):
+    q, k, v, la, h = _gla_inputs(cuda_dev, 1, 64, 2, 264, 16, 6)
+    with pytest.raises(ValueError, match="N from 1 to 256"):
         gla_chunk(q, k, v, la, h)
     q, k, v, la, h = _gla_inputs(cuda_dev, 1, 64, 2, 16, 16, 7)
     with pytest.raises(TypeError, match="float32 v"):

@@ -3,7 +3,7 @@
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME] [--big]
         [--ops lut_gemm,flash_attention,vta_gemm,quantized_linear,
-               decode_attention]
+               decode_attention,gla_chunk,lm_step]
 
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``),
 builds its CUDA kernels, and times each op at the shapes ``chip_smoke.py``
@@ -13,13 +13,18 @@ and zamba2 prefill shapes; vta_gemm at the task-ISA engine's T1 M112 N128
 K1152 and at the LM decode and prefill linears; quantized_linear, the
 whole call from float activations, at the LM decode linears;
 decode_attention at the decoder's and the LM steps' shapes, at kv_len S
-and at the served 32; lm_step, whole int8 decode steps of llama3.2-3b
+and at the served 32; gla_chunk at zamba2-1.2b's served 16- and
+512-token prefills and at S 4096 and 32768 (q and k broadcast over 64
+heads) and at xlstm-1.3b's N 256, P 1025, chunk 512 (bf16 q and k per
+head), a shape where a version that raises is recorded as "raises";
+lm_step, whole int8 decode steps of llama3.2-3b
 and zamba2-1.2b at 4 slots: the host-clock step ms of each of 8 steps,
 and of one more under torch.profiler the device busy ms, the idle share
 and the number of device operations), with ``chip_smoke.kernel_ms``
 (torch.profiler
 device time per call of every kernel whose name holds "lut_gemm",
-"flash", "vta_gemm" or "decode_") beside the call's CUDA-event time.
+"flash", "vta_gemm", "decode_" or "gla_kernel") beside the call's
+CUDA-event time.
 With --big, flash_attention also at S 32768; --ops picks the ops (the
 default: the first two).  One JSON line per shape on stdout.  Run it
 once per checkout, each in its own process, to hold two versions of
@@ -63,6 +68,13 @@ VTA_SHAPES = [(1, 112, 128, 1152, "none")] + [
 QLINEAR_SHAPES = [(4, 3072, 8192, "bfloat16"), (4, 8192, 3072, "bfloat16"),
                   (4, 1024, 3072, "bfloat16"), (4, 8384, 2048, "bfloat16"),
                   (4, 3072, 8192, "float32"), (512, 8384, 2048, "bfloat16")]
+#: (B, S, H, N, P, chunk, q/k dtype, heads broadcast): zamba2-1.2b's
+#: served prefills (16 and 512 tokens), its long prefills, xlstm-1.3b's
+GLA_SHAPES = [(1, 16, 64, 64, 64, 16, "float32", True),
+              (1, 512, 64, 64, 64, 64, "float32", True),
+              (1, 4096, 64, 64, 64, 64, "float32", True),
+              (1, 32768, 64, 64, 64, 64, "float32", True),
+              (1, 4096, 4, 256, 1025, 512, "bfloat16", False)]
 #: (B, S, HQ, KH, D, q dtype, cache dtype, kv_len)
 DECODE_SHAPES = [(1, 96, 2, 2, 32, "float32", "float32", 96),
                  (4, 256, 24, 8, 128, "bfloat16", "float32", 256),
@@ -170,6 +182,26 @@ def main():
                               D=D, dtype=qdt, cache_dtype=kvdt,
                               kv_len=kv_len, ms=ms, call_ms=call_ms)),
               flush=True)
+    if "gla_chunk" in ops:
+        from repro_torch.kernels.gla_chunk import gla_chunk
+    for B, S, H, N, P, Q, dt, bc in GLA_SHAPES * ("gla_chunk" in ops):
+        q, k, v, la, h0 = cs.gla_inputs(B, S, H, N, P, S + N, dt, bc, h0=False)
+        row = dict(label=args.label, card=card, op="gla_chunk", B=B, S=S,
+                   H=H, N=N, P=P, chunk=Q, qk_dtype=dt, heads_broadcast=bc)
+        call = lambda: gla_chunk(q, k, v, la, chunk=Q,  # noqa
+                                 y_dtype=torch.float32)
+        try:
+            call()
+        except ValueError as e:      # a version without this instance
+            print(json.dumps(dict(row, ms="raises", call_ms="raises",
+                                  error=str(e))), flush=True)
+            continue
+        reps = 5 if S > 8192 else 20
+        call_ms = cs.cuda_time_ms(call, reps=reps, warmup=1)
+        ms = cs.kernel_ms(call, "gla_kernel", call_ms, reps=reps)
+        print(json.dumps(dict(row, ms=ms, call_ms=call_ms)), flush=True)
+        del q, k, v, la
+        torch.cuda.empty_cache()
     for arch, slots, max_len in LM_STEP_RUNS * ("lm_step" in ops):
         print(json.dumps(dict(label=args.label, card=card, op="lm_step",
                               arch=arch, slots=slots,
