@@ -44,12 +44,19 @@ Phases, in the order they run:
      card could take; and at every shape phases 5 and 6 launched (the
      int8 decoder's 1-2 row GEMMs, the decoders' epilogues), checked but
      not timed; vta_gemm's skinny instance (M <= 16) at M 1, 3, 16 and 17
-     with K and N ragged, and at every LM shape phases 8 and 9 launched
-     (timed, beside torch._int_mm with M padded to 32: the GEMM alone);
+     with K and N ragged; its wgmma instance (M > 16) at T 3 with M, N
+     and K ragged, every epilogue, shifts 0, 9, 31 and 40, with bias, and
+     at a deep K in one slice; at every LM shape phases 8 and 9 launched
+     and at Llama-3.2-3B's prefill linears at 512 and 4096 tokens (timed,
+     beside torch._int_mm, T calls for T peer tiles, with M padded to 32
+     below 17 rows, the GEMM alone for an epilogue); every vta_gemm row
+     bitwise equal to the plain version and over two calls;
      quantized_linear's fused route bitwise against its plain chain at
-     every (M, N, K, x dtype) phases 8 and 9 served, in bfloat16 and
+     every (M, N, K, x dtype) phases 8 and 9 served and at M 17, 130,
+     512 and 4096 (with a given x_scale there too), in bfloat16 and
      float32 x, on x.5 ties and an amax below 1e-6, timed beside the
-     PyTorch-op chain the port ran before;
+     PyTorch-op chain the port ran before and torch._int_mm's GEMM, and
+     the device time of the served calls above 16 rows added up;
   7. lut_gemm and decode_attention the same way, at every decode-path
      shape (timed), every other shape phases 5 and 6 launched (checked)
      and at Llama-3.2-3B's decode shapes (src/repro/configs/llama32_3b.py);
@@ -131,6 +138,9 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 INT32_ALU_OPS_PER_S = 67e12
 # where the main path runs; main() refuses to run without a card
 DEVICE = "cuda"
+# the most rows vta_gemm's skinny instance takes (kernel.py:SKINNY_MAX_M);
+# above it the wgmma instance runs
+SKINNY_ROWS = 16
 
 
 def log(msg=""):
@@ -540,26 +550,77 @@ def alu_bound_ms(numel, n_ops, has_src):
                                        else "operations")
 
 
+#: (M, N, K) of Llama-3.2-3B's prefill linears at 512 and 4096 tokens
+#: (q/o, k/v, gate/up, down; src/repro_torch/configs/llama32_3b.py)
+LLAMA_PREFILL_GEMMS = [(m, n, k) for m in (512, 4096) for n, k in (
+    (3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192))]
+
+
+def int_mm_ms(a, w_nk, want, epi, has_bias, M, N, K):
+    """The library yardstick of a vta_gemm row (never used by the port):
+    torch._int_mm, int8 x int8 -> int32 on the tensor cores, once per
+    peer tile (T calls), held against the plain version's sums; it takes
+    at least 17 rows, so rows at 16 or fewer go in padded to 32, and for
+    an epilogue or a bias it is the GEMM alone.  (None, None) where it
+    refuses the shape (K or N not a multiple of 8)."""
+    import torch
+    from repro_torch.kernels.vta_gemm import vta_gemm_ref
+    T = a.shape[0]
+    if K % 8 or N % 8:
+        return None, None
+    a2 = [a[t].contiguous() if M > 16 else torch.cat(
+        [a[t], a.new_zeros((32 - M, K))]) for t in range(T)]
+    b2 = [w_nk[t].t() for t in range(T)]
+    try:
+        outs = [torch._int_mm(x, y) for x, y in zip(a2, b2)]
+    except RuntimeError as e:      # shape or layout it refuses
+        log(f"  torch._int_mm refused {(M, N, K)}: {e}")
+        return None, None
+    acc = want if epi == "none" and not has_bias else vta_gemm_ref(
+        a, w_nk.transpose(1, 2), epilogue="none")
+    if not all(torch.equal(o[:M], acc[t]) for t, o in enumerate(outs)):
+        fail("torch._int_mm disagrees with the plain version")
+    ms = cuda_time_ms(lambda: [torch._int_mm(x, y) for x, y in zip(a2, b2)])
+    what = "torch._int_mm" + (f", {T} calls" if T > 1 else "") + (
+        "" if M > 16 else ", M padded to 32") + (
+        "" if epi == "none" and not has_bias else
+        ": GEMM only, no epilogue")
+    return ms, what
+
+
 def phase_gemm_kernel(rec, main_shapes):
     import numpy as np
     import torch
     from repro_torch.kernels.vta_gemm import vta_gemm, vta_gemm_ref
     from repro_torch.kernels.vta_gemm.kernel import gemm_plan
     dev = torch.device("cuda")
-    cases = [(k, n) for k, n in main_shapes.items()]
-    extra = [((1, 37, 50, 70, e, s, b), 0)
+    cases = [(k, n, n > 0) for k, n in main_shapes.items()]
+    extra = [((1, 37, 50, 70, e, s, b), 0, False)
              for e, s in (("none", 0), ("requant", 0), ("requant", 5),
                           ("requant", 31), ("requant", 40), ("dequant", 0))
              for b in (False, True)]
-    extra += [((3, 130, 72, 200, "requant", 9, False), 0),
-              ((1, 1, 3, 5, "none", 0, True), 0)]
+    extra += [((3, 130, 72, 200, "requant", 9, False), 0, False),
+              ((1, 1, 3, 5, "none", 0, True), 0, False)]
     # the skinny instance's edges: M 1, 3, 16 and 17 (past the cut), K not
     # a multiple of 16, N not a multiple of 8, every epilogue, with bias
-    extra += [((1, m, 203, 1000, e, s, True), 0) for m in (1, 3, 16, 17)
+    extra += [((1, m, 203, 1000, e, s, True), 0, False)
+              for m in (1, 3, 16, 17)
               for e, s in (("none", 0), ("requant", 9), ("dequant", 0))]
+    # the wgmma instance's edges: T 3, M, N and K ragged (K padded to 16
+    # bytes by the wrapper), every epilogue with shifts 0, 9, 31 and 40,
+    # with bias; deep K split over a cluster of 7 and of 8 slices
+    extra += [((3, 130, 203, 1000, e, s, True), 0, False)
+              for e, s in (("none", 0), ("requant", 0), ("requant", 9),
+                           ("requant", 31), ("requant", 40), ("dequant", 0))]
+    extra += [((1, 130, 260, 4100, "dequant", 0, False), 0, False),
+              ((2, 300, 64, 4608, "none", 0, True), 0, False)]
+    # Llama-3.2-3B's prefill linears at 512 and 4096 tokens (timed; no
+    # served prompt is that long)
+    extra += [((1, m, n, k, "dequant", 0, False), 0, True)
+              for m, n, k in LLAMA_PREFILL_GEMMS]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, max_err = [], 0
-    for (T, M, N, K, epi, shift, has_bias), launches in cases + extra:
+    for (T, M, N, K, epi, shift, has_bias), launches, timed in cases + extra:
         rng = np.random.default_rng(T * 131 + M * 7 + N * 3 + K)
         a = torch.from_numpy(rng.integers(-128, 128, (T, M, K),
                                           dtype=np.int8)).to(dev)
@@ -581,45 +642,27 @@ def phase_gemm_kernel(rec, main_shapes):
                  f"from its plain version")
         max_err = max(max_err, int((got.to(torch.float64)
                                     - want.to(torch.float64)).abs().max()))
-        if launches == 0:
+        if not timed:
             continue
-        instance = gemm_plan(T, M, N, K, sms).route
+        plan = gemm_plan(T, M, N, K, sms)
+        instance = plan.route
         call_ms = cuda_time_ms(lambda: vta_gemm(a, w, bias, scale, **kw))
         ms = kernel_ms(lambda: vta_gemm(a, w, bias, scale, **kw),
                        "vta_gemm_", call_ms)
         plain = cuda_time_ms(lambda: vta_gemm_ref(a, w, bias, scale, **kw),
                              reps=5, warmup=1)
-        lib = lib_what = None
-        if not has_bias and T == 1 and K % 8 == 0 and N % 8 == 0 and (
-                (epi == "none" and M > 16) or epi == "dequant"):
-            # one PyTorch call (never used by the port): int8 x int8 ->
-            # int32 on the tensor cores; it takes at least 17 rows, so the
-            # LM rows go in padded to 32, and there it is the GEMM alone,
-            # without the dequantization
-            a2 = a[0].contiguous() if M > 16 else torch.cat(
-                [a[0], a.new_zeros((32 - M, K))])
-            b2 = w_nk[0].t()
-            try:
-                lib_out = torch._int_mm(a2, b2)
-            except RuntimeError as e:      # shape or layout it refuses
-                log(f"  torch._int_mm refused {(M, N, K)}: {e}")
-            else:
-                acc = want[0] if epi == "none" else vta_gemm_ref(
-                    a, w, epilogue="none")[0]
-                if not torch.equal(lib_out[:M], acc):
-                    fail("torch._int_mm disagrees with the plain version")
-                lib = cuda_time_ms(lambda: torch._int_mm(a2, b2))
-                lib_what = "torch._int_mm" + (
-                    "" if M > 16 else ", M padded to 32") + (
-                    "" if epi == "none" else ": GEMM only, no dequant")
+        lib, lib_what = int_mm_ms(a, w_nk, want, epi, has_bias, M, N, K)
         bound, by = gemm_bound_ms(T, M, N, K, epi, has_bias)
         rows.append(dict(T=T, M=M, N=N, K=K, epilogue=epi, shift=shift,
                          bias=has_bias, launches=launches, instance=instance,
+                         tile=[plan.bm, plan.bn], splits=plan.splits,
                          ms=ms, call_ms=call_ms, plain_ms=plain,
                          library_ms=lib, library_what=lib_what,
                          bound_ms=bound, bound_by=by))
         log(f"  vta_gemm T={T} M={M} N={N} K={K} {epi}/{shift}"
-            f"{' +bias' if has_bias else ''} ({instance}): kernel "
+            f"{' +bias' if has_bias else ''} ({instance}"
+            f"{'' if instance == 'skinny' else f' {plan.bm}x{plan.bn}'}, "
+            f"{plan.splits} K slices): kernel "
             f"{ms:.4f} ms, call {call_ms:.4f} ms (bound {bound:.5f} "
             f"ms by {by}; plain {plain:.4f} ms; library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms ({lib_what})'}) "
@@ -629,13 +672,14 @@ def phase_gemm_kernel(rec, main_shapes):
 
 
 def qlinear_inputs(M, K, N, dt, case, seed):
-    """x (M, K) in dtype `dt` on the card ("normal": 4 x unit normal;
-    "ties": every x / x_scale on k + 0.5, x_scale exactly 1/16; "tiny":
-    amax below 1e-6), w_q (K, N) over (N, K) storage, w_scale (N,)."""
+    """x (M, K) in dtype `dt` on the card ("normal" and "given": 4 x unit
+    normal; "ties": every x / x_scale on k + 0.5, x_scale exactly 1/16;
+    "tiny": amax below 1e-6), w_q (K, N) over (N, K) storage, w_scale
+    (N,)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
-    if case == "normal":
+    if case in ("normal", "given"):
         x = rng.normal(size=(M, K)) * 4
     elif case == "ties":
         x = (2 * rng.integers(-127, 127, size=(M, K)) + 1) / 32.0
@@ -661,13 +705,23 @@ def qlinear_bound_ms(M, N, K, elt):
                                        else "operations")
 
 
+#: quantized_linear shapes checked beyond the served ones: the wgmma route
+#: at M 17, 130, 512 and 4096 (Llama-3.2-3B's q/o linear, and K and N not
+#: multiples of 16), each with the amax and with a given x_scale
+QLINEAR_EDGES = [(m, 3072, 3072) for m in (17, 130, 512, 4096)] + [
+    (m, 520, 1000) for m in (17, 130, 512, 4096)]
+
+
 def phase_qlinear_kernel(rec, served):
     """quantized_linear's fused route against its plain chain on the card,
     bitwise (torch.equal), at every (M, N, K, x dtype) phases 8 and 9
-    served, in bfloat16 and float32 x, on unit-scale inputs, on x.5 ties
-    and on an amax below 1e-6; timed at each served shape beside the
-    chain as the port ran it before (amax, scale, quantization and
-    dequantization as PyTorch ops around a vta_gemm launch)."""
+    served and at QLINEAR_EDGES, in bfloat16 and float32 x, on unit-scale
+    inputs, on x.5 ties and on an amax below 1e-6 (and a given x_scale at
+    the edges); timed at each served shape beside the chain as the port
+    ran it before (amax, scale, quantization and dequantization as
+    PyTorch ops around a vta_gemm launch) and, above 16 rows, beside
+    torch._int_mm's GEMM alone; then the device time of the served calls
+    above 16 rows added up."""
     import torch
     from repro_torch.kernels.vta_gemm import (quantized_linear,
                                               quantized_linear_ref, vta_gemm)
@@ -675,20 +729,27 @@ def phase_qlinear_kernel(rec, served):
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, checked = [], 0
-    for (M, N, K, dt), launches in sorted(served.items()):
+    edges = {(M, N, K, "bfloat16"): 0 for M, N, K in QLINEAR_EDGES}
+    for (M, N, K, dt), launches in sorted(served.items()) + sorted(
+            edges.items()):
         for xdt in ("bfloat16", "float32"):
-            for case in ("normal", "ties", "tiny"):
+            for case in ("normal", "ties", "tiny") + (
+                    ("given",) if launches == 0 else ()):
                 x, w_q, ws = qlinear_inputs(M, K, N, xdt, case,
                                             M + N + K + len(case))
-                got = quantized_linear(x, w_q, ws)
-                again = quantized_linear(x, w_q, ws)
-                want = quantized_linear_ref(x, w_q, ws)
+                xs = torch.tensor(0.0625, device=dev) \
+                    if case == "given" else None
+                got = quantized_linear(x, w_q, ws, xs)
+                again = quantized_linear(x, w_q, ws, xs)
+                want = quantized_linear_ref(x, w_q, ws, xs)
                 torch.cuda.synchronize()
                 if not torch.equal(got, want) or not torch.equal(again,
                                                                  want):
                     fail(f"quantized_linear {(M, N, K, xdt, case)} differs "
                          f"from its plain chain")
                 checked += 1
+        if launches == 0:
+            continue
         x, w_q, ws = qlinear_inputs(M, K, N, dt, "normal", M + N + K)
         plan = gemm_plan(1, M, N, K, sms)
         call = lambda: quantized_linear(x, w_q, ws)  # noqa: E731
@@ -698,20 +759,36 @@ def phase_qlinear_kernel(rec, served):
             lambda: quantized_linear_ref(x, w_q, ws, gemm=vta_gemm))
         plain = cuda_time_ms(lambda: quantized_linear_ref(x, w_q, ws),
                              reps=5, warmup=1)
+        lib = None
+        if M > 16 and K % 8 == 0 and N % 8 == 0:
+            xq = torch.randint(-128, 128, (M, K), dtype=torch.int8,
+                               device=dev)
+            lib = cuda_time_ms(lambda: torch._int_mm(xq, w_q))
         bound, by = qlinear_bound_ms(M, N, K, x.element_size())
         rows.append(dict(M=M, N=N, K=K, dtype=dt, launches=launches,
-                         instance=plan.route, splits=plan.splits, ms=ms,
-                         call_ms=call_ms, chain_call_ms=chain_ms,
-                         plain_ms=plain, bound_ms=bound, bound_by=by))
+                         instance=plan.route, tile=[plan.bm, plan.bn],
+                         splits=plan.splits, ms=ms, call_ms=call_ms,
+                         chain_call_ms=chain_ms, plain_ms=plain,
+                         library_ms=lib, library_what=None if lib is None
+                         else "torch._int_mm: the GEMM alone",
+                         bound_ms=bound, bound_by=by))
         log(f"  quantized_linear M={M} N={N} K={K} {dt} ({plan.route}, "
             f"{plan.splits} K slices): kernels {ms:.4f} ms, call "
             f"{call_ms:.4f} ms; the PyTorch-op chain around vta_gemm "
             f"{chain_ms:.4f} ms a call (bound {bound:.5f} ms by {by}; plain "
-            f"{plain:.4f} ms) x{launches}")
+            f"{plain:.4f} ms; torch._int_mm's GEMM alone "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}) x{launches}")
+    big = [r for r in rows if r["M"] > SKINNY_ROWS]
+    total = sum(r["ms"] * r["launches"] for r in big)
     log(f"  quantized_linear: {len(served)} served shapes, {checked} checks "
         f"bitwise equal to the plain chain (bfloat16 and float32 x; normal, "
-        f"x.5 ties, amax below 1e-6)")
+        f"x.5 ties, amax below 1e-6; a given x_scale at {len(edges)} more "
+        f"shapes); above {SKINNY_ROWS} rows "
+        f"{sum(r['launches'] for r in big)} served calls, {total:.4f} ms of "
+        f"device time (kernel ms x launches)")
     rec["quantized_linear_shapes"] = rows
+    rec["quantized_linear_above_16_rows"] = dict(
+        calls=sum(r["launches"] for r in big), device_ms=total)
     return rows
 
 
@@ -2451,7 +2528,11 @@ def main():
             * r["shape"][1])
     kernels = [
         dict(name="vta_gemm", route="cuda",
-             source="src/repro_torch/kernels/vta_gemm/csrc/vta_gemm.cu",
+             source="src/repro_torch/kernels/vta_gemm/csrc/" + (
+                 "vta_gemm.cu" if g["instance"] == "skinny"
+                 else "vta_wgmma.cu"),
+             sources=["src/repro_torch/kernels/vta_gemm/csrc/vta_gemm.cu",
+                      "src/repro_torch/kernels/vta_gemm/csrc/vta_wgmma.cu"],
              replaces="src/repro/kernels/vta_gemm/kernel.py:72",
              launches=main_launches["vta_gemm"],
              lm_serve_launches=lm_launches["vta_gemm"],

@@ -5,7 +5,9 @@ Every ``kernels/<name>/csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper
 with ``ctypes``.  Nothing is built when a module is imported: the first
 :func:`load` builds every source, one ``nvcc`` process per source, all
 started together.  A library is named by a hash of its source and flags,
-so an unchanged source is built once per build directory.
+so an unchanged source is built once per build directory.  Headers
+(``*.cuh``: the shared ``kernels/csrc/hopper.cuh`` and any beside a
+source) enter every library's hash.
 
 The build directory is ``build/kernels`` at the root of the checkout (the
 repository's ``.gitignore`` lists ``build/``).  A missing ``nvcc`` or a
@@ -58,6 +60,8 @@ def nvcc() -> str:
 
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(KERNELS_DIR.rglob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:12]}.so"
 
 

@@ -66,7 +66,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "../../csrc/hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int BQ = 128;       // query rows per block (two warpgroups of 64)
 constexpr int BK = 128;       // keys per K/V tile
@@ -74,85 +78,6 @@ constexpr int STAGES = 2;     // K/V ring depth
 constexpr int THREADS = 384;  // consumer warpgroups 0, 1; producer 2
 constexpr int ROW_BYTES = 128;  // one 64-column bf16 swizzle atom row
 constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// wait until the barrier has completed the phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  asm volatile(
-      "{\n"
-      ".reg .pred P1;\n"
-      "LAB_WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
-      "@P1 bra DONE;\n"
-      "bra LAB_WAIT;\n"
-      "DONE:\n"
-      "}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// one TMA box of a (D, S, H, B) tensor map into shared memory
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
-          smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// a wgmma shared-memory descriptor for a 128-byte-swizzled tile: `lbo`
-// and `sbo` in bytes (K-major: sbo is the stride of 8-row groups and lbo
-// is unused; MN-major: lbo is the stride of 64-column atoms, sbo that of
-// 8-row groups along K)
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads of an accumulator across the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D (+)= A B: A (64 x 16) and B (16 x 128) both K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
@@ -305,7 +230,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       mbar_init(&v_full[s], 1);
       mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -483,53 +408,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point, so the
-// library need not link libcuda
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// error codes beyond the CUDA runtime's
-constexpr int ERR_NO_ENCODE = 10001;     // no cuTensorMapEncodeTiled
-constexpr int ERR_ENCODE_BASE = 20000;   // + the CUresult of a failed map
-
 // a (D, S, H, B) bf16 tensor map with boxes of (64, rows, 1, 1)
 int make_map(CUtensorMap* map, const void* base,
              const unsigned long long* dims,
              const unsigned long long* strides, int rows) {
-  EncodeTiled enc = encode_fn();
-  if (enc == nullptr) return ERR_NO_ENCODE;
   const cuuint64_t gdim[4] = {dims[0], dims[1], dims[2], dims[3]};
   const cuuint64_t gstride[3] = {strides[0], strides[1], strides[2]};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
-  const cuuint32_t estride[4] = {1, 1, 1, 1};
-  CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                   const_cast<void*>(base), gdim, gstride, box, estride,
-                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE_BASE + (int)r;
+  return hopper::make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base,
+                          gdim, gstride, box);
 }
 
 template <int DP>

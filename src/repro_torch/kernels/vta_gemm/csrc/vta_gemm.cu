@@ -1,6 +1,6 @@
 // vta_gemm: C[t] = epilogue(A[t] @ W[t]^T + bias) for int8 A, W and an int32
 // accumulator, on Hopper (sm_90a); and quantized_linear, the same GEMM with
-// the dynamic int8 quantization of float activations fused in front of it.
+// the dynamic int8 quantization of float activations in front of it.
 //
 // Replaces: src/repro/kernels/vta_gemm/kernel.py, vta_gemm_pallas (body
 // _gemm_kernel), the TPU kernel that resolves every coalesced GEMM tile of
@@ -14,63 +14,60 @@
 // snapshots from the weight SRAM, and what quantize_params stores); bias
 // (N,) int32 and scale (N,) float32 are shared by all T tiles; the output
 // is (T, M, N): int32 for "none", int8 for "requant", float32 for
-// "dequant", x's dtype for quantized_linear.  M, N and K are any sizes: the
-// edges are masked, so nothing is padded in memory.
+// "dequant", x's dtype for quantized_linear.
 //
 // quantized_linear's steps are the plain chain's (ref.py), in its order:
 //   amax = max|x| (exact in x's dtype), clamped below at `lo` (1e-6 in x's
 //   dtype); x_scale = amax / 127 by an IEEE float32 division, rounded to
 //   nearest even in x's dtype; x_q = clip(rint(x / x_scale), -128, 127) by
-//   an IEEE division (never stored to device memory); y = float(acc) *
-//   (w_scale[n] * x_scale), each product rounded once (no FMA); y rounded
-//   to nearest even in x's dtype.  Built without fast math.
+//   an IEEE division; y = float(acc) * (w_scale[n] * x_scale), each product
+//   rounded once (no FMA); y rounded to nearest even in x's dtype.  Built
+//   without fast math.  Up to 16 rows x_q lives only in shared memory;
+//   above 16 rows one launch writes it to device memory once a call and
+//   the GEMM reads it from there (vta_wgmma.cu).
 //
 // Two instances, the host picks by M (kernel.py:gemm_plan):
 //
-// * Tile (M > 16, the engine's shapes: M = 14..3136, N = 64..512, K =
-//   64..4608).  Bound by launch latency and the bytes of A, W and C: a
-//   full-width ResNet layer moves under a megabyte.  A block computes a
-//   64x64 output tile with four warps issuing mma.sync m16n8k32 s8; the K
-//   loop runs inside the block, over 32-byte steps staged in shared memory.
-//   One launch covers T peer tiles (grid.z, the TPU's jax.vmap).  For
-//   quantized_linear the A tile is quantized as it is staged, from an
-//   x_scale that one earlier launch (amax_kernel) computed: two launches;
-//   its blocks are 64 x 128 (eight warps), so each A tile is quantized
-//   once for 128 channels.
+// * wgmma (M > 16: the engine's tiles, M = 14..3136, N = 64..512, K =
+//   64..4608, and the LM's prefill linears): in vta_wgmma.cu, whose note
+//   gives its design.
 //
-// * Skinny (M <= 16: a decode step's 1-16 tokens).  Bound by the weight
-//   bytes: 2*M operations per weight byte (8 at M 4), far below the ~590 at
-//   which the int8 tensor cores bind.  Y^T = W X^T on mma.sync m16n8k32 s8,
-//   weights on the tall side: a warp owns 16 output channels and X's rows
-//   (padded to 8 or 16) are the narrow side.  A lane loads 16 contiguous
-//   bytes of each of its two weight rows per 64-byte K step; since integer
-//   sums are exact in any order, the fragments take K in that permuted
-//   order (bytes 0-7 of the lane's 16 feed the first k32 step, 8-15 the
-//   second) and X's fragments follow the same permutation, so every
-//   load is 16 bytes and no shuffle is needed.  The weights stream through
-//   an 8-stage cp.async ring in shared memory (8 KB a stage for the
-//   block's eight warps; each lane reads back only what it copied, so no
-//   barrier guards the ring).  A block takes 128 channels and one slice of
-//   K; the slices (kernel.py:gemm_plan) bring the grid to about two blocks
-//   per SM at every LM shape.  The slices' int32 partials are added with
-//   atomicAdd into a scratch buffer (integer addition wraps and is
-//   associative mod 2^32: the same bits in any order); the last block of a
-//   column block (a ticket counter) takes the sums, leaving zeros, and runs
-//   the epilogue.  For quantized_linear the grid (at most two blocks per SM,
-//   launched cooperatively, so all are resident) first shares one amax:
-//   each block reduces a slice of x, atomicMax on the bits (|x| >= 0
-//   orders as its bit pattern), and waits at a grid-wide counter; the
-//   weight copies of the first seven stages are already in flight
+// * Skinny (M <= 16: a decode step's 1-16 tokens), in this file.  Bound by
+//   the weight bytes: 2*M operations per weight byte (8 at M 4), far below
+//   the ~590 at which the int8 tensor cores bind.  Y^T = W X^T on mma.sync
+//   m16n8k32 s8, weights on the tall side: a warp owns 16 output channels
+//   and X's rows (padded to 8 or 16) are the narrow side.  A lane loads 16
+//   contiguous bytes of each of its two weight rows per 64-byte K step;
+//   since integer sums are exact in any order, the fragments take K in that
+//   permuted order (bytes 0-7 of the lane's 16 feed the first k32 step,
+//   8-15 the second) and X's fragments follow the same permutation, so
+//   every load is 16 bytes and no shuffle is needed.  M, N and K are any
+//   sizes: the edges are masked, so nothing is padded in memory.  The
+//   weights stream through an 8-stage cp.async ring in shared memory (8 KB
+//   a stage for the block's eight warps; each lane reads back only what it
+//   copied, so no barrier guards the ring).  A block takes 128 channels and
+//   one slice of K; the slices (kernel.py:gemm_plan) bring the grid to
+//   about two blocks per SM at every LM shape.  The slices' int32 partials
+//   are added with atomicAdd into a scratch buffer (integer addition wraps
+//   and is associative mod 2^32: the same bits in any order); the last
+//   block of a column block (a ticket counter) takes the sums, leaving
+//   zeros, and runs the epilogue.  For quantized_linear the grid (at most
+//   two blocks per SM, launched cooperatively, so all are resident) first
+//   shares one amax: each block reduces a slice of x, atomicMax on the bits
+//   (|x| >= 0 orders as its bit pattern), and waits at a grid-wide counter;
+//   the weight copies of the first seven stages are already in flight
 //   meanwhile.  Each block then quantizes its K slice of x into shared
-//   memory.  One launch per call.
+//   memory.  One launch per call; two where the grid would not be resident
+//   (x_scale from the amax launch below first).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "vta_common.cuh"
+
 namespace {
 
-enum { EPI_NONE = 0, EPI_REQUANT = 1, EPI_DEQUANT = 2, EPI_QLINEAR = 3 };
-enum { A_INT8 = 0, A_F32 = 1, A_BF16 = 2 };
+using namespace vta;
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
@@ -95,272 +92,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// ---- activations: int8 as they are, or float quantized on the way in ----
-template <typename AT>
-struct Act;
-
-template <>
-struct Act<int8_t> {
-  // 16 int8 from p: one 16-byte load (VEC: K % 16 == 0 and aligned
-  // rows, so a chunk is all in or all out), else bytes, zero past `n`
-  template <bool VEC>
-  __device__ static int4 load16(const int8_t* p, int n, float) {
-    if (VEC) return *reinterpret_cast<const int4*>(p);
-    alignas(16) int8_t b[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) b[i] = i < n ? p[i] : (int8_t)0;
-    return *reinterpret_cast<const int4*>(b);
-  }
-};
-
-template <typename XT>
-struct XIo;
-template <>
-struct XIo<float> {
-  __device__ static float f(float v) { return v; }
-  // a float32 result is already in x's dtype
-  __device__ static float in_dtype(float v) { return v; }
-  __device__ static void store(float* p, float v) { *p = v; }
-  // 16 elements a thread: four 16-byte loads
-  __device__ static void load16v(const float* p, float (&f)[16]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 v = reinterpret_cast<const float4*>(p)[i];
-      f[4 * i] = v.x; f[4 * i + 1] = v.y; f[4 * i + 2] = v.z;
-      f[4 * i + 3] = v.w;
-    }
-  }
-};
-template <>
-struct XIo<__nv_bfloat16> {
-  __device__ static float f(__nv_bfloat16 v) { return __bfloat162float(v); }
-  __device__ static float in_dtype(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __device__ static void store(__nv_bfloat16* p, float v) {
-    *p = __float2bfloat16_rn(v);
-  }
-  __device__ static void load16v(const __nv_bfloat16* p, float (&f)[16]) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const uint4 v = reinterpret_cast<const uint4*>(p)[i];
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 t = __bfloat1622float2(h[j]);
-        f[8 * i + 2 * j] = t.x;
-        f[8 * i + 2 * j + 1] = t.y;
-      }
-    }
-  }
-};
-
-// clip(rint(x / xs), -128, 127) of the IEEE quotient
-__device__ __forceinline__ int8_t quant1(float x, float xs) {
-  const float q = fminf(fmaxf(rintf(__fdiv_rn(x, xs)), -128.f), 127.f);
-  return (int8_t)(int)q;
-}
-
-// float activations, quantized with x_scale as they are loaded
-template <typename XT>
-struct Act {
-  template <bool VEC>
-  __device__ static int4 load16(const XT* p, int n, float xs) {
-    float f[16];
-    if (VEC) {
-      XIo<XT>::load16v(p, f);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 16; ++i) f[i] = i < n ? XIo<XT>::f(p[i]) : 0.f;
-    }
-    alignas(16) int8_t b[16];
-#pragma unroll
-    for (int i = 0; i < 16; ++i) b[i] = quant1(f[i], xs);
-    return *reinterpret_cast<const int4*>(b);
-  }
-};
-
-// x_scale from amax (the bits of max|x|): clamp, divide, round in x's dtype
-template <typename XT>
-__device__ __forceinline__ float x_scale_of(unsigned amax_bits, float lo) {
-  const float a = fmaxf(__uint_as_float(amax_bits), lo);
-  return XIo<XT>::in_dtype(__fdiv_rn(a, 127.0f));
-}
-
-template <typename XT>
-__device__ __forceinline__ unsigned abs_bits(XT v) {
-  return __float_as_uint(XIo<XT>::f(v)) & 0x7fffffffu;
-}
-
-// max over the block of each thread's `v`; every thread gets the result
-__device__ __forceinline__ unsigned block_max(unsigned v, unsigned* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[warp] = v;
-  __syncthreads();
-  unsigned r = 0u;
-  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) r = max(r, red[w]);
-  return r;
-}
-
-// ---- the epilogue of one output element --------------------------------
-template <typename OT>
-__device__ __forceinline__ void store_out(void* out, size_t o, int v,
-                                          const int32_t* bias,
-                                          const float* scale, float xs,
-                                          int col, int epilogue, int shift) {
-  if (epilogue == EPI_QLINEAR) {
-    const float s = __fmul_rn(scale[col], xs);
-    XIo<OT>::store(static_cast<OT*>(out) + o, __fmul_rn(__int2float_rn(v), s));
-    return;
-  }
-  if (bias != nullptr) v = (int)((uint32_t)v + (uint32_t)bias[col]);
-  if (epilogue == EPI_NONE) {
-    static_cast<int32_t*>(out)[o] = v;
-  } else if (epilogue == EPI_REQUANT) {
-    // arithmetic shift; 32 or more fills with the sign bit
-    int s = shift >= 32 ? (v < 0 ? -1 : 0) : (v >> shift);
-    s = s < -128 ? -128 : (s > 127 ? 127 : s);
-    static_cast<int8_t*>(out)[o] = (int8_t)s;
-  } else {
-    static_cast<float*>(out)[o] = __fmul_rn(__int2float_rn(v), scale[col]);
-  }
-}
-
-// the output type of quantized_linear: x's; int8 A never takes EPI_QLINEAR
-template <typename AT>
-struct QOut { using T = AT; };
-template <>
-struct QOut<int8_t> { using T = float; };
-
-// ==== the tile instance ===================================================
-constexpr int BM = 64;        // output rows per block
-constexpr int BK = 32;        // K bytes per step (one m16n8k32)
-constexpr int SROW = BK + 16; // 48-byte smem rows: fragment reads hit 32 banks
-
-// A ROWS x 32-byte tile of a row-major (n_rows, K) matrix, 16 bytes a
-// thread: fetched into registers as int8 (float rows quantized with xs),
-// zero past row n_rows and column K, then stored to shared memory.  The
-// K loop fetches the next step's tiles before it multiplies this one's,
-// so the global loads are in flight during the MMAs.
-template <typename AT, bool VEC, int THREADS, int ROWS>
-struct Tile {
-  static constexpr int ITER = (2 * ROWS + THREADS - 1) / THREADS;
-  int4 v[ITER];
-  __device__ __forceinline__ void fetch(const AT* g, int row0, int n_rows,
-                                        int k0, int K, float xs) {
-#pragma unroll
-    for (int j = 0; j < ITER; ++j) {
-      const int i = j * THREADS + threadIdx.x;
-      const int gr = row0 + (i >> 1);
-      const int gk = k0 + (i & 1) * 16;
-      v[j] = make_int4(0, 0, 0, 0);
-      if (i < 2 * ROWS && gr < n_rows && gk < K)
-        v[j] = Act<AT>::template load16<VEC>(g + (size_t)gr * K + gk,
-                                             K - gk, xs);
-    }
-  }
-  __device__ __forceinline__ void store(int8_t* s) const {
-#pragma unroll
-    for (int j = 0; j < ITER; ++j) {
-      const int i = j * THREADS + threadIdx.x;
-      if (i < 2 * ROWS)
-        *reinterpret_cast<int4*>(s + (i >> 1) * SROW + (i & 1) * 16) = v[j];
-    }
-  }
-};
-
-// A block computes a 64 x (32 * NWN) output tile with 2 x NWN warps of
-// 32 x 32: NWN = 2 for int8 A; 4 for float A, so that each quantized A
-// tile serves twice the channels.
-template <typename AT, bool VEC, int NWN>
-__global__ void __launch_bounds__(64 * NWN)
-vta_gemm_kernel(const AT* __restrict__ A, const int8_t* __restrict__ W,
-                const int32_t* __restrict__ bias,
-                const float* __restrict__ scale,
-                const float* __restrict__ xs_in, void* __restrict__ out,
-                int M, int N, int K, int epilogue, int shift) {
-  constexpr int BN = 32 * NWN;
-  constexpr int THREADS = 64 * NWN;
-  __shared__ __align__(16) int8_t As[BM * SROW];
-  __shared__ __align__(16) int8_t Ws[BN * SROW];
-
-  const size_t t = blockIdx.z;
-  A += t * (size_t)M * K;
-  W += t * (size_t)N * K;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const float xs = xs_in != nullptr ? *xs_in : 0.f;
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;  // groupID
-  const int q = lane & 3;   // thread in group
-  const int wm = (warp / NWN) * 32;
-  const int wn = (warp % NWN) * 32;
-
-  int acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
-
-  Tile<AT, VEC, THREADS, BM> ta;
-  Tile<int8_t, VEC, THREADS, BN> tw;
-  ta.fetch(A, m0, M, 0, K, xs);
-  tw.fetch(W, n0, N, 0, K, 0.f);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    ta.store(As);
-    tw.store(Ws);
-    __syncthreads();
-    if (k0 + BK < K) {
-      ta.fetch(A, m0, M, k0 + BK, K, xs);
-      tw.fetch(W, n0, N, k0 + BK, K, 0.f);
-    }
-    uint32_t af[2][4];
-    uint32_t bf[4][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int8_t* base = As + (wm + i * 16 + g) * SROW + q * 4;
-      af[i][0] = *reinterpret_cast<const uint32_t*>(base);
-      af[i][1] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW);
-      af[i][2] = *reinterpret_cast<const uint32_t*>(base + 16);
-      af[i][3] = *reinterpret_cast<const uint32_t*>(base + 8 * SROW + 16);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int8_t* base = Ws + (wn + j * 8 + g) * SROW + q * 4;
-      bf[j][0] = *reinterpret_cast<const uint32_t*>(base);
-      bf[j][1] = *reinterpret_cast<const uint32_t*>(base + 16);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = m0 + wm + i * 16 + g + ((e >> 1) << 3);
-        const int col = n0 + wn + j * 8 + q * 2 + (e & 1);
-        if (row >= M || col >= N) continue;
-        const size_t o = t * (size_t)M * N + (size_t)row * N + col;
-        store_out<typename QOut<AT>::T>(out, o, acc[i][j][e], bias, scale,
-                                        xs, col, epilogue, shift);
-      }
-}
-
-// ==== x_scale in its own launch (ahead of the tile instance) =============
+// ==== x_scale in its own launch (ahead of a skinny one) ==================
 constexpr int AMAX_THREADS = 256;
 
 // Each block reduces a grid-stride share of x and writes its max to
@@ -403,43 +135,6 @@ constexpr int SK_BN = 16 * SK_WARPS;  // 128 channels per block
 constexpr int SK_KC = 64;             // K bytes per warp step (two k32 MMAs)
 constexpr int SK_STAGES = 8;
 constexpr int SK_STAGE = SK_THREADS * 32;  // 32 bytes a lane: two rows
-constexpr unsigned SPIN_LIMIT = 1u << 26;  // ~4 s at 64 ns: a hang traps
-
-// The grid-wide amax: sync[0] the bits of max|x|, sync[1] arrivals,
-// sync[2] departures; the last to depart zeroes all three.
-template <typename XT>
-__device__ float grid_x_scale(const XT* x, long long n, unsigned* sync,
-                              float lo, unsigned* red, float* xs_sh) {
-  const long long nb = (long long)gridDim.x * gridDim.y;
-  const long long b = blockIdx.x + (long long)gridDim.x * blockIdx.y;
-  const long long per = (n + nb - 1) / nb;
-  const long long i0 = b * per;
-  const long long i1 = min(n, i0 + per);
-  unsigned v = 0u;
-  for (long long i = i0 + threadIdx.x; i < i1; i += SK_THREADS)
-    v = max(v, abs_bits(x[i]));
-  v = block_max(v, red);
-  if (threadIdx.x == 0) {
-    atomicMax(sync, v);
-    __threadfence();
-    atomicAdd(sync + 1, 1u);
-    unsigned spins = 0;
-    while (*reinterpret_cast<volatile unsigned*>(sync + 1) < (unsigned)nb) {
-      __nanosleep(64);
-      if (++spins > SPIN_LIMIT) __trap();
-    }
-    __threadfence();
-    const unsigned a = *reinterpret_cast<volatile unsigned*>(sync);
-    *xs_sh = x_scale_of<XT>(a, lo);
-    if (atomicAdd(sync + 2, 1u) == (unsigned)nb - 1) {
-      sync[0] = 0u;
-      sync[1] = 0u;
-      sync[2] = 0u;
-    }
-  }
-  __syncthreads();
-  return *xs_sh;
-}
 
 // QM: 0 int8 A; 1 float A, x_scale from xs_in; 2 float A, x_scale from the
 // grid-wide amax (cooperative launch, T = 1).  MP: X rows padded to 8 or 16.
@@ -645,24 +340,6 @@ int dispatch_skinny(bool vec, const void* a, const int8_t* w,
 #undef SK_LAUNCH
 }
 
-template <typename AT>
-int launch_tile(bool vec, const void* a, const int8_t* w,
-                const int32_t* bias, const float* scale, const float* xs_in,
-                void* out, int T, int M, int N, int K, int epilogue,
-                int shift, cudaStream_t st) {
-  constexpr int NWN = sizeof(AT) == 1 ? 2 : 4;
-  constexpr int BN = 32 * NWN;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, T);
-  const AT* A = static_cast<const AT*>(a);
-  if (vec)
-    vta_gemm_kernel<AT, true, NWN><<<grid, 64 * NWN, 0, st>>>(
-        A, w, bias, scale, xs_in, out, M, N, K, epilogue, shift);
-  else
-    vta_gemm_kernel<AT, false, NWN><<<grid, 64 * NWN, 0, st>>>(
-        A, w, bias, scale, xs_in, out, M, N, K, epilogue, shift);
-  return (int)cudaGetLastError();
-}
-
 // quantized_linear on float x (AT float or bf16)
 template <typename AT>
 int launch_qlinear(bool vec, int route, const void* a, const int8_t* w,
@@ -671,7 +348,7 @@ int launch_qlinear(bool vec, int route, const void* a, const int8_t* w,
                    int M, int N, int K, int splits, int kslice,
                    int amax_blocks, float lo, cudaStream_t st) {
   const float* xs = xs_given;
-  if (xs == nullptr && route != 2) {
+  if (xs == nullptr && route == 1) {
     // x_scale in a launch of its own: part[0, amax_blocks) the block
     // maxima, part[amax_blocks] the ticket
     vta_gemm_amax_kernel<AT><<<amax_blocks, AMAX_THREADS, 0, st>>>(
@@ -682,9 +359,6 @@ int launch_qlinear(bool vec, int route, const void* a, const int8_t* w,
     xs = xs_buf;
   }
   unsigned* tickets = sync + 4;
-  if (route == 0)
-    return launch_tile<AT>(vec, a, w, nullptr, scale, xs, out, 1, M, N, K,
-                           EPI_QLINEAR, 0, st);
   if (route == 2)
     return dispatch_skinny<2, AT>(vec, a, w, nullptr, scale, nullptr, out,
                                   ws, sync, tickets, 1, M, N, K, EPI_QLINEAR,
@@ -696,20 +370,21 @@ int launch_qlinear(bool vec, int route, const void* a, const int8_t* w,
 
 }  // namespace
 
-// Launch on `stream`; returns the first cudaGetLastError() (or launch
-// error) that is not 0.  The wrapper (kernel.py) checks dtypes, shapes and
-// contiguity, allocates `out`, never calls this with T, M or N equal to 0,
-// and picks the route and split from kernel.py:gemm_plan:
-//   route 0: the tile instance; 1: the skinny one; 2 (quantized_linear
-//   only): the skinny one with the grid-wide amax, launched cooperatively.
+// The skinny instance.  Launch on `stream`; returns the first
+// cudaGetLastError() (or launch error) that is not 0.  The wrapper
+// (kernel.py) checks dtypes, shapes and contiguity, allocates `out`, never
+// calls this with T, M or N equal to 0, and picks the route and split from
+// kernel.py:gemm_plan:
+//   route 1: the skinny instance; 2 (quantized_linear only): the skinny
+//   one with the grid-wide amax, launched cooperatively.
 // `ws` is a zeroed uint32 scratch of T * M * N (skinny with splits > 1),
 // left zeroed; `sync` holds four zeroed words for the grid-wide amax and
 // then a zeroed ticket per column block, left zeroed.
 // a_dtype 0 (int8 A, epilogue 0-2, bias and scale as given) is vta_gemm.
 // a_dtype 1 or 2 (float32 or bfloat16 x, T = 1) is quantized_linear:
 // `scale` is w_scale; x_scale comes from `xs_given` (a device float) when
-// it is not null, else from the amax (route 2 in the GEMM's launch, routes
-// 0 and 1 in a launch before it, through `xs_buf` and `part`, which holds
+// it is not null, else from the amax (route 2 in the GEMM's launch, route
+// 1 in a launch before it, through `xs_buf` and `part`, which holds
 // amax_blocks + 1 zeroed words, left zeroed); `lo` is 1e-6 in x's dtype.
 extern "C" int vta_gemm_launch(const void* a, const void* w, const void* bias,
                                const void* scale, void* out, void* ws,
@@ -727,14 +402,11 @@ extern "C" int vta_gemm_launch(const void* a, const void* w, const void* bias,
   const bool vec = (K % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(a) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  if (a_dtype == A_INT8) {
-    if (route == 0)
-      return launch_tile<int8_t>(vec, a, W, B, S, nullptr, out, T, M, N, K,
-                                 epilogue, shift, st);
+  if (route != 1 && route != 2) return (int)cudaErrorInvalidValue;
+  if (a_dtype == A_INT8)
     return dispatch_skinny<0, int8_t>(vec, a, W, B, S, nullptr, out, WS, SY,
                                       SY + 4, T, M, N, K, epilogue, shift,
                                       splits, kslice, 0.f, st);
-  }
   const float* XG = static_cast<const float*>(xs_given);
   float* XB = static_cast<float*>(xs_buf);
   unsigned* P = static_cast<unsigned*>(part);

@@ -1,15 +1,18 @@
-"""ctypes binding of the CUDA vta_gemm kernels (``csrc/vta_gemm.cu``; the
-design note is at the top of that file).  :func:`gemm_plan` picks the
-instance and the split of K; it is plain Python, so the CPU tests reach it.
-Built at first call by :mod:`repro_torch.kernels._build`, never at
-import."""
+"""ctypes bindings of the CUDA vta_gemm kernels: the skinny instance
+(M <= 16) in ``csrc/vta_gemm.cu`` and the wgmma instance (M > 16) in
+``csrc/vta_wgmma.cu`` (the design notes are at the top of each).
+:func:`gemm_plan` picks the instance, its tile and the split of K; it is
+plain Python, so the CPU tests reach it.  Built at first call by
+:mod:`repro_torch.kernels._build`, never at import."""
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from .. import _build
 
@@ -19,7 +22,9 @@ OUT_DTYPES = {"none": torch.int32, "requant": torch.int8,
 #: quantized_linear's epilogue code and its activation dtypes' codes
 EPI_QLINEAR = 3
 X_DTYPES = {torch.float32: 1, torch.bfloat16: 2}
-ROUTES = {"tile": 0, "skinny": 1, "skinny_amax": 2}
+#: vta_gemm.cu's routes: the skinny instance, and for quantized_linear the
+#: skinny instance with the grid-wide amax in its own cooperative launch
+ROUTES = {"skinny": 1, "skinny_amax": 2}
 
 #: the most rows the skinny instance takes (the cut between the instances)
 SKINNY_MAX_M = 16
@@ -35,23 +40,76 @@ SKINNY_KMAX = 2048
 BLOCKS_PER_SM = 2
 AMAX_THREADS = 256
 
+#: the wgmma instance: K bytes a ring stage (one 128-byte swizzle row),
+#: and the (rows, channels) tiles it is built for; rows are 64 per consumer
+#: warpgroup
+WGMMA_KSTEP = 128
+WGMMA_TILES = ((128, 256), (128, 128), (128, 64), (64, 256), (64, 128),
+               (64, 64))
+#: the most K slices of a wgmma tile: the slices of one tile run as one
+#: thread block cluster (8 blocks, the portable cluster size)
+WGMMA_MAX_SPLITS = 8
+#: the share of the SMs a grid of output tiles must give a block for the
+#: plan to take that tile (else a smaller one), and the K steps a tile
+#: must have before its K is split (tools/vta_sweep.py on an H100: a
+#: split pays from 9 steps, with 2-5 steps a slice)
+WGMMA_FILL = 0.7
+WGMMA_SPLIT_STEPS = 8
+#: row alignment of the operands the wgmma instance reads by TMA (bytes)
+K_ALIGN = 16
+#: the quantize launch ahead of the wgmma instance: threads a block, and
+#: the most blocks an SM holds (its cooperative grid must be resident)
+QUANT_THREADS = 256
+QUANT_BLOCKS_PER_SM = 4
+
 
 @dataclass(frozen=True)
 class GemmPlan:
-    """route "tile" (64x64 blocks, the K loop in the block) or "skinny"
-    (M <= 16: 128 channels a block, K cut into `splits` slices of
-    `kslice` bytes, a multiple of SKINNY_KC)."""
+    """route "skinny" (M <= 16: 128 channels a block, K cut into `splits`
+    slices of `kslice` bytes, a multiple of SKINNY_KC) or "wgmma" (bm x bn
+    output tiles, K cut into `splits` slices of `kslice` bytes, a
+    multiple of WGMMA_KSTEP)."""
     route: str
     splits: int
     kslice: int
+    bm: int = 0
+    bn: int = SKINNY_BN
+
+
+def padded_k(K: int) -> int:
+    """K rounded up to K_ALIGN (at least K_ALIGN): the row length the
+    wgmma instance reads."""
+    return max(K_ALIGN, -(-K // K_ALIGN) * K_ALIGN)
+
+
+@functools.lru_cache(maxsize=4096)
+def _wgmma_plan(T: int, M: int, N: int, K: int, sms: int) -> GemmPlan:
+    steps = -(-padded_k(K) // WGMMA_KSTEP)
+    bm, bn = 64, 64
+    for tbm, tbn in sorted(WGMMA_TILES, key=lambda t: (-t[0] * t[1], -t[0])):
+        if T * -(-M // tbm) * -(-N // tbn) >= WGMMA_FILL * sms:
+            bm, bn = tbm, tbn
+            break
+    tiles = T * -(-M // bm) * -(-N // bn)
+    per = steps
+    if tiles < WGMMA_FILL * sms and steps >= WGMMA_SPLIT_STEPS:
+        per = max(2, -(-steps // WGMMA_MAX_SPLITS),
+                  -(-steps // max(1, sms // tiles)))
+    return GemmPlan("wgmma", -(-steps // per), per * WGMMA_KSTEP, bm, bn)
 
 
 def gemm_plan(T: int, M: int, N: int, K: int, sms: int = 132) -> GemmPlan:
-    """The tile instance above SKINNY_MAX_M rows; else the skinny one with
-    K split so that ceil(N / 128) * T column blocks come to about
-    BLOCKS_PER_SM blocks per SM, no slice longer than SKINNY_KMAX."""
+    """Above SKINNY_MAX_M rows the wgmma instance: the largest tile (128
+    rows before 64 on a tie) whose grid gives at least WGMMA_FILL of the
+    SMs a block, else 64 x 64; where even that grid leaves the card mostly
+    idle and K has WGMMA_SPLIT_STEPS steps or more, K split into up to
+    WGMMA_MAX_SPLITS slices of at least two steps, no more blocks than
+    SMs.  (tools/vta_sweep.py times every tile and split on
+    the card.)  At most SKINNY_MAX_M rows the skinny instance with K split
+    so that ceil(N / 128) * T column blocks come to about BLOCKS_PER_SM
+    blocks per SM, no slice longer than SKINNY_KMAX."""
     if M > SKINNY_MAX_M:
-        return GemmPlan("tile", 1, K)
+        return _wgmma_plan(T, M, N, K, sms)
     chunks = max(1, -(-K // SKINNY_KC))
     cols = -(-N // SKINNY_BN) * T
     least = -(-chunks // (SKINNY_KMAX // SKINNY_KC))
@@ -97,11 +155,45 @@ def _scratch(dev: torch.device, what: str, n: int) -> torch.Tensor:
     return buf
 
 
-def _launcher():
-    fn = _build.load("vta_gemm").vta_gemm_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 \
-        + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+def quant_blocks(M: int, Kp: int, sms: int = 132) -> int:
+    """Blocks of the quantize launch: 16 bytes of x_q a thread, at most
+    QUANT_BLOCKS_PER_SM a SM (launched cooperatively, all resident)."""
+    return max(1, min(QUANT_BLOCKS_PER_SM * sms,
+                      -(-M * Kp // (16 * QUANT_THREADS))))
+
+
+def k_operand(t: torch.Tensor, K: int) -> torch.Tensor:
+    """A contiguous int8 operand (..., K) as the wgmma instance reads it by
+    TMA: rows of padded_k(K) bytes, zero past K, at a 16-byte aligned base.
+    A copy only where K is not a multiple of 16 or the base is
+    misaligned; zero columns add nothing to an integer sum."""
+    Kp = padded_k(K)
+    if Kp != K:
+        return F.pad(t, (0, Kp - K))
+    if t.data_ptr() % K_ALIGN:
+        return t.clone()
+    return t
+
+
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGTYPES = {
+    "vta_gemm_launch": [_P] * 10 + [_I] * 11 + [_F, _P],
+    "vta_wgmma_launch": [_P] * 5 + [_I] * 10 + [_P],
+    "vta_wgmma_qlinear": [_P, _I] + [_P] * 7 + [_I] * 5 + [_F] + [_I] * 4
+    + [_P],
+}
+
+
+def _launcher(sym: str):
+    """The C entry `sym` of vta_gemm.cu or vta_wgmma.cu."""
+    fn = _FNS.get(sym)
+    if fn is None:
+        lib = "vta_gemm" if sym == "vta_gemm_launch" else "vta_wgmma"
+        fn = getattr(_build.load(lib), sym)
+        fn.argtypes = _ARGTYPES[sym]
+        fn.restype = ctypes.c_int
+        _FNS[sym] = fn
     return fn
 
 
@@ -109,24 +201,30 @@ def _sms(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _launch(a, w_nk, bias, scale, out, T, M, N, K, a_dtype, epilogue,
-            shift, route, plan, xs_given=None, lo=0.0, n_amax=0):
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return t.data_ptr() if t is not None else None
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _launch_skinny(a, w_nk, bias, scale, out, T, M, N, K, a_dtype,
+                   epilogue, shift, route, plan, xs_given=None, lo=0.0,
+                   n_amax=0):
     dev = a.device
-    ws = sync = part = xs_buf = None
-    if plan.route == "skinny":
-        sync = _scratch(dev, "sync", 4 + T * -(-N // SKINNY_BN))
-        if plan.splits > 1:
-            ws = _scratch(dev, "partials", T * M * N)
+    ws = part = xs_buf = None
+    sync = _scratch(dev, "sync", 4 + T * -(-N // SKINNY_BN))
+    if plan.splits > 1:
+        ws = _scratch(dev, "partials", T * M * N)
     if n_amax:
         part = _scratch(dev, "amax", n_amax + 1)
         xs_buf = torch.empty(1, dtype=torch.float32, device=dev)
-    ptr = (lambda t: t.data_ptr() if t is not None else None)  # noqa: E731
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _launcher()(a.data_ptr(), w_nk.data_ptr(), ptr(bias), ptr(scale),
-                      out.data_ptr(), ptr(ws), ptr(sync), ptr(xs_given),
-                      ptr(xs_buf), ptr(part), T, M, N, K, a_dtype, epilogue,
-                      int(shift), route, plan.splits, plan.kslice, n_amax,
-                      float(lo), stream)
+    err = _launcher("vta_gemm_launch")(
+        a.data_ptr(), w_nk.data_ptr(), _ptr(bias), _ptr(scale),
+        out.data_ptr(), _ptr(ws), _ptr(sync), _ptr(xs_given), _ptr(xs_buf),
+        _ptr(part), T, M, N, K, a_dtype, epilogue, int(shift), route,
+        plan.splits, plan.kslice, n_amax, float(lo), _stream(dev))
     _build.check(err, "vta_gemm")
 
 
@@ -139,10 +237,20 @@ def vta_gemm_cuda(a: torch.Tensor, w_nk: torch.Tensor,
     contiguous on one CUDA device.  Returns (T, M, N)."""
     T, M, K = a.shape
     N = w_nk.shape[1]
-    out = torch.empty((T, M, N), dtype=OUT_DTYPES[epilogue], device=a.device)
-    plan = gemm_plan(T, M, N, K, _sms(a.device))
-    _launch(a, w_nk, bias, scale, out, T, M, N, K, 0, EPILOGUES[epilogue],
-            shift, ROUTES[plan.route], plan)
+    dev = a.device
+    out = torch.empty((T, M, N), dtype=OUT_DTYPES[epilogue], device=dev)
+    plan = gemm_plan(T, M, N, K, _sms(dev))
+    if plan.route == "skinny":
+        _launch_skinny(a, w_nk, bias, scale, out, T, M, N, K, 0,
+                       EPILOGUES[epilogue], shift, ROUTES["skinny"], plan)
+        return out
+    a, w_nk = k_operand(a, K), k_operand(w_nk, K)
+    err = _launcher("vta_wgmma_launch")(
+        a.data_ptr(), w_nk.data_ptr(), _ptr(bias), _ptr(scale),
+        out.data_ptr(), T, M, N, padded_k(K), EPILOGUES[epilogue],
+        int(shift), plan.bm // 64, plan.bn, plan.splits,
+        plan.kslice // WGMMA_KSTEP, _stream(dev))
+    _build.check(err, "vta_gemm")
     return out
 
 
@@ -159,26 +267,43 @@ def clamp_floor(dtype: torch.dtype) -> float:
 def quantized_linear_cuda(x2: torch.Tensor, w_nk: torch.Tensor,
                           w_scale: torch.Tensor,
                           x_scale: Optional[torch.Tensor]) -> torch.Tensor:
-    """quantized_linear in one launch (at most 16 rows, the grid resident,
-    x_scale not given) or two (the amax in its own launch): x2 (M, K)
-    float32 or bfloat16, w_nk (N, K) int8, w_scale (N,) float32, all
-    contiguous on one CUDA device; x_scale None or a one-element float32
-    tensor there.  Returns (M, N) in x2's dtype."""
+    """quantized_linear on the card: x2 (M, K) float32 or bfloat16, w_nk
+    (N, K) int8, w_scale (N,) float32, all contiguous on one CUDA device;
+    x_scale None or a one-element float32 tensor there.  Up to 16 rows
+    the skinny instance quantizes x in shared memory: one launch (the
+    grid resident, x_scale not given) or two (the amax in its own
+    launch).  Above 16 rows two launches: x quantized once into an int8
+    x_q (M, padded_k(K)), then the wgmma instance on x_q.  Returns (M, N)
+    in x2's dtype."""
     M, K = x2.shape
     N = w_nk.shape[0]
     dev = x2.device
     sms = _sms(dev)
     plan = gemm_plan(1, M, N, K, sms)
-    if plan.route == "tile":
-        route = ROUTES["tile"]
-    elif x_scale is None and grid_resident(plan, 1, N, sms):
-        route = ROUTES["skinny_amax"]
-    else:
-        route = ROUTES["skinny"]
-    n_amax = 0 if x_scale is not None or route == ROUTES["skinny_amax"] \
-        else amax_blocks(M * K, sms)
     out = torch.empty((M, N), dtype=x2.dtype, device=dev)
-    _launch(x2, w_nk, None, w_scale, out, 1, M, N, K, X_DTYPES[x2.dtype],
-            EPI_QLINEAR, 0, route, plan, xs_given=x_scale,
-            lo=clamp_floor(x2.dtype), n_amax=n_amax)
+    lo = clamp_floor(x2.dtype)
+    if plan.route == "skinny":
+        route = ROUTES["skinny_amax"] if x_scale is None and grid_resident(
+            plan, 1, N, sms) else ROUTES["skinny"]
+        n_amax = 0 if x_scale is not None or route == ROUTES["skinny_amax"] \
+            else amax_blocks(M * K, sms)
+        _launch_skinny(x2, w_nk, None, w_scale, out, 1, M, N, K,
+                       X_DTYPES[x2.dtype], EPI_QLINEAR, 0, route, plan,
+                       xs_given=x_scale, lo=lo, n_amax=n_amax)
+        return out
+    Kp = padded_k(K)
+    if M * Kp >= 1 << 31:
+        raise ValueError(f"quantized_linear takes M * K below 2^31, got "
+                         f"{M} x {K}")
+    w_nk = k_operand(w_nk, K)
+    xq = torch.empty((M, Kp), dtype=torch.int8, device=dev)
+    xs_buf = torch.empty(1, dtype=torch.float32, device=dev) \
+        if x_scale is None else None
+    err = _launcher("vta_wgmma_qlinear")(
+        x2.data_ptr(), X_DTYPES[x2.dtype], w_nk.data_ptr(), w_scale.data_ptr(),
+        out.data_ptr(), xq.data_ptr(), _ptr(x_scale), _ptr(xs_buf),
+        _scratch(dev, "sync", 4).data_ptr(),
+        M, N, K, Kp, quant_blocks(M, Kp, sms), lo, plan.bm // 64, plan.bn,
+        plan.splits, plan.kslice // WGMMA_KSTEP, _stream(dev))
+    _build.check(err, "vta_gemm")
     return out

@@ -53,10 +53,12 @@ from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_ref
 from repro_torch.kernels.vta_gemm import (quantized_linear,
                                           quantized_linear_ref, vta_gemm,
                                           vta_gemm_ref)
-from repro_torch.kernels.vta_gemm.kernel import gemm_plan
+import repro_torch.kernels.vta_gemm.kernel as vta_kernel
+from repro_torch.kernels.vta_gemm.kernel import GemmPlan, gemm_plan
 from repro_torch.models.vta_decoder import DecoderConfig, QuantDecoder
-from torch_cases import (EPILOGUES, QLINEAR_CASES, SHAPES, SKINNY_SHAPES,
-                         alu_cases, gemm_inputs, qlinear_w, qlinear_x)
+from torch_cases import (ENGINE_SHAPES, EPILOGUES, QLINEAR_CASES, SHAPES,
+                         SKINNY_SHAPES, alu_cases, gemm_inputs, qlinear_w,
+                         qlinear_x)
 
 
 @pytest.fixture
@@ -133,6 +135,87 @@ def test_vta_gemm_skinny_tile_axis_matches_plain(cuda_dev):
     assert torch.equal(got, want)
 
 
+def _vta_operands(dev, T, M, N, K, seed):
+    rng = np.random.default_rng(seed)
+    a = torch.from_numpy(rng.integers(-128, 128, (T, M, K),
+                                      dtype=np.int8)).to(dev)
+    w_nk = torch.from_numpy(rng.integers(-128, 128, (T, N, K),
+                                         dtype=np.int8)).to(dev)
+    a[:, 0] = -128                          # the operands' extremes
+    w_nk[:, :, 0] = -128
+    bias = torch.from_numpy(rng.integers(-(1 << 30), 1 << 30, N,
+                                         dtype=np.int32)).to(dev)
+    scale = torch.from_numpy(rng.random(N, dtype=np.float32) * 1e-3) \
+        .to(dev)
+    return a, w_nk.transpose(1, 2), bias, scale
+
+
+def _vta_twice(a, w, bias, scale, epilogue, shift):
+    """Two calls, each bitwise equal to the plain version (so the split's
+    scratch sums and tickets are seen to be left zeroed)."""
+    want = vta_gemm_ref(a, w, bias, scale, epilogue=epilogue, shift=shift)
+    before = vta_gemm.launches
+    for _ in range(2):
+        got = vta_gemm(a, w, bias, scale, epilogue=epilogue, shift=shift)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+    assert vta_gemm.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("T,M,N,K,epilogue,shift", ENGINE_SHAPES)
+def test_vta_gemm_wgmma_engine_shapes_match_plain(cuda_dev, T, M, N, K,
+                                                  epilogue, shift,
+                                                  use_bias):
+    """Every shape the task-ISA engine launches above 16 rows, on the plan's
+    tile and split."""
+    assert gemm_plan(T, M, N, K).route == "wgmma"
+    a, w, bias, scale = _vta_operands(cuda_dev, T, M, N, K, M + N + K)
+    _vta_twice(a, w, bias if use_bias else None, scale, epilogue, shift)
+
+
+WGMMA_EPILOGUES = [("none", 0), ("requant", 0), ("requant", 9),
+                   ("requant", 31), ("requant", 40), ("dequant", 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_bias", [False, True], ids=["nobias", "bias"])
+@pytest.mark.parametrize("epilogue,shift", WGMMA_EPILOGUES)
+@pytest.mark.parametrize("slices", [1, 8], ids=["one_slice", "8_slices"])
+@pytest.mark.parametrize("bm,bn", vta_kernel.WGMMA_TILES)
+def test_vta_gemm_wgmma_every_tile_and_split(cuda_dev, monkeypatch, bm, bn,
+                                             slices, epilogue, shift,
+                                             use_bias):
+    """Each (rows, channels) tile of the instance, at one K slice and at
+    eight, on T 3 peer tiles ragged in M, N and K (K padded to 16 by the
+    wrapper), every epilogue, with and without bias."""
+    T, M, N, K = 3, 130, 203, 1000
+    steps = -(-vta_kernel.padded_k(K) // vta_kernel.WGMMA_KSTEP)
+    per = -(-steps // slices)
+    plan = GemmPlan("wgmma", -(-steps // per), per * vta_kernel.WGMMA_KSTEP,
+                    bm, bn)
+    monkeypatch.setattr(vta_kernel, "_wgmma_plan", lambda *_: plan)
+    a, w, bias, scale = _vta_operands(cuda_dev, T, M, N, K, bm + bn)
+    _vta_twice(a, w, bias if use_bias else None, scale, epilogue, shift)
+
+
+@pytest.mark.cuda
+def test_vta_gemm_wgmma_reads_misaligned_views(cuda_dev):
+    """Operands whose bases are not 16-byte aligned (views one byte into
+    their storage) are copied by the wrapper; K a multiple of 16."""
+    T, M, N, K = 2, 70, 96, 256
+    rng = np.random.default_rng(3)
+    sa = torch.from_numpy(rng.integers(-128, 128, T * M * K + 1,
+                                       dtype=np.int8)).to(cuda_dev)
+    sw = torch.from_numpy(rng.integers(-128, 128, T * N * K + 1,
+                                       dtype=np.int8)).to(cuda_dev)
+    a = sa[1:].view(T, M, K)
+    w = sw[1:].view(T, N, K).transpose(1, 2)
+    assert a.data_ptr() % 16 and w.data_ptr() % 16
+    _vta_twice(a, w, None, None, "requant", 9)
+
+
 QLINEAR_SHAPES = [(1, 1000, 203), (4, 3072, 1024), (4, 8192, 3072),
                   (4, 2048, 8384), (16, 3072, 3072), (17, 1000, 203),
                   (64, 2048, 520)]
@@ -183,6 +266,50 @@ def test_quantized_linear_given_scale_clips(cuda_dev, M, dtype):
     want = quantized_linear_ref(x, w_q, w_scale, xs)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("given", [False, True], ids=["amax", "x_scale"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("M", [17, 130, 512, 4096])
+def test_quantized_linear_wgmma_bitwise(cuda_dev, M, dtype, given):
+    """Above 16 rows: x quantized once into x_q, then the wgmma instance;
+    bitwise equal to the plain chain twice, at K and N not multiples of
+    16, with the amax or a given x_scale."""
+    K, N = 1000, 520
+    x = torch.from_numpy(qlinear_x(M, K, "outlier", M)).to(cuda_dev) \
+        .to(dtype)
+    xs = torch.tensor(0.03125, device=cuda_dev) if given else None
+    w_nk, sc = qlinear_w(K, N, M + 1)
+    w_q = torch.from_numpy(w_nk).to(cuda_dev).t()
+    w_scale = torch.from_numpy(sc).to(cuda_dev)
+    assert gemm_plan(1, M, N, K).route == "wgmma"
+    want = quantized_linear_ref(x, w_q, w_scale, xs)
+    for _ in range(2):
+        got = quantized_linear(x, w_q, w_scale, xs)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quantized_linear_wgmma_misaligned_x(cuda_dev, dtype):
+    """x a view one element into its storage (not 16-byte aligned): the
+    quantize launch reads it element by element."""
+    M, K, N = 40, 512, 136
+    rng = np.random.default_rng(6)
+    buf = torch.from_numpy(rng.normal(size=M * K + 1).astype(np.float32)) \
+        .to(cuda_dev).to(dtype)
+    x = buf[1:].view(M, K)
+    assert x.data_ptr() % 16
+    w_nk, sc = qlinear_w(K, N, 9)
+    w_q = torch.from_numpy(w_nk).to(cuda_dev).t()
+    w_scale = torch.from_numpy(sc).to(cuda_dev)
+    got = quantized_linear(x, w_q, w_scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, quantized_linear_ref(x, w_q, w_scale))
 
 
 @pytest.mark.cuda

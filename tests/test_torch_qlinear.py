@@ -14,6 +14,12 @@ against the plain versions and the JAX reference:
 * the skinny instance's split of K (kernel.py:gemm_plan): every K index
   in exactly one slice, and uint32-wrapped partials over the slices equal
   to vta_gemm_ref;
+* the wgmma instance above 16 rows: its tiles cover every output element
+  once, its K slices are whole 128-byte steps, its grid at the engine's
+  and the LM's shapes; the same split model over its slices; K zero-padded
+  to 16 bytes exactly; and quantized_linear's quantize-once chain (x_q
+  written once, then the int8 GEMM and the dequantization) byte-equal to
+  the reference's, jnp and Pallas in interpret mode;
 * decode_attention's split (kernel.py:decode_plan): every position below
   kv_len read exactly once, the grid filled at the LM step shape, and a
   split-and-merge model in the plan's order within attn tolerance of the
@@ -36,13 +42,19 @@ from repro_torch.kernels.decode_attention.kernel import (MIN_SPLIT,
 from repro_torch.kernels.vta_gemm import (quantize_activations,
                                           quantized_linear,
                                           quantized_linear_ref, vta_gemm_ref)
-from repro_torch.kernels.vta_gemm.kernel import (SKINNY_BN, SKINNY_KC,
-                                                 SKINNY_KMAX, SKINNY_MAX_M,
-                                                 amax_blocks, clamp_floor,
-                                                 gemm_plan, grid_resident,
-                                                 k_slices)
-from torch_cases import (QLINEAR_CASES, SKINNY_SHAPES, gemm_inputs,
-                         qlinear_w, qlinear_x)
+from repro_torch.kernels.vta_gemm.kernel import (K_ALIGN, SKINNY_BN,
+                                                 SKINNY_KC, SKINNY_KMAX,
+                                                 SKINNY_MAX_M, WGMMA_FILL,
+                                                 WGMMA_KSTEP,
+                                                 WGMMA_MAX_SPLITS,
+                                                 WGMMA_SPLIT_STEPS,
+                                                 WGMMA_TILES, amax_blocks,
+                                                 clamp_floor, gemm_plan,
+                                                 grid_resident, k_operand,
+                                                 k_slices, padded_k,
+                                                 quant_blocks)
+from torch_cases import (ENGINE_SHAPES, PREFILL_SHAPES, QLINEAR_CASES,
+                         SKINNY_SHAPES, gemm_inputs, qlinear_w, qlinear_x)
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16)}
@@ -196,7 +208,8 @@ def split_model(a, w, bias, scale, plan, epilogue, shift):
 def test_skinny_plan_partitions_k(M, N, K):
     plan = gemm_plan(1, M, N, K)
     if M > SKINNY_MAX_M:
-        assert plan.route == "tile"
+        assert plan.route == "wgmma"
+        assert_wgmma_slices(plan, K)
         return
     assert plan.route == "skinny"
     assert plan.kslice % SKINNY_KC == 0 and plan.kslice <= SKINNY_KMAX
@@ -217,29 +230,211 @@ def test_skinny_plan_partitions_k(M, N, K):
                                             ("dequant", 0)])
 @pytest.mark.parametrize("M,N,K", [(4, 200, 1000), (1, 203, 1000),
                                    (16, 136, 4100), (3, 8, 64),
-                                   (4, 130, 7000)])
+                                   (4, 130, 7000), (49, 64, 4608),
+                                   (28, 64, 2304), (17, 203, 1000),
+                                   (56, 72, 4100)])
 def test_skinny_split_model_equals_plain(M, N, K, epilogue, shift):
-    """At reduced N and K the plan splits K into many slices (down to one
-    64-byte step each); the wrapped partials add up to the plain GEMM,
-    with bias and every epilogue, also at the operands' extremes."""
+    """Both instances' splits of K: at reduced N and K the skinny plan
+    splits K into many slices (down to one 64-byte step each), and the
+    wgmma plan splits the engine's deep K into whole 128-byte steps
+    (over K zero-padded to 16 bytes); the wrapped partials add up to the
+    plain GEMM, with bias and every epilogue, also at the operands'
+    extremes."""
     a, w, bias, scale = (torch.from_numpy(x) for x in
                          gemm_inputs(M, K, N, seed=M + N + K))
     a[0] = -128
     w[:, 0] = -128
     plan = gemm_plan(1, M, N, K)
-    assert plan.splits == -(-K // SKINNY_KC)    # one 64-byte step a slice
+    ak, wk = a, w
+    if M <= SKINNY_MAX_M:
+        assert plan.splits == -(-K // SKINNY_KC)  # one 64-byte step a slice
+    else:
+        assert plan.route == "wgmma" and plan.splits > 1
+        assert_wgmma_slices(plan, K)
+        ak = k_operand(a, K)                      # what the kernel reads
+        wk = k_operand(w.t().contiguous(), K).t()
     for b in (None, bias):
-        got = split_model(a, w, b, scale, plan, epilogue, shift)
+        got = split_model(ak, wk, b, scale, plan, epilogue, shift)
         want = vta_gemm_ref(a, w, b, scale, epilogue=epilogue, shift=shift)
         assert torch.equal(got, want)
 
 
+# ----------------------------------------------------------------------
+# vta_gemm: the wgmma instance's plan (M > 16)
+# ----------------------------------------------------------------------
+def assert_wgmma_slices(plan, K):
+    """The plan's K slices partition [0, K) in whole 128-byte steps: each
+    starts on a step, all but the last are whole steps, none is empty."""
+    assert plan.kslice % WGMMA_KSTEP == 0
+    covered = np.zeros(K, np.int64)
+    for k0, k1 in k_slices(plan, K):
+        assert k0 % WGMMA_KSTEP == 0 and 0 <= k0 < k1
+        covered[k0:k1] += 1
+    assert (covered == 1).all()
+    steps = -(-padded_k(K) // WGMMA_KSTEP)
+    assert plan.splits == -(-steps // (plan.kslice // WGMMA_KSTEP))
+
+
+#: row tiles in a group of the wgmma grid's raster (vta_wgmma.cu GROUP_M)
+GROUP_M = 8
+
+
+def grid_blocks(plan, T, M, N):
+    """The (t, rows, columns) each block of the kernel's grid stores, in
+    the kernel's index arithmetic (vta_wgmma.cu: grid (ceil(M / bm) *
+    ceil(N / bn), 1, T * splits), block x rastered in groups of GROUP_M
+    row tiles), once per tile (its other slices add to the same one)."""
+    tiles_m, tiles_n = -(-M // plan.bm), -(-N // plan.bn)
+    tiles = []
+    for z in range(0, T * plan.splits, plan.splits):
+        for x in range(tiles_m * tiles_n):
+            group = x // (GROUP_M * tiles_n)
+            gsize = min(GROUP_M, tiles_m - group * GROUP_M)
+            in_group = x - group * GROUP_M * tiles_n
+            m0 = (group * GROUP_M + in_group % gsize) * plan.bm
+            n0 = (in_group // gsize) * plan.bn
+            tiles.append((z // plan.splits, m0, min(M, m0 + plan.bm), n0,
+                          min(N, n0 + plan.bn)))
+    return tiles
+
+
+WGMMA_PLAN_SHAPES = [(T, M, N, K) for T, M, N, K, _, _ in ENGINE_SHAPES] + [
+    (1, M, N, K) for M, N, K in PREFILL_SHAPES] + [
+    (3, 130, 203, 1000), (1, 17, 1, 5), (1, 65, 257, 129), (2, 300, 64, 4608)]
+
+
+@pytest.mark.parametrize("T,M,N,K", WGMMA_PLAN_SHAPES)
+def test_wgmma_plan_covers_every_output_once(T, M, N, K):
+    """Above 16 rows the plan takes the wgmma instance, a tile it is built
+    for, K slices of whole 128-byte steps, and a grid whose tiles store
+    every output element once; at the engine's shapes and at 512 prefill
+    rows the grid is at most one round of resident blocks."""
+    sms = 132
+    plan = gemm_plan(T, M, N, K, sms)
+    assert plan.route == "wgmma" and (plan.bm, plan.bn) in WGMMA_TILES
+    assert_wgmma_slices(plan, K)
+    seen = np.zeros((T, M, N), np.int64)
+    for t, m0, m1, n0, n1 in grid_blocks(plan, T, M, N):
+        assert m0 < m1 and n0 < n1      # no block past the edge
+        seen[t, m0:m1, n0:n1] += 1
+    assert (seen == 1).all()
+    blocks = T * -(-M // plan.bm) * -(-N // plan.bn) * plan.splits
+    if M <= 512:
+        assert blocks <= sms, plan
+
+
+def test_wgmma_plan_fills_the_card():
+    """The grid is about one wave or more where the output allows it:
+    every LM prefill shape takes the largest tile whose grid gives 70% of
+    the SMs a block (zamba2's 512-row in_proj: 4 x 33 = 132 tiles of
+    128 x 256); the engine's small tiles are 64 x 64, and from 8 K steps
+    on their K is split into one cluster of up to 8 slices of at least
+    two steps (T2 M49 N64 K4608: 8 slices of 5 steps); a one-step K is
+    never split."""
+    sms = 132
+    p = gemm_plan(1, 512, 8384, 2048, sms)
+    assert (p.bm, p.bn, p.splits) == (128, 256, 1)
+    assert -(-512 // 128) * -(-8384 // 256) == sms
+    for M, N, K in PREFILL_SHAPES:
+        p = gemm_plan(1, M, N, K, sms)
+        blocks = -(-M // p.bm) * -(-N // p.bn)
+        assert p.splits == 1 and blocks >= WGMMA_FILL * sms, (M, N, K, p)
+        larger = [t for t in WGMMA_TILES if t[0] * t[1] > p.bm * p.bn]
+        assert all(-(-M // bm) * -(-N // bn) < WGMMA_FILL * sms
+                   for bm, bn in larger)
+    assert gemm_plan(1, 4096, 8192, 3072).bn == 256
+    p = gemm_plan(2, 49, 64, 4608, sms)
+    assert (p.bm, p.bn, p.splits, p.kslice) == (64, 64, 8, 5 * WGMMA_KSTEP)
+    for T, M, N, K, _, _ in ENGINE_SHAPES:
+        p = gemm_plan(T, M, N, K, sms)
+        steps = -(-padded_k(K) // WGMMA_KSTEP)
+        assert (p.bm, p.bn) == (64, 64)
+        assert (p.splits > 1) == (steps >= WGMMA_SPLIT_STEPS)
+        assert p.splits <= WGMMA_MAX_SPLITS and p.kslice >= min(
+            steps, 2) * WGMMA_KSTEP
+        assert T * -(-M // 64) * -(-N // 64) * p.splits <= sms
+    assert quant_blocks(17, 1008) == 5 and quant_blocks(4096, 8192) == 528
+
+
+@pytest.mark.parametrize("K", [5, 70, 200, 1000])
+def test_zero_padding_k_is_exact(K):
+    """K padded with zero columns to a multiple of 16 (what TMA reads)
+    leaves every integer sum, the amax and the quantized values as they
+    were; a K that is already a multiple of 16 at an aligned base is not
+    copied."""
+    M, N = 37, 50
+    a, w, bias, scale = (torch.from_numpy(x) for x in
+                         gemm_inputs(M, K, N, seed=K))
+    ak = k_operand(a, K)
+    wk = k_operand(w.t().contiguous(), K)
+    assert ak.shape == (M, padded_k(K)) and padded_k(K) % K_ALIGN == 0
+    assert not ak[:, K:].any() and not wk[:, K:].any()
+    for epi, shift in (("none", 0), ("requant", 9), ("dequant", 0)):
+        assert torch.equal(
+            vta_gemm_ref(ak, wk.t(), bias, scale, epilogue=epi, shift=shift),
+            vta_gemm_ref(a, w, bias, scale, epilogue=epi, shift=shift))
+    x = torch.from_numpy(qlinear_x(M, K, "normal", K))
+    xp = torch.nn.functional.pad(x, (0, padded_k(K) - K))
+    q, s = prologue_model(x)
+    qp, sp = prologue_model(xp)
+    assert torch.equal(sp, s) and torch.equal(qp[:, :K], q)
+    assert not qp[:, K:].any()
+    x16 = torch.zeros(4, 32, dtype=torch.int8)
+    assert k_operand(x16, 32) is x16
+
+
+def quantize_once_model(x2, w_q, w_scale, x_scale=None):
+    """quantized_linear above 16 rows, step by step as the kernels run it:
+    the quantize launch writes x_q (M, padded_k(K)) once, zero past K;
+    the wgmma instance sums x_q against the zero-padded weights over the
+    plan's K slices (uint32-wrapped partials); the QLINEAR epilogue
+    scales each int32 sum, in x's dtype.  Returns (y, x_q)."""
+    M, K = x2.shape
+    N = w_q.shape[1]
+    x_q, xs = prologue_model(x2, x_scale)
+    xq = k_operand(x_q, K)
+    wk = k_operand(w_q.t().contiguous(), K).t()
+    plan = gemm_plan(1, M, N, K)
+    assert plan.route == "wgmma"
+    acc = split_model(xq, wk, None, None, plan, "none", 0)
+    s = w_scale.to(torch.float32) * xs
+    return (acc.to(torch.float32) * s).to(x2.dtype), x_q
+
+
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["jnp", "pallas"])
+@pytest.mark.parametrize("case", QLINEAR_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M", [17, 130, 512])
+def test_quantize_once_chain_bytes_equal_reference(monkeypatch, M, dtype,
+                                                   case, use_pallas):
+    """x_q as the quantize launch writes it equals the int8 operand the
+    reference's quantized_linear hands its GEMM, and y equals the
+    reference's bytes (and the port's CPU route's), at K and N not
+    multiples of 16."""
+    tdt, jdt = DTYPES[dtype]
+    K, N = 200, 72
+    x = torch.from_numpy(qlinear_x(M, K, case, M + 3)).to(tdt)
+    w_nk, sc = qlinear_w(K, N, M)
+    w_q = torch.from_numpy(w_nk).t()
+    w_scale = torch.from_numpy(sc)
+    y, x_q = quantize_once_model(x, w_q, w_scale)
+    r_seen = _spy(monkeypatch, r_vta_ops)
+    want = r_vta_ops.quantized_linear(
+        jnp.asarray(x.float().numpy(), jdt), jnp.asarray(w_nk.T),
+        jnp.asarray(sc), use_pallas=use_pallas)
+    np.testing.assert_array_equal(x_q.numpy(), r_seen[0])
+    np.testing.assert_array_equal(
+        y.float().numpy(), np.asarray(want.astype(jnp.float32)))
+    assert torch.equal(y, quantized_linear(x, w_q, w_scale))
+
+
 def test_plan_routes_and_amax_blocks():
-    assert gemm_plan(1, 17, 64, 64).route == "tile"
-    assert gemm_plan(2, 112, 64, 576).route == "tile"
-    # the task-ISA engine's rows stay on the tile instance
+    assert gemm_plan(1, 17, 64, 64).route == "wgmma"
+    assert gemm_plan(2, 112, 64, 576).route == "wgmma"
+    assert gemm_plan(1, 16, 64, 64).route == "skinny"
+    # the plan is a function of the shape and the card's SMs only
     assert gemm_plan(1, 112, 128, 1152) == gemm_plan(1, 112, 128, 1152,
-                                                     sms=66)
+                                                     sms=132)
     # a tile axis multiplies the column blocks; only T = 1 shares an amax
     p1, p3 = gemm_plan(1, 4, 3000, 1152), gemm_plan(8, 4, 3000, 1152)
     assert p3.splits < p1.splits

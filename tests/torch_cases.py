@@ -97,3 +97,26 @@ def qlinear_w(K, N, seed):
     w_nk = rng.integers(-128, 128, size=(N, K), dtype=np.int8)
     scale = (rng.random(N) * 1e-2 + 1e-4).astype(np.float32)
     return w_nk, scale
+
+
+#: (T, M, N, K, epilogue, shift) of every vta_gemm launch above 16 rows the
+#: task-ISA engine makes on ResNet-18's layers C2-C12, the layer2.0 block
+#: and the C2 chain at full width (chip_smoke.py phase 2)
+ENGINE_SHAPES = [
+    (2, 112, 64, 576, "none", 0), (2, 256, 64, 64, "requant", 6),
+    (1, 64, 64, 64, "requant", 6), (1, 112, 128, 576, "none", 0),
+    (1, 112, 128, 64, "requant", 6), (2, 112, 128, 1152, "none", 0),
+    (1, 112, 128, 1152, "none", 0), (2, 28, 128, 1152, "none", 0),
+    (1, 112, 256, 128, "requant", 6), (1, 56, 256, 128, "requant", 6),
+    (1, 28, 256, 128, "requant", 6), (2, 56, 64, 2304, "none", 0),
+    (2, 28, 64, 2304, "none", 0), (2, 49, 128, 2304, "none", 0),
+    (1, 28, 512, 256, "requant", 6), (1, 21, 512, 256, "requant", 6),
+    (2, 49, 64, 4608, "none", 0), (2, 112, 64, 1152, "none", 0),
+    (2, 256, 64, 64, "none", 0), (1, 64, 64, 64, "none", 0)]
+#: (M, N, K) of the LM prefill linears above 16 rows: zamba2-1.2b's
+#: 512-token prompt (in_proj, out_proj, attention, gate/up, down) and
+#: Llama-3.2-3B's at 512 and 4096 tokens (q/o, k/v, gate/up, down)
+PREFILL_SHAPES = [(512, 8384, 2048), (512, 2048, 4096), (512, 2048, 2048),
+                  (512, 8192, 2048), (512, 2048, 8192)] + [
+    (m, n, k) for m in (512, 4096) for n, k in (
+        (3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192))]

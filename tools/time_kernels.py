@@ -10,8 +10,10 @@ builds its CUDA kernels, and times each op at the shapes ``chip_smoke.py``
 phases 1 and 7 time (the int4 decoder's lut_gemm launches, Llama-3.2-3B's
 lut_gemm at M 1 and 16 for bits 1, 2 and 4, flash_attention at the Llama
 and zamba2 prefill shapes; vta_gemm at the task-ISA engine's T1 M112 N128
-K1152 and at the LM decode and prefill linears; quantized_linear, the
-whole call from float activations, at the LM decode linears;
+K1152 and its deep-K T2 tiles, at the LM decode linears, at zamba2-1.2b's
+512-token prefill linears and Llama-3.2-3B's at 512 and 4096 tokens;
+quantized_linear, the whole call from float activations, at the LM
+decode linears and the same prefill linears;
 decode_attention at the decoder's and the LM steps' shapes, at kv_len S
 and at the served 32; gla_chunk at zamba2-1.2b's served 16- and
 512-token prefills and at S 4096 and 32768 (q and k broadcast over 64
@@ -40,6 +42,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
+#: (N, K) of zamba2-1.2b's quantized linears (in_proj, out_proj, the
+#: shared block's attention, gate/up, down) and Llama-3.2-3B's (q/o, k/v,
+#: gate/up, down)
+ZAMBA2_PREFILL = [(8384, 2048), (2048, 4096), (2048, 2048), (8192, 2048),
+                  (2048, 8192)]
+LLAMA_PREFILL = [(3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192)]
 #: (T, M, N, K, bits, epilogue, shift): the decoder's launches, then Llama
 LUT_SHAPES = [(1, 2, 192, 64, 4, "requant", 7),
               (1, 2, 64, 64, 4, "requant", 7),
@@ -57,17 +65,26 @@ FLASH_SHAPES = [(1, 16, 24, 8, 128, "bfloat16"),
                 (1, 16, 32, 32, 64, "float32"),
                 (1, 4096, 24, 8, 128, "bfloat16"),
                 (1, 4096, 24, 8, 128, "float32")]
-#: (T, M, N, K, epilogue): the task-ISA engine's row, then the LM linears
-#: (Llama-3.2-3B decode at M 4 and prefill at M 16, zamba2-1.2b decode)
-VTA_SHAPES = [(1, 112, 128, 1152, "none")] + [
+#: (T, M, N, K, epilogue): the task-ISA engine's rows (T1 M112 N128 K1152,
+#: its deep-K T2 tiles and three one-step tiles), then the LM linears (Llama-3.2-3B decode at M
+#: 4 and prefill at M 16, zamba2-1.2b decode), zamba2-1.2b's five 512-token
+#: prefill linears, and Llama-3.2-3B's prefill linears at 512 and 4096
+#: tokens
+VTA_SHAPES = [(1, 112, 128, 1152, "none"), (2, 49, 64, 4608, "none"),
+              (2, 56, 64, 2304, "none"), (1, 64, 64, 64, "none"),
+              (2, 256, 64, 64, "none"), (1, 112, 256, 128, "none")] + [
     (1, m, n, k, "dequant") for m, n, k in (
         (4, 3072, 3072), (4, 1024, 3072), (4, 8192, 3072), (4, 3072, 8192),
-        (16, 3072, 8192), (4, 8384, 2048), (4, 2048, 4096),
-        (512, 8384, 2048))]
-#: (M, N, K, x dtype): the LM decode steps' quantized linears
+        (16, 3072, 8192), (4, 8384, 2048), (4, 2048, 4096))] + [
+    (1, 512, n, k, "dequant") for n, k in ZAMBA2_PREFILL] + [
+    (1, m, n, k, "dequant") for m in (512, 4096) for n, k in LLAMA_PREFILL]
+#: (M, N, K, x dtype): the LM decode steps' quantized linears, then the
+#: same prefill linears as VTA_SHAPES in bf16
 QLINEAR_SHAPES = [(4, 3072, 8192, "bfloat16"), (4, 8192, 3072, "bfloat16"),
                   (4, 1024, 3072, "bfloat16"), (4, 8384, 2048, "bfloat16"),
-                  (4, 3072, 8192, "float32"), (512, 8384, 2048, "bfloat16")]
+                  (4, 3072, 8192, "float32")] + [
+    (512, n, k, "bfloat16") for n, k in ZAMBA2_PREFILL] + [
+    (m, n, k, "bfloat16") for m in (512, 4096) for n, k in LLAMA_PREFILL]
 #: (B, S, H, N, P, chunk, q/k dtype, heads broadcast): zamba2-1.2b's
 #: served prefills (16 and 512 tokens), its long prefills, xlstm-1.3b's
 GLA_SHAPES = [(1, 16, 64, 64, 64, 16, "float32", True),
