@@ -20,9 +20,12 @@ Phases, in the order they run:
      shortcut, host residual add with relu), the C2 heterogeneous chain
      (cpu_only 112x112x3 -> 64 stem, C2 body, 64-channel 1x1), and one
      2^16-element vector ALU op.  Every output is held byte-equal to the
-     port's numpy conv2d_reference, with zero eager GEMMs.  After it, the
-     cost of the exact weight-content keys and a torch.profiler view of
-     one request;
+     port's numpy conv2d_reference, with zero eager GEMMs, and no request
+     after a program's first builds or uploads a block map of the
+     scatter instance.  After it, the cost of the exact weight-content
+     keys and a torch.profiler view of one C9 request (device idle share,
+     launch and copy API calls, device operations, tensor_alu launches
+     by instance);
   5. the second main path, with the counts set to 0 just before it and
      read just after: the quantized decoder (serve_lm.py's defaults:
      d_model 64, 2 blocks, 2 heads, d_ff 128, vocab 32, s_max 96) on
@@ -38,10 +41,13 @@ Phases, in the order they run:
      loss is typed, survivors are byte-equal to serial runs); VtaLinear at
      bits 4 and 2 and a 1-bit Program, cuda against simulator; the device
      idle share of one profiled int4 decode step;
-  1. vta_gemm and tensor_alu against their plain PyTorch versions, on the
-     card, at every shape the first main path launched plus ragged shapes
-     and every epilogue, with CUDA-event times beside the least time the
-     card could take; and at every shape phases 5 and 6 launched (the
+  1. vta_gemm and tensor_alu (both instances: the standalone chain, and
+     the scatter of a tile batch's GEMM blocks with the epilogue, byte
+     for byte with the block map each launch used) against their plain
+     PyTorch versions, on the card, at every shape the first main path
+     launched plus ragged shapes and every epilogue, with CUDA-event
+     times beside the least time the card could take; and at every shape
+     phases 5 and 6 launched (the
      int8 decoder's 1-2 row GEMMs, the decoders' epilogues), checked but
      not timed; vta_gemm's skinny instance (M <= 16) at M 1, 3, 16 and 17
      with K and N ragged; its wgmma instance (M > 16) at T 3 with M, N
@@ -84,9 +90,12 @@ Phases, in the order they run:
      flash_attention is checked and timed in phase 7 at those shapes and
      at Llama-3.2-3B's prefill (S 4096 float32 and bfloat16, S 32768
      bfloat16 against the chunked plain version; bfloat16 runs the wgmma
-     kernel, float32 the FMA one, each timed under its own kernel name
+     kernel, float32 the 3xTF32 one, each timed under its own kernel name
      beside scaled_dot_product_attention), a non-causal ragged
-     shape and a causal one with Sk > S; decode_attention also at
+     shape and a causal one with Sk > S; every flash case is also held to
+     float64 attention on its own inputs, within FLASH_ORACLE_MULT x
+     SDPA's error there (the plain version's where SDPA computes another
+     function); decode_attention also at
      starcoder2-7b's G = 9 and with a bfloat16 query over float32 caches;
   9. the fourth main path, the hybrid serve path: zamba2-1.2b at full
      width (src/repro_torch/configs/zamba2.py: 38 Mamba2 layers and a
@@ -245,21 +254,31 @@ def layer_epilogue(shape, spec, rng):
 
 
 def serve(compiled, make_inputs, reference, n_requests=3):
-    """Serve n requests; hold each output byte-equal to its reference.
-    Returns (wall ms per request, launches per request per kernel)."""
+    """Serve n requests; hold each output byte-equal to its reference, and
+    the block maps of the scatter instance to the first request (a later
+    request that builds or uploads one fails).  Returns (wall ms per
+    request, launches per request of vta_gemm, of tensor_alu's standalone
+    instance and of its scatter instance)."""
     import numpy as np
-    from repro_torch.core.backend import assert_fast_path
-    from repro_torch.kernels.tensor_alu import tensor_alu
+    from repro_torch.core.backend import assert_fast_path, block_map_info
+    from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_scatter
     from repro_torch.kernels.vta_gemm import vta_gemm
-    walls, g_l, a_l = [], [], []
+    walls, g_l, a_l, s_l = [], [], [], []
     for r in range(n_requests):
         inputs = make_inputs(r)
         g0, a0 = vta_gemm.launches, tensor_alu.launches
+        s0, maps0 = tensor_alu_scatter.launches, block_map_info()
         t0 = time.perf_counter()
         out = compiled(**inputs)      # returns host numpy: device done
         walls.append((time.perf_counter() - t0) * 1e3)
         g_l.append(vta_gemm.launches - g0)
         a_l.append(tensor_alu.launches - a0)
+        s_l.append(tensor_alu_scatter.launches - s0)
+        maps = block_map_info()
+        if r > 0 and (maps["builds"], maps["uploads"]) != (
+                maps0["builds"], maps0["uploads"]):
+            fail(f"request {r} built or uploaded a block map: {maps0} -> "
+                 f"{maps}")
         want = reference(inputs)
         if out.dtype != want.dtype or out.shape != want.shape \
                 or not np.array_equal(out, want):
@@ -268,7 +287,7 @@ def serve(compiled, make_inputs, reference, n_requests=3):
         assert_fast_path(compiled.last_stats)
         if any(s.backend != "cuda" for s in compiled.last_stats):
             fail("a segment did not run on the cuda engine")
-    return walls, g_l, a_l
+    return walls, g_l, a_l, s_l
 
 
 def phase_layers(rec):
@@ -296,14 +315,15 @@ def phase_layers(rec):
             g = np.random.default_rng(r + 17 * s.h + s.ic)
             return {"x": g.integers(-64, 64, size=(s.n, s.ic, s.h, s.w),
                                     dtype=np.int8)}
-        walls, g_l, a_l = serve(
+        walls, g_l, a_l, s_l = serve(
             c, make, lambda inp, w=w, s=s, ep=ep: conv2d_reference(
                 inp["x"], w, s, epilogue=ep))
         st = c.last_stats[0]
         row = dict(layer=layer.name, shape=str(s), lowering=c.nodes[2].lowering,
                    insns=c.insn_count, compile_ms=compile_ms,
                    request_ms=walls, vta_gemm_launches=g_l,
-                   tensor_alu_launches=a_l, tile_batches=st.tile_batches,
+                   tensor_alu_launches=a_l, tensor_alu_scatter_launches=s_l,
+                   tile_batches=st.tile_batches,
                    tiles_resolved=st.tiles_resolved,
                    coalesced_gemm_insns=st.coalesced_gemm_insns)
         rec["layers"].append(row)
@@ -311,7 +331,7 @@ def phase_layers(rec):
             f"insns  compile {compile_ms:7.1f} ms  requests "
             + " ".join(f"{x:7.2f}" for x in walls)
             + f" ms  launches/request vta_gemm {g_l[-1]} tensor_alu "
-            f"{a_l[-1]}")
+            f"{a_l[-1]} scatter {s_l[-1]}")
 
 
 def residual_relu(a, b):
@@ -357,17 +377,19 @@ def phase_block(rec):
                              w6, c6, epilogue=ep6)
         return residual_relu(a, conv2d_reference(inp["x"], w5, c5,
                                                  epilogue=ep5))
-    walls, g_l, a_l = serve(c, lambda r: {"x": np.random.default_rng(
+    walls, g_l, a_l, s_l = serve(c, lambda r: {"x": np.random.default_rng(
         500 + r).integers(-64, 64, size=(1, 64, 56, 56), dtype=np.int8)},
         ref)
     rec["block"] = dict(describe=c.describe(), compile_ms=compile_ms,
                         request_ms=walls, vta_gemm_launches=g_l,
-                        tensor_alu_launches=a_l, insns=c.insn_count,
+                        tensor_alu_launches=a_l,
+                        tensor_alu_scatter_launches=s_l, insns=c.insn_count,
                         fences=c.n_fences)
     log(f"  layer2.0 block: {c.describe()}")
     log(f"    compile {compile_ms:.1f} ms; requests "
         + " ".join(f"{x:.2f}" for x in walls)
-        + f" ms; launches/request vta_gemm {g_l[-1]} tensor_alu {a_l[-1]}")
+        + f" ms; launches/request vta_gemm {g_l[-1]} tensor_alu {a_l[-1]} "
+        f"scatter {s_l[-1]}")
 
 
 def phase_chain(rec):
@@ -403,16 +425,18 @@ def phase_chain(rec):
         r = conv2d_reference(inp["x"], k1, stem, epilogue=ep)
         r = conv2d_reference(r, k2, body, epilogue=ep)
         return conv2d_reference(r, k3, point, epilogue=ep)
-    walls, g_l, a_l = serve(c, lambda r: {"x": np.random.default_rng(
+    walls, g_l, a_l, s_l = serve(c, lambda r: {"x": np.random.default_rng(
         900 + r).integers(-64, 64, size=(1, 3, 112, 112), dtype=np.int8)},
         ref)
     rec["chain"] = dict(describe=c.describe(), compile_ms=compile_ms,
                         request_ms=walls, vta_gemm_launches=g_l,
-                        tensor_alu_launches=a_l)
+                        tensor_alu_launches=a_l,
+                        tensor_alu_scatter_launches=s_l)
     log(f"  C2 chain: {c.describe()}")
     log(f"    compile {compile_ms:.1f} ms; requests "
         + " ".join(f"{x:.2f}" for x in walls)
-        + f" ms; launches/request vta_gemm {g_l[-1]} tensor_alu {a_l[-1]}")
+        + f" ms; launches/request vta_gemm {g_l[-1]} tensor_alu {a_l[-1]} "
+        f"scatter {s_l[-1]}")
 
 
 def phase_vector(rec):
@@ -481,12 +505,21 @@ def content_key_cost(rec):
     rec["content_keys"] = out
 
 
+#: host API calls counted in a profiled request (the runtime's kernel
+#: launches, plain and with attributes such as a cluster shape, and its
+#: async copies)
+API_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaMemcpyAsync")
+
+
 def request_profile(rec, name="C9"):
     """Where one full-width request's time goes: torch.profiler over one
     request of layer `name` (after a warm one).  Device busy time is the
     sum of the CUDA kernels' and copies' device time; the rest of the
-    profiled wall time the card sat idle.  The profiler's own cost
-    inflates the wall time; the unprofiled request time is recorded too."""
+    profiled wall time the card sat idle.  Also counted in the profiled
+    request: the host's launch and copy API calls, the device operations,
+    and each tensor_alu instance's launches (a tree without the scatter
+    instance counts none of it).  The profiler's own cost inflates the
+    wall time; the unprofiled request time is recorded too."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -494,6 +527,10 @@ def request_profile(rec, name="C9"):
     from repro_torch.core import hwspec
     from repro_torch.core.program import Program
     from repro_torch.core.workloads import layer_by_name
+    from repro_torch.kernels.tensor_alu import ops as alu_ops
+    instances = {k: getattr(alu_ops, k) for k in ("tensor_alu",
+                                                  "tensor_alu_scatter")
+                 if hasattr(alu_ops, k)}
     spec = hwspec.pynq()
     s = layer_by_name(name).shape
     rng = np.random.default_rng(9)
@@ -507,25 +544,35 @@ def request_profile(rec, name="C9"):
     t0 = time.perf_counter()
     c(x=x)
     plain_ms = (time.perf_counter() - t0) * 1e3
+    n0 = {k: op.launches for k, op in instances.items()}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         c(x=x)
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA) / 1e3
-    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    launches = {k: op.launches - n0[k] for k, op in instances.items()}
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    avgs = prof.key_averages()
+    calls = {k: sum(e.count for e in avgs if e.key == k) for k in API_CALLS}
+    ops = sorted(avgs, key=lambda e: -e.self_cpu_time_total)
     top = [dict(op=e.key, calls=e.count,
                 self_cpu_ms=e.self_cpu_time_total / 1e3) for e in ops[:12]]
     rec["profile"] = dict(layer=name, request_ms=plain_ms,
                           profiled_ms=wall_ms, device_busy_ms=dev_ms,
-                          idle_share=1 - dev_ms / wall_ms, top_cpu_ops=top)
+                          idle_share=1 - dev_ms / wall_ms, top_cpu_ops=top,
+                          api_calls=calls, device_ops=len(dev),
+                          tensor_alu_launches=launches)
     log(f"  profile {name}: request {plain_ms:.2f} ms ({wall_ms:.2f} ms "
         f"profiled); device busy {dev_ms:.3f} ms -> idle share "
-        f"{1 - dev_ms / wall_ms:.4f}")
+        f"{1 - dev_ms / wall_ms:.4f}; {len(dev)} device operations; "
+        + ", ".join(f"{k} {n}" for k, n in calls.items())
+        + "; tensor_alu launches " + ", ".join(
+            f"{k} {n}" for k, n in launches.items()))
     for t in top[:6]:
         log(f"    {t['op']}: {t['calls']} calls, {t['self_cpu_ms']:.2f} ms "
             f"self CPU")
+    return rec["profile"]
 
 
 # ----------------------------------------------------------------------
@@ -869,6 +916,96 @@ def phase_alu_kernel(rec, main_shapes):
             f"ms by {by}; plain {plain:.4f} ms; library "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}) x{launches}")
     rec["tensor_alu_shapes"] = rows
+    return rows, max_err
+
+
+def scatter_bound_ms(key, bmap):
+    """The scatter instance's least time at one launch's shape: each GEMM
+    output read once, the tensor operand read once, the tiles written
+    once and the map read once, at the memory rate; or the adds (one per
+    source element) and the chain's steps at the int32 rate."""
+    T, R, C, _, _, dt, has_bias, chain = key
+    elt = 1 if dt == "int8" else 4
+    nbytes = T * sum(r * w for r, w in zip(bmap.rows, bmap.widths)) * elt \
+        + T * R * C * 4 * (1 + has_bias) \
+        + 4 * (bmap.row_ptr.size + bmap.ent.size)
+    ops = T * (bmap.nnz * bmap.batch * bmap.block_out + R * C * len(chain))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / INT32_ALU_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def scatter_inputs(key, bmap, dev, seed):
+    """Random GEMM outputs of the map's shapes (int32 over the full
+    range, so sums wrap, or int8) and tensor operands whose first values
+    are the shr edge amounts."""
+    import numpy as np
+    import torch
+    T, R, C, _, _, dt, has_bias, _ = key
+    rng = np.random.default_rng(seed)
+    i32 = np.iinfo(np.int32)
+
+    def mat(rows, width):
+        if dt == "int8":
+            x = rng.integers(-128, 128, (rows, width), dtype=np.int8)
+        else:
+            x = rng.integers(i32.min, i32.max, (rows, width),
+                             dtype=np.int64).astype(np.int32)
+        return torch.from_numpy(x).to(dev)
+    mats = [[mat(r, w) for r, w in zip(bmap.rows, bmap.widths)]
+            for _ in range(T)]
+    bias = None
+    if has_bias:
+        b = rng.integers(-40, 40, (T, R, C), dtype=np.int32)
+        edges = np.array([-3, 0, 31, 33, i32.min, 40], np.int32)
+        b.reshape(T, -1)[:, :edges.size] = edges[:min(edges.size, R * C)]
+        bias = list(torch.from_numpy(b).to(dev))
+    return mats, bias
+
+
+def phase_scatter_kernel(rec, main_shapes):
+    """tensor_alu's scatter instance against its plain version, byte for
+    byte, at every shape a main path launched (with the block map that
+    launch used): timed where the ResNet path launched it (count > 0),
+    checked only where another path did."""
+    import torch
+    from repro_torch.kernels.tensor_alu import (tensor_alu_scatter,
+                                                tensor_alu_scatter_ref)
+    dev = torch.device(DEVICE)
+    rows, max_err = [], 0
+    for i, (key, launches) in enumerate(main_shapes.items()):
+        bmap = tensor_alu_scatter.maps[key]
+        T, R, C, G, nnz, dt, has_bias, chain = key
+        mats, bias = scatter_inputs(key, bmap, dev, 1000 + i)
+        got = tensor_alu_scatter(mats, bmap, bias, chain=chain)
+        want = tensor_alu_scatter_ref(mats, bmap, bias, chain=chain)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"tensor_alu_scatter {key[:7]} differs from its plain "
+                 f"version")
+        max_err = max(max_err, int((got.to(torch.int64)
+                                    - want.to(torch.int64)).abs().max()))
+        shape = dict(T=T, R=R, C=C, groups=G, map_entries=nnz, src_dtype=dt,
+                     tensor_operand=has_bias, chain=[list(c) for c in chain])
+        if launches == 0:
+            rows.append(dict(shape, launches=0, timed=False))
+            continue
+        call = lambda: tensor_alu_scatter(mats, bmap, bias,  # noqa: E731
+                                          chain=chain)
+        call_ms = cuda_time_ms(call)
+        ms = kernel_ms(call, "tensor_alu_scatter_kernel", call_ms)
+        plain = cuda_time_ms(lambda: tensor_alu_scatter_ref(
+            mats, bmap, bias, chain=chain), reps=5, warmup=1)
+        bound, by = scatter_bound_ms(key, bmap)
+        rows.append(dict(shape, launches=launches, timed=True, ms=ms,
+                         call_ms=call_ms, plain_ms=plain, library_ms=None,
+                         bound_ms=bound, bound_by=by))
+        log(f"  tensor_alu_scatter T{T} {R}x{C} groups {G} entries {nnz} "
+            f"{dt} chain {len(chain)}: kernel {ms:.4f} ms, call "
+            f"{call_ms:.4f} ms (bound {bound:.6f} ms by {by}; plain "
+            f"{plain:.4f} ms) x{launches}")
+    rec["tensor_alu_scatter_shapes"] = rows
     return rows, max_err
 
 
@@ -1448,9 +1585,43 @@ def phase_attn_kernel(rec, main_shapes):
 # phase 7 (continued): flash_attention against its plain version
 # ----------------------------------------------------------------------
 BF16_TENSOR_OPS_PER_S = 989e12
+TF32_TENSOR_OPS_PER_S = 495e12
 #: the CUDA kernel each dtype's flash_attention call launches
 FLASH_KERNEL_NAMES = {"bfloat16": "flash_wgmma_kernel",
-                      "float32": "flash_kernel"}
+                      "float32": "flash_tf32x3_kernel"}
+#: each flash kernel's error against float64 attention on its own inputs
+#: may be at most this multiple of scaled_dot_product_attention's error on
+#: the same inputs (of the plain version's, where SDPA refuses them)
+FLASH_ORACLE_MULT = 4.0
+
+
+def flash_f64(q, k, v, causal, rows=1024):
+    """Attention in float64 on the card, (B, S, HQ, D) -> (B, S, HQ, D)
+    float64, one head and `rows` query rows at a time (the scores of S
+    32768 whole would not fit): the oracle phase 7 holds each flash kernel
+    and scaled_dot_product_attention to.  A row that sees no key gives
+    zeros, as the kernels do."""
+    import math
+    import torch
+    B, S, HQ, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    group = HQ // KH
+    out = torch.empty((B, S, HQ, D), dtype=torch.float64, device=q.device)
+    keys = torch.arange(Sk, device=q.device)
+    for b in range(B):
+        for h in range(HQ):
+            kk = k[b, :, h // group].double()
+            vv = v[b, :, h // group].double()
+            for r0 in range(0, S, rows):
+                sc = q[b, r0:r0 + rows, h].double() @ kk.T / math.sqrt(D)
+                if causal:
+                    last = torch.arange(r0, min(S, r0 + rows),
+                                        device=q.device) + (Sk - S)
+                    sc.masked_fill_(keys[None] > last[:, None],
+                                    float("-inf"))
+                p = torch.softmax(sc, dim=-1).nan_to_num_(0.0)
+                out[b, r0:r0 + rows, h] = p @ vv
+    return out
 
 
 def flash_bound_ms(B, S, Sk, HQ, KH, D, causal, elt):
@@ -1467,7 +1638,9 @@ def flash_bound_ms(B, S, Sk, HQ, KH, D, causal, elt):
 def phase_flash_kernel(rec, main_shapes):
     """flash_attention against its plain version (the materialized oracle,
     or the chunked one above 2048^2 scores per head), within
-    attn_tolerance, bitwise equal over two calls; timed at every shape
+    attn_tolerance, bitwise equal over two calls; against float64
+    attention (flash_f64) within FLASH_ORACLE_MULT x the error of
+    scaled_dot_product_attention on the same inputs; timed at every shape
     the LM path launched and at Llama-3.2-3B's prefill shapes."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -1501,6 +1674,27 @@ def phase_flash_kernel(rec, main_shapes):
         max_err[dt] = max(max_err[dt], err)
         shape = dict(B=B, S=S, Sk=Sk, HQ=HQ, KH=KH, D=D, causal=causal,
                      dtype=dt)
+        # the float64 oracle: the kernel's error beside SDPA's
+        f64 = flash_f64(q, k, v, causal)
+        lib_call = sdpa_call(q, k, v, causal)
+        # SDPA's causal mask is aligned top-left: its output is another
+        # function where Sk != S, and the plain version stands in there
+        sdpa_base = lib_call is not None and (not causal or S == Sk)
+        base = lib_call().transpose(1, 2) if sdpa_base else want
+        err64 = float((got.double() - f64).abs().max())
+        base64 = float((base.double() - f64).abs().max())
+        if err64 > FLASH_ORACLE_MULT * base64:
+            fail(f"flash_attention {(B, S, Sk, HQ, KH, D, causal, dt)}: "
+                 f"error {err64:.3e} against float64 is over "
+                 f"{FLASH_ORACLE_MULT} x {'sdpa' if sdpa_base else 'plain'}"
+                 f"'s {base64:.3e}")
+        shape.update(f64_err=err64, f64_base_err=base64,
+                     f64_base="sdpa" if sdpa_base else "plain")
+        del f64, base
+        log(f"  flash_attention {(B, S, Sk, HQ, KH, D, causal, dt)}: error "
+            f"against float64 {err64:.3e}, "
+            f"{'sdpa' if sdpa_base else 'plain'}'s {base64:.3e} (ratio "
+            f"{err64 / max(base64, 1e-30):.3f}, limit {FLASH_ORACLE_MULT})")
         if launches == 0:
             rows.append(dict(shape, launches=0, timed=False, max_abs_err=err,
                              limit=tol))
@@ -1513,13 +1707,16 @@ def phase_flash_kernel(rec, main_shapes):
         plain = cuda_time_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal), reps=1 if big else 5, warmup=1)
         lib = lib_err = None
-        lib_call = sdpa_call(q, k, v, causal)
         if lib_call is not None:
             lib_err = float((lib_call().transpose(1, 2).float()
                              - want.float()).abs().max())
             lib = cuda_time_ms(lib_call, reps=reps, warmup=1)
         bound, by = flash_bound_ms(B, S, Sk, HQ, KH, D, causal,
                                    q.element_size())
+        if dt == "float32":
+            # the 3xTF32 kernel's floor: three TF32 products per product
+            shape["tf32x3_floor_ms"] = 3 * 4 * B * HQ * S * Sk * D / (
+                2 if causal else 1) / TF32_TENSOR_OPS_PER_S * 1e3
         rows.append(dict(shape, launches=max(launches, 0), timed=True,
                          lm_path=launches > 0, kernel=FLASH_KERNEL_NAMES[dt],
                          ms=ms, call_ms=call_ms,
@@ -2312,7 +2509,8 @@ def ptxas_report(text):
 
 
 class Counters:
-    """The launch counts of the six kernels, and the shapes each launched
+    """The launch counts of the six kernels (tensor_alu's two instances
+    apart), and the shapes each launched
     (quantized_linear's fused calls by (M, N, K, x dtype) as well): reset
     to 0 just before a main path runs, read just after."""
 
@@ -2321,9 +2519,11 @@ class Counters:
         from repro_torch.kernels.flash_attention import flash_attention
         from repro_torch.kernels.gla_chunk import gla_chunk
         from repro_torch.kernels.lut_gemm import lut_gemm
-        from repro_torch.kernels.tensor_alu import tensor_alu
+        from repro_torch.kernels.tensor_alu import (tensor_alu,
+                                                    tensor_alu_scatter)
         from repro_torch.kernels.vta_gemm import quantized_linear, vta_gemm
         self.ops = {"vta_gemm": vta_gemm, "tensor_alu": tensor_alu,
+                    "tensor_alu_scatter": tensor_alu_scatter,
                     "lut_gemm": lut_gemm,
                     "decode_attention": decode_attention,
                     "flash_attention": flash_attention,
@@ -2368,7 +2568,7 @@ def main():
         return 2
     sys.path.insert(0, str(src))
     from repro_torch.kernels import _build
-    from repro_torch.kernels.tensor_alu import tensor_alu
+    from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_scatter
     from repro_torch.kernels.vta_gemm import vta_gemm
 
     rec = {"layers": []}
@@ -2399,18 +2599,20 @@ def main():
     # ---- phase 2: the main path (counts from 0) ------------------------
     log("phase 2: the slice at full width (pynq spec, torch_device=cuda, "
         "backend=cuda)")
-    vta_gemm.launches, tensor_alu.launches = 0, 0
-    vta_gemm.shapes.clear()
-    tensor_alu.shapes.clear()
+    main_ops = {"vta_gemm": vta_gemm, "tensor_alu": tensor_alu,
+                "tensor_alu_scatter": tensor_alu_scatter}
+    for op in main_ops.values():
+        op.launches = 0
+        op.shapes.clear()
     t_main = time.perf_counter()
     phase_layers(rec)
     phase_block(rec)
     phase_chain(rec)
     phase_vector(rec)
-    main_launches = {"vta_gemm": vta_gemm.launches,
-                     "tensor_alu": tensor_alu.launches}
+    main_launches = {k: op.launches for k, op in main_ops.items()}
     gemm_shapes = dict(vta_gemm.shapes)
     alu_shapes = dict(tensor_alu.shapes)
+    scatter_shapes = dict(tensor_alu_scatter.shapes)
     rec["main_path"] = dict(seconds=time.perf_counter() - t_main,
                             launches=main_launches)
     log(f"  main path launches: {main_launches}")
@@ -2443,6 +2645,7 @@ def main():
     # timed), so each kernel is checked at every shape any path launched
     checked = {}
     for k, main in (("vta_gemm", gemm_shapes), ("tensor_alu", alu_shapes),
+                    ("tensor_alu_scatter", scatter_shapes),
                     ("lut_gemm", lut_shapes),
                     ("decode_attention", attn_shapes)):
         more = [sh for sh in counters.shapes[k] if sh not in main]
@@ -2504,6 +2707,7 @@ def main():
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
     q_rows = phase_qlinear_kernel(rec, ql_shapes)
     a_rows, a_err = phase_alu_kernel(rec, alu_shapes)
+    sc_rows, sc_err = phase_scatter_kernel(rec, scatter_shapes)
     log("phase 7: the decode-path, LM-path and hybrid-path kernels against "
         "their plain versions")
     l_rows, l_err = phase_lut_kernel(rec, lut_shapes)
@@ -2526,6 +2730,8 @@ def main():
           (g["M"], g["N"], g["K"])]
     a = max(a_rows, key=lambda r: r["launches"] * r["shape"][0]
             * r["shape"][1])
+    sc = max((r for r in sc_rows if r["timed"]),
+             key=lambda r: (r["launches"], r["T"] * r["R"] * r["C"]))
     kernels = [
         dict(name="vta_gemm", route="cuda",
              source="src/repro_torch/kernels/vta_gemm/csrc/" + (
@@ -2555,8 +2761,19 @@ def main():
              ms=a["ms"], call_ms=a["call_ms"], plain_ms=a["plain_ms"],
              bound_ms=a["bound_ms"],
              bound_by=a["bound_by"], library_ms=a["library_ms"],
-             checked=True,
+             checked=True, instance="standalone",
              shape=dict(shape=a["shape"], chain=a["chain"])),
+        dict(name="tensor_alu_scatter", route="cuda",
+             source="src/repro_torch/kernels/tensor_alu/csrc/tensor_alu.cu",
+             replaces="src/repro/kernels/tensor_alu/kernel.py:50",
+             launches=main_launches["tensor_alu_scatter"],
+             max_abs_err=sc_err, ms=sc["ms"], call_ms=sc["call_ms"],
+             plain_ms=sc["plain_ms"], bound_ms=sc["bound_ms"],
+             bound_by=sc["bound_by"], library_ms=None, checked=True,
+             instance="scatter",
+             shape={k: sc[k] for k in ("T", "R", "C", "groups",
+                                       "map_entries", "src_dtype",
+                                       "tensor_operand", "chain")}),
     ]
     # the decode-path kernels at their heaviest decode-path shape; the
     # Llama-3.2-3B shapes are in the record and on the lines above
@@ -2595,12 +2812,12 @@ def main():
     ]
     # flash_attention's two kernels, each at its heaviest main-path shape:
     # the bf16 wgmma kernel at phase 8's (the Llama prefill), the float32
-    # FMA kernel at phase 9's float32 run; the Llama prefill shapes (S 4096
+    # 3xTF32 kernel at phase 9's float32 run; the Llama prefill shapes (S 4096
     # and 32768) and every other shape are in the record and on the lines
     # above
     hy_summaries = [hy[n] for n in hy_runs]
     for dt, run, src in (("bfloat16", lm["int8"], "flash_wgmma.cu"),
-                         ("float32", hy["f32"], "flash_attention.cu")):
+                         ("float32", hy["f32"], "flash_tf32x3.cu")):
         n_main = run["flash_by_dtype"].get(dt, 0)
         if n_main <= 0:
             fail(f"the {dt} flash_attention kernel was never launched on "
@@ -2616,6 +2833,7 @@ def main():
             source="src/repro_torch/kernels/flash_attention/csrc/" + src,
             replaces="src/repro/kernels/flash_attention/kernel.py:76",
             kernel=FLASH_KERNEL_NAMES[dt], dtype=dt, launches=n_main,
+            instance="wgmma" if dt == "bfloat16" else "tf32x3",
             hybrid_serve_launches=sum(h["flash_by_dtype"].get(dt, 0)
                                       for h in hy_summaries),
             max_abs_err=f_err[dt],

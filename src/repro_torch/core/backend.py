@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from ..kernels.lut_gemm import lut_gemm
-from ..kernels.tensor_alu import tensor_alu
+from ..kernels.tensor_alu import BlockMap, tensor_alu, tensor_alu_scatter
+from ..kernels.tensor_alu.kernel import MAX_OPS as ALU_MAX_OPS
 from ..kernels.vta_gemm import vta_gemm
 from .driver import Device
 from .hwspec import HardwareSpec
@@ -136,6 +137,25 @@ def set_decode_cache_cap(cap: int) -> int:
             trimmed += 1
         _DECODE_EVICTIONS += trimmed
     return trimmed
+
+
+# the scatter instance's block maps (CudaBackend._block_map), one per tile
+# structure (the plan key), each with its device copy: built on a
+# structure's first tile batch, so a served request of a program seen
+# before builds and uploads none.  Shared across backend instances and
+# serving threads like the decode cache, and LRU-bounded the same way.
+_BLOCK_MAPS: Dict[tuple, BlockMap] = {}
+_BLOCK_MAP_LOCK = threading.Lock()
+_BLOCK_MAP_CAP = 1024
+_BLOCK_MAP_BUILDS = 0
+
+
+def block_map_info() -> Dict[str, int]:
+    """Live size / bound of the block-map cache, the maps built and the
+    device copies made so far (ops introspection)."""
+    with _BLOCK_MAP_LOCK:
+        return {"size": len(_BLOCK_MAPS), "cap": _BLOCK_MAP_CAP,
+                "builds": _BLOCK_MAP_BUILDS, "uploads": BlockMap.uploads}
 
 
 def decode_cache_info() -> Dict[str, int]:
@@ -498,12 +518,12 @@ class CudaBackend:
                     (si, t, plan))
             else:
                 self._materialize(states[si], t, statss[si])  # reset/ALU-only
-        for grp in groups.values():
+        for key, grp in groups.items():
             tiles_g = [t for _, t, _ in grp]
             plans_g = [p for _, _, p in grp]
             stats_g = [statss[si] for si, _, _ in grp]
             accs = self._resolve_tiles(tiles_g, plans_g, stats_g,
-                                       states[0].sim.spec)
+                                       states[0].sim.spec, key)
             for (si, tile, _), acc in zip(grp, accs):
                 self._writeback(states[si], tile, acc, statss[si])
 
@@ -873,16 +893,24 @@ class CudaBackend:
 
     def _resolve_tiles(self, tiles: Sequence[_PendingTile],
                        plans: Sequence[tuple], statss: Sequence[RunStats],
-                       spec: HardwareSpec) -> List[torch.Tensor]:
-        """Execute structurally-identical tile plans: per GEMM stage the
+                       spec: HardwareSpec, key: Optional[tuple] = None
+                       ) -> List[torch.Tensor]:
+        """Execute structurally-identical tile plans (``key``: their plan
+        key, computed when not given): per GEMM stage the
         tiles' operands stack along the kernel's leading tile axis and
         run as ONE ``vta_gemm`` launch — cutting per-tile launch overhead;
         requant fuses into the kernel epilogue exactly as in the per-tile
-        path.  Non-fused ALU chains apply to the row-stacked tile batch in
-        one ``tensor_alu`` pass per chain step.  Sub-byte weights on
+        path.  Sub-byte weights on
         decode-shaped groups go through ``lut_gemm`` instead (the same
         operands and epilogue, a bit-identical result; the reference's
         ``jax.vmap(lut_gemm_pallas)`` is the kernel's tile axis here).
+        The GEMM outputs then go, in place, through ONE
+        ``tensor_alu_scatter`` launch for the batch, which sums each
+        tile's parts into the tile's layout and applies the ALU chain
+        (its first run: at most ALU_MAX_OPS steps and one tensor operand;
+        the rest, which no lowering emits, through ``tensor_alu``); a
+        tile whose one GEMM output is already in its layout, with no
+        chain, takes no launch.
         Returns one assembled (R, C) int32 accumulator matrix per tile.
 
         ``statss`` is parallel to ``tiles`` (gang members contribute
@@ -892,8 +920,8 @@ class CudaBackend:
         wgroups0, shift = plans[0]
         kw = dict(epilogue="requant", shift=shift) if shift is not None \
             else {}
-        results_per_tile: List[List[Tuple[np.ndarray, torch.Tensor]]] = \
-            [[] for _ in range(T)]
+        # per tile, its GEMM output of each weight group
+        srcs: List[List[torch.Tensor]] = [[] for _ in range(T)]
         for wi in range(len(wgroups0)):
             bm = 128   # the reference's row block: its launch-cost unit
             A_alls: List[torch.Tensor] = []
@@ -928,50 +956,85 @@ class CudaBackend:
             cost_concat = sum(-(-(len(g) * Rg) // bm) * bm
                               for g in subgroups.values()) \
                 + 64 * (len(subgroups) - 1)
-            mats: List[Optional[torch.Tensor]] = [None] * T
             if len(subgroups) < T and cost_concat < cost_vmap:
                 for g in subgroups.values():
                     A = torch.cat([A_alls[t] for t in g], dim=0)
-                    out = gemm_call(A, Ws[g[0]].T).to(torch.int32)
+                    out = gemm_call(A, Ws[g[0]].T)
                     for s_ in {id(statss[t]): statss[t] for t in g}.values():
                         s_.tile_batches += 1
                         s_.lut_launches += int(use_lut)
                     for j, t in enumerate(g):
-                        mats[t] = out[j * Rg:(j + 1) * Rg]
+                        srcs[t].append(out[j * Rg:(j + 1) * Rg])
             else:
                 if T == 1:
                     outs = gemm_call(A_alls[0], Ws[0].T)[None]
                 else:
                     outs = gemm_call(torch.stack(A_alls),
                                      torch.stack(Ws).transpose(1, 2))
-                outs = outs.to(torch.int32)
                 for s_ in {id(s_): s_ for s_ in statss}.values():
                     s_.tile_batches += 1
                     s_.lut_launches += int(use_lut)
                 for t in range(T):
-                    mats[t] = outs[t]
-            for t in range(T):
-                mat = mats[t]
-                off = 0
-                for g, A in plans[t][0][wi][2]:
-                    rows = A.shape[0]
-                    results_per_tile[t].append((g, mat[off:off + rows]))
-                    off += rows
+                    srcs[t].append(outs[t])
 
-        accs: List[torch.Tensor] = []
-        for t, tile in enumerate(tiles):
-            results = results_per_tile[t]
-            g0, m0 = results[0]
-            if len(results) == 1 and g0.shape == tile.grid.shape \
-                    and (g0 == tile.grid).all():
-                acc = m0
-            else:
-                acc = self._scatter(results, tile.grid, spec)
-            accs.append(acc)
-        if shift is None and tiles[0].alu_chain:
+        tile0 = tiles[0]
+        chain = tile0.alu_chain if shift is None else []
+        parts0 = wgroups0[0][2]
+        g0 = parts0[0][0]
+        if len(wgroups0) == 1 and len(parts0) == 1 and not chain \
+                and g0.shape == tile0.grid.shape and (g0 == tile0.grid).all():
+            return [srcs[t][0].to(torch.int32) for t in range(T)]
+        bmap = self._block_map(self._plan_key(tile0, plans[0])
+                               if key is None else key, tile0, wgroups0,
+                               spec)
+        # the first run of the chain: at most ALU_MAX_OPS steps reading
+        # one tensor operand (the same object in every tile)
+        n, ti = 0, None
+        for i, (kind, _, _) in enumerate(chain[:ALU_MAX_OPS]):
+            if kind == "tensor":
+                if ti is not None and any(
+                        t.alu_chain[i][2] is not t.alu_chain[ti][2]
+                        for t in tiles):
+                    break
+                ti = i if ti is None else ti
+            n = i + 1
+        first = tuple((op, None if kind == "tensor" else y)
+                      for kind, op, y in chain[:n])
+        bias = None if ti is None else [t.alu_chain[ti][2] for t in tiles]
+        accs = list(tensor_alu_scatter(srcs, bmap, bias, chain=first))
+        if len(chain) > n:
             accs = self._alu_chain_batch(accs,
-                                         [t.alu_chain for t in tiles])
+                                         [t.alu_chain[n:] for t in tiles])
         return accs
+
+    @staticmethod
+    def _block_map(key: tuple, tile: _PendingTile, wgroups,
+                   spec: HardwareSpec) -> BlockMap:
+        """The scatter's block map of this tile structure, built on the
+        first tile batch of the structure and kept (with its device copy)
+        in the process-wide LRU cache.  Grids are taken relative to the
+        tile's first entry, as the plan key takes them."""
+        global _BLOCK_MAP_BUILDS
+        with _BLOCK_MAP_LOCK:
+            hit = _BLOCK_MAPS.pop(key, None)
+            if hit is not None:
+                _BLOCK_MAPS[key] = hit
+                return hit
+        base = int(tile.indices[0])
+        groups = []
+        for _, _, parts in wgroups:
+            rows, lst = 0, []
+            for g, A in parts:
+                lst.append((g - base, rows))
+                rows += A.shape[0]
+            groups.append(lst)
+        bmap = BlockMap(tile.grid - base, groups, spec.batch, spec.block_out)
+        with _BLOCK_MAP_LOCK:
+            while len(_BLOCK_MAPS) >= _BLOCK_MAP_CAP:
+                _BLOCK_MAPS.pop(next(iter(_BLOCK_MAPS)))
+            _BLOCK_MAPS[key] = bmap
+            _BLOCK_MAP_BUILDS += 1
+        return bmap
 
     def _alu_chain_batch(self, accs: List[torch.Tensor],
                          chains: Sequence[Sequence[tuple]]
@@ -994,27 +1057,6 @@ class CudaBackend:
                               torch.cat([c[i][2] for c in chains], dim=0)))
         out = self._alu_chain(x, chain)
         return [out[t * R:(t + 1) * R] for t in range(T)]
-
-    def _scatter(self, results: Sequence[Tuple[np.ndarray, torch.Tensor]],
-                 grid: np.ndarray, spec: HardwareSpec) -> torch.Tensor:
-        """Accumulate per-group sub-grid results into a matrix in `grid`'s
-        orientation (uncovered reset-region elements stay zero)."""
-        io, ii = grid.shape
-        flat = grid.ravel()
-        order = np.argsort(flat)
-        dev = results[0][1].device
-        acc = torch.zeros((grid.size, spec.batch, spec.block_out),
-                          dtype=torch.int64, device=dev)
-        for g, mat in results:
-            blocked = self._from_matrix(mat, g.shape[0], g.shape[1], spec) \
-                .reshape(-1, spec.batch, spec.block_out)
-            pos = order[np.searchsorted(flat, g.ravel(), sorter=order)]
-            acc.index_add_(0, torch.as_tensor(pos, device=dev),
-                           blocked.to(torch.int64))
-        # the reference adds in int32 with wraparound: wrap once at the end
-        return self._to_matrix(
-            acc.to(torch.int32).reshape(io, ii, spec.batch, spec.block_out),
-            spec)
 
     @staticmethod
     def _alu_chain(acc: torch.Tensor, chain: Sequence[tuple]) -> torch.Tensor:

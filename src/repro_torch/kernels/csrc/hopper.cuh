@@ -1,8 +1,11 @@
-// Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (flash_attention/csrc/flash_wgmma.cu, vta_gemm/csrc/vta_wgmma.cu): the
-// mbarrier ring, TMA tile loads, wgmma shared-memory descriptors and
-// fences, and cuTensorMapEncodeTiled reached through the runtime, so that
-// no library links libcuda.
+// Hopper (sm_90a) building blocks shared by the port's kernels: for the
+// TMA + wgmma kernels (flash_attention/csrc/flash_wgmma.cu,
+// vta_gemm/csrc/vta_wgmma.cu) the mbarrier ring, TMA tile loads, wgmma
+// shared-memory descriptors and fences, and cuTensorMapEncodeTiled reached
+// through the runtime, so that no library links libcuda; for the 3xTF32
+// kernels on mma.sync (gla_chunk/csrc/gla_chunk.cu,
+// flash_attention/csrc/flash_tf32x3.cu) the cp.async ring and the TF32
+// split and products.
 #pragma once
 
 #include <cuda.h>
@@ -13,6 +16,85 @@ namespace hopper {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async of `bytes` (<= the copy size) from global, zero-filling the
+// rest; bytes = 0 only zero-fills.
+template <int SIZE>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  if constexpr (SIZE == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_u32(dst)), "l"(src), "r"(bytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                     smem_u32(dst)), "l"(src), "n"(SIZE), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 3xTF32 on mma.sync.m16n8k8: an operand x is split in registers into hi,
+// x rounded to TF32 to nearest, and lo = x − hi (the tensor cores truncate
+// lo to TF32); a·b is hi_a·hi_b + lo_a·hi_b + hi_a·lo_b, accurate to
+// float32 (lo_a·lo_b is below float32's rounding).
+//
+// cvt.rna.tf32.f32 for a finite x: to nearest, ties away from zero, on the
+// magnitude bits (the PTX instruction itself compiles to a longer sequence
+// that also screens NaN and infinity).
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// An operand fragment as TF32 halves; EXACT: x is already a TF32 value (a
+// bfloat16 upcast), lo is zero and is not formed.
+template <int K>
+struct Frag {
+  uint32_t hi[K], lo[K];
+};
+
+template <bool EXACT, int K>
+__device__ __forceinline__ void split(const float (&x)[K], Frag<K>& f) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    if (EXACT) {
+      f.hi[i] = __float_as_uint(x[i]);
+    } else {
+      f.hi[i] = tf32(x[i]);   // lo = x - hi: the tensor cores truncate it
+      f.lo[i] = __float_as_uint(x[i] - __uint_as_float(f.hi[i]));
+    }
+  }
+}
+
+// d += a b where `on` (a predicate, not a branch: the loops around it
+// stay straight-line)
+__device__ __forceinline__ void mma(bool on, float (&d)[4],
+                                    const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "@p mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "r"((int)on));
+}
+
+// a b in 3xTF32 into three accumulators, hi·hi, lo·hi and hi·lo, so that
+// the three products of a depth step do not wait on each other; the caller
+// sums the two small ones and adds them to the big one at the end.
+template <bool AX, bool BX>
+__device__ __forceinline__ void mma3(bool on, float (&big)[4],
+                                     float (&s1)[4], float (&s2)[4],
+                                     const Frag<4>& a, const Frag<2>& b) {
+  if (!AX) mma(on, s1, a.lo, b.hi);
+  if (!BX) mma(on, s2, a.hi, b.lo);
+  mma(on, big, a.hi, b.hi);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

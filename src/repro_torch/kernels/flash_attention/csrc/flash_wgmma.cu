@@ -6,10 +6,9 @@
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
 // flash_attention_pallas (body _flash_kernel), for bfloat16 operands: the
 // TPU kernel behind the LM substrate's prefill (models/attention.py
-// attn_prefill).  float32 operands stay on the FMA kernel beside this one
-// (flash_attention.cu): wgmma has no float32 operand, and TF32 would round
-// q and k to 10 mantissa bits, far outside the 1e-5 float32 check, while
-// the FMA kernel already beats PyTorch's float32 attention call.
+// attn_prefill).  float32 operands go to the 3xTF32 kernel beside this one
+// (flash_tf32x3.cu): one TF32 product would round q and k to 10 mantissa
+// bits, far outside the 1e-5 float32 check.
 //
 // Computes, for each batch b, query head h and query row i:
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / group] / sqrt(D))

@@ -1,16 +1,18 @@
 """ctypes bindings of the two CUDA flash_attention kernels (the design
 notes are at the top of each source): ``csrc/flash_wgmma.cu`` for
-bfloat16 operands (wgmma and TMA) and ``csrc/flash_attention.cu`` for
-float32 ones (FMA).  :func:`route` picks one by dtype and
+bfloat16 operands (wgmma and TMA) and ``csrc/flash_tf32x3.cu`` for
+float32 ones (mma.sync in 3xTF32).  :func:`route` picks one by dtype,
 :func:`wgmma_plan` turns the operands' shapes and strides into the
-tensor maps of the bfloat16 kernel; both are plain Python, so the CPU
-tests reach them.  Built at first call by :mod:`repro_torch.kernels._build`,
-never at import."""
+tensor maps of the bfloat16 kernel and :func:`flash_f32_plan` sizes the
+float32 kernel's tiles; all are plain Python, so the CPU tests reach
+them.  Built at first call by :mod:`repro_torch.kernels._build`, never at
+import."""
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
@@ -22,13 +24,20 @@ MAX_D = 128
 LOG2E = 1.4426950408889634
 
 
+#: SMs of an H100: the float32 plan takes 128-row blocks where they fill
+#: the card with one block each
+SMS = 132
+#: the most shared memory a block may use (bytes)
+SMEM_MAX = 232448
+
+
 def route(dtype: torch.dtype) -> str:
     """The kernel a CUDA call of this dtype launches: "wgmma" (bfloat16)
-    or "fma" (float32).  Nothing falls back from one to the other."""
+    or "tf32x3" (float32).  Nothing falls back from one to the other."""
     if dtype == torch.bfloat16:
         return "wgmma"
     if dtype == torch.float32:
-        return "fma"
+        return "tf32x3"
     raise TypeError(f"flash_attention takes float32 or bfloat16, got {dtype}")
 
 
@@ -70,6 +79,48 @@ def wgmma_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return dims, strides
 
 
+class FlashF32Plan(NamedTuple):
+    """The float32 kernel's tiles: query rows a block takes (16 a warp),
+    keys a K/V tile holds, D padded to a multiple of 8, cp.async ring
+    stages, and the shared-memory bytes (the C ``make_layout``'s)."""
+    bq: int
+    bk: int
+    dp: int
+    stages: int
+    smem: int
+
+
+def flash_f32_smem(bq: int, bk: int, dp: int, stages: int) -> int:
+    """Shared-memory bytes of the float32 kernel's layout (the C
+    ``make_layout``): the Q tile and `stages` K/V stages, each row stride
+    padded for conflict-free fragment loads."""
+    qs = dp + (8 if dp % 16 == 0 else 0)
+    return 4 * (bq * qs + stages * bk * (qs + dp + 4))
+
+
+@functools.lru_cache(maxsize=256)
+def flash_f32_plan(B: int, S: int, Sk: int, HQ: int, KH: int, D: int,
+                   causal: bool) -> FlashF32Plan:
+    """Tiles of the 3xTF32 kernel at one shape.  128-row blocks (8 warps,
+    one block an SM, a 3-stage ring) where their grid gives every SM a
+    block, since each block streams all the K/V it sees through shared
+    memory; else 64-row blocks (4 warps, a 2-stage ring, two blocks an
+    SM).  The key tile is 64 keys at DP <= 64 and 32 above, which keeps
+    the score and output accumulators in registers.  Raises ValueError
+    for a D the kernel does not take."""
+    if D % 4 or not 4 <= D <= MAX_D:
+        raise ValueError(f"the float32 flash_attention kernel takes D a "
+                         f"multiple of 4 up to {MAX_D}, got {D}")
+    dp = -(-D // 8) * 8
+    bk = 64 if dp <= 64 else 32
+    bq = 128 if S > 64 and -(-S // 128) * B * HQ >= SMS else 64
+    stages = 3 if bq == 128 else 2
+    smem = flash_f32_smem(bq, bk, dp, stages)
+    if smem > SMEM_MAX:
+        raise ValueError(f"flash_f32_plan: {smem} bytes of shared memory")
+    return FlashF32Plan(bq, bk, dp, stages, smem)
+
+
 def _launcher(name, argtypes):
     fn = getattr(_build.load(name), f"{name}_launch")
     fn.argtypes = argtypes
@@ -77,12 +128,10 @@ def _launcher(name, argtypes):
     return fn
 
 
-def _fma(q, k, v, out, causal):
+def _tf32x3(q, k, v, out, causal):
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
-    if D % 4:
-        raise ValueError(f"the float32 flash_attention kernel takes D a "
-                         f"multiple of 4 up to {MAX_D}, got {D}")
+    plan = flash_f32_plan(B, S, Sk, HQ, KH, D, bool(causal))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1 or any(s % 4 for s in t.stride()[:3]):
             raise ValueError(f"flash_attention {name} needs a contiguous "
@@ -93,14 +142,15 @@ def _fma(q, k, v, out, causal):
                              f"elements")
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
-    fn = _launcher("flash_attention", [ctypes.c_void_p] * 4
+    fn = _launcher("flash_tf32x3", [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
               HQ, KH, S, Sk, D, ctypes.cast(strides, ctypes.c_void_p),
-              int(causal), float(1.0 / math.sqrt(D)), stream)
+              int(causal), float(1.0 / math.sqrt(D)), plan.bq, plan.bk,
+              plan.stages, plan.smem, stream)
 
 
 def _wgmma(q, k, v, out, causal):
@@ -123,8 +173,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool) -> torch.Tensor:
     """q (B, S, HQ, D), k and v (B, Sk, KH, D) on one CUDA device, of one
     dtype.  bfloat16 launches the wgmma kernel (D a multiple of 16,
-    strides and base multiples of 16 bytes), float32 the FMA kernel (D a
-    multiple of 4, strides multiples of 4 elements); both read strided
+    strides and base multiples of 16 bytes), float32 the 3xTF32 kernel (D
+    a multiple of 4, strides multiples of 4 elements); both read strided
     operands in place and raise ValueError for what they cannot read.
     Returns (B, S, HQ, D) in q's dtype, contiguous."""
     B, S, HQ, D = q.shape
@@ -138,6 +188,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, S, HQ, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    err = (_wgmma if which == "wgmma" else _fma)(q, k, v, out, causal)
+    err = (_wgmma if which == "wgmma" else _tf32x3)(q, k, v, out, causal)
     _build.check(err, f"flash_attention ({which})")
     return out

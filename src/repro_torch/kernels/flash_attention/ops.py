@@ -4,7 +4,7 @@ A CPU tensor takes the plain version (:func:`flash_attention_plain`: the
 materialized oracle up to ``_CHUNKED_THRESHOLD`` score elements per head,
 the chunked one above, as the reference op chooses); a CUDA tensor
 launches a CUDA kernel, chosen by dtype (``kernel.route``: bfloat16 the
-wgmma kernel, float32 the FMA one); any other device raises.  There is
+wgmma kernel, float32 the 3xTF32 one); any other device raises.  There is
 no fallback between any of them.
 """
 from __future__ import annotations

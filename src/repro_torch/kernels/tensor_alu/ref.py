@@ -2,9 +2,12 @@
 on the card it is what the kernel is held against."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+from .block_map import BlockMap
 
 ALU_OPS = ("min", "max", "add", "shr", "mul")
 
@@ -42,3 +45,40 @@ def tensor_alu_ref(dst: torch.Tensor, src: Optional[torch.Tensor] = None,
                                                  device=x.device)
         x = alu_apply(op, x, y)
     return x
+
+
+def tensor_alu_scatter_ref(mats: Sequence[Sequence[torch.Tensor]],
+                           bmap: BlockMap,
+                           bias: Optional[Sequence[torch.Tensor]] = None,
+                           *, chain: Tuple[Tuple[str, Optional[int]], ...]
+                           ) -> torch.Tensor:
+    """The scatter instance's plain version: for each tile t, its parts'
+    blocks of the GEMM outputs ``mats[t][g]`` summed into the tile's
+    layout (the engine's scatter arithmetic: positions by argsort and
+    searchsorted of the tile's grid, index_add_ in int64, wrapped to int32
+    once at the end), then ``chain`` over it with ``bias[t]`` as the
+    tensor operand.  Returns (T, R, C) int32.  It reads the grids, not the
+    map's CSR arrays, so the kernel is held against an independent
+    derivation of the same sums."""
+    io, ii = bmap.grid.shape
+    nb, bo = bmap.batch, bmap.block_out
+    flat = bmap.grid.ravel()
+    order = np.argsort(flat)
+    outs = []
+    for t, tile_mats in enumerate(mats):
+        dev = tile_mats[0].device
+        acc = torch.zeros((flat.size, nb, bo), dtype=torch.int64, device=dev)
+        for parts, mat in zip(bmap.groups, tile_mats):
+            for g, row0 in parts:
+                pio, pii = g.shape
+                part = mat[row0:row0 + pio * nb]
+                blocked = part.reshape(pio, nb, pii, bo).permute(0, 2, 1, 3) \
+                    .reshape(-1, nb, bo)
+                pos = order[np.searchsorted(flat, g.ravel(), sorter=order)]
+                acc.index_add_(0, torch.as_tensor(pos, device=dev),
+                               blocked.to(torch.int64))
+        x = acc.to(torch.int32).reshape(io, ii, nb, bo).permute(0, 2, 1, 3) \
+            .reshape(io * nb, ii * bo)
+        outs.append(tensor_alu_ref(x, None if bias is None else bias[t],
+                                   chain=chain))
+    return torch.stack(outs)

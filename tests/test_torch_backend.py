@@ -32,6 +32,10 @@ import repro_torch.core.isa as t_isa
 import repro_torch.core.runtime as t_rt
 import repro_torch.core.scheduler as t_sched
 import repro_torch.core.simulator as t_sim
+import torch
+from repro_torch.core.program import Program as TProgram
+from repro_torch.kernels.tensor_alu import BlockMap, tensor_alu_scatter
+from torch_cases import SCATTER_CHAINS, scatter_case
 
 REF = dict(hw=r_hw, conv=r_conv, rt=r_rt, sched=r_sched, sim=r_sim,
            isa=r_isa, engines=("simulator", "pallas"), rt_kw={})
@@ -269,15 +273,19 @@ def test_ab_switches_match_reference(switch):
 def test_bias_relu_epilogue_is_one_alu_pass_and_keys_are_counted(
         monkeypatch):
     """A 3x3 conv with bias, shift and relu: each tile batch's epilogue is
-    ONE tensor_alu call (bias add and the immediate steps together), and
-    the weight-content key copies are counted in RunStats."""
-    calls = []
+    ONE tensor_alu_scatter call (the scatter of its GEMM parts, the bias
+    add and the immediate steps together), the standalone tensor_alu is
+    not called, and the weight-content key copies are counted in
+    RunStats."""
+    calls, standalone = [], []
 
-    def spy(dst, src=None, *, chain):
+    def spy(mats, bmap, bias=None, *, chain=()):
         calls.append(tuple(chain))
-        return real(dst, src, chain=chain)
-    real = t_be.tensor_alu
-    monkeypatch.setattr(t_be, "tensor_alu", spy)
+        return real(mats, bmap, bias, chain=chain)
+    real = t_be.tensor_alu_scatter
+    monkeypatch.setattr(t_be, "tensor_alu_scatter", spy)
+    monkeypatch.setattr(t_be, "tensor_alu",
+                        lambda *a, **k: standalone.append(k))
     shape = t_conv.ConvShape(n=1, h=14, w=14, ic=32, oc=32, kh=3, kw=3,
                              stride=1, pad=1)
     rng = np.random.default_rng(5)
@@ -290,7 +298,7 @@ def test_bias_relu_epilogue_is_one_alu_pass_and_keys_are_counted(
     assert calls and all(c[0] == ("add", None) and len(c) > 1
                          and all(imm is not None for _, imm in c[1:])
                          for c in calls)
-    assert len(calls) <= st.tile_batches
+    assert len(calls) <= st.tile_batches and not standalone
     assert st.content_key_copies >= st.tile_batches > 0
     assert st.content_key_bytes >= st.content_key_copies \
         * rt.spec.block_in * rt.spec.block_out
@@ -364,3 +372,101 @@ def test_decode_cache_is_a_bounded_lru():
         assert t_be.decode_cache_info()["size"] == 2
     finally:
         t_be.set_decode_cache_cap(old)
+
+
+@pytest.mark.parametrize("spec_name,src_int8", [
+    ("pynq", False), ("pynq_batch2", False), ("pynq", True)],
+    ids=["pynq", "batch2", "int8"])
+@pytest.mark.parametrize("chain_name", list(SCATTER_CHAINS))
+@pytest.mark.parametrize("T", [1, 3])
+def test_scatter_ref_equals_reference_scatter_and_chain(T, chain_name,
+                                                         spec_name,
+                                                         src_int8):
+    """tensor_alu_scatter's plain version (what a CPU tile batch runs) on
+    random plans equals the reference engine's host scatter of the same
+    parts followed by its ALU chain, tile by tile: overlapping parts and
+    groups summed with int32 wraparound, uncovered blocks zero."""
+    rspec = getattr(r_hw, spec_name)()
+    nb, bo = rspec.batch, rspec.block_out
+    seed = zlib.crc32(repr((T, chain_name, spec_name, src_int8)).encode())
+    grid, groups, mats, bias, chain = scatter_case(seed, T, chain_name, nb,
+                                                   bo, src_int8)
+    got = tensor_alu_scatter(
+        [[torch.from_numpy(m) for m in tile] for tile in mats],
+        BlockMap(grid, groups, nb, bo),
+        None if bias is None else list(torch.from_numpy(bias)), chain=chain)
+    ref = r_be.PallasBackend(interpret=True)
+    assert got.dtype == torch.int32 and got.shape == (T, grid.shape[0] * nb,
+                                                      grid.shape[1] * bo)
+    for t in range(T):
+        results = [(g, mats[t][gi][row:row + g.shape[0] * nb])
+                   for gi, parts in enumerate(groups) for g, row in parts]
+        want = ref._scatter(results, grid, rspec)
+        if chain:
+            want = ref._alu_chain(want, [
+                ("tensor", op, bias[t]) if imm is None else ("imm", op, imm)
+                for op, imm in chain])
+        np.testing.assert_array_equal(got[t].numpy(), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_block_map_lists_every_source_block(seed):
+    """The CSR map holds, for every block of the tile, exactly the (group,
+    offset) of each part block on it."""
+    grid, groups, _, _, _ = scatter_case(seed, 1, "none", batch=2,
+                                         block_out=8)
+    bmap = BlockMap(grid, groups, 2, 8)
+    want = {int(d): [] for d in grid.ravel()}
+    for gi, parts in enumerate(groups):
+        width = parts[0][0].shape[1] * 8
+        for g, row in parts:
+            for (pi, pj), d in np.ndenumerate(g):
+                want[int(d)].append((gi, (row + 2 * pi) * width + 8 * pj))
+    assert bmap.row_ptr[0] == 0 and bmap.row_ptr[-1] == bmap.nnz
+    for i, d in enumerate(grid.ravel()):
+        lo, hi = bmap.row_ptr[i], bmap.row_ptr[i + 1]
+        assert sorted(map(tuple, bmap.ent[lo:hi].tolist())) == \
+            sorted(want[int(d)])
+
+
+RESNET_SMALL = [
+    # (ConvShape kwargs, epilogue): a 3x3 layer with bias, shift and relu
+    # (the scatter with the chain), a 1x1 stride-2 shortcut with the
+    # requant fused into the GEMM (the scatter alone)
+    (dict(n=1, h=14, w=14, ic=32, oc=32, kh=3, kw=3, stride=1, pad=1),
+     "bias_relu"),
+    (dict(n=1, h=14, w=14, ic=32, oc=64, kh=1, kw=1, stride=2, pad=0),
+     "shift"),
+]
+
+
+@pytest.mark.parametrize("shape_kw,ep_name", RESNET_SMALL,
+                         ids=["3x3_bias_relu", "1x1_shift"])
+def test_block_maps_built_once_and_layers_exact(monkeypatch, shape_kw,
+                                                ep_name):
+    """ResNet-shaped conv layers as compiled Programs on the CPU: every
+    request equals conv2d_reference byte for byte, the first request
+    builds the block maps of its tile structures, and a second one builds
+    none and copies none to a device."""
+    monkeypatch.setattr(t_be, "_BLOCK_MAPS", {})
+    spec = t_hw.pynq()
+    s = t_conv.ConvShape(**shape_kw)
+    rng = np.random.default_rng(17)
+    w = rng.integers(-8, 8, size=(s.oc, s.ic, s.kh, s.kw), dtype=np.int8)
+    if ep_name == "shift":
+        ep = t_sched.Epilogue(shift=6)
+    else:
+        ep = _bias_epilogue(PORT, s.oc, spec, rng, shift=8, relu=True)
+    p = TProgram(spec)
+    p.conv2d(p.input("x", (s.n, s.ic, s.h, s.w)), p.constant("w", w), s,
+             epilogue=ep)
+    c = p.compile(use_cache=False, torch_device="cpu")
+    infos = []
+    for r in range(2):
+        x = rng.integers(-64, 64, size=(s.n, s.ic, s.h, s.w), dtype=np.int8)
+        np.testing.assert_array_equal(
+            c(x=x), t_conv.conv2d_reference(x, w, s, epilogue=ep))
+        infos.append(t_be.block_map_info())
+    assert infos[0]["builds"] > 0 and infos[0]["size"] > 0
+    assert infos[1]["builds"] == infos[0]["builds"]
+    assert infos[1]["uploads"] == infos[0]["uploads"]

@@ -16,9 +16,13 @@ float atomics; the split length is fixed by S, so a host and a device
 kv_len split alike).  The same holds for a bfloat16 query over
 float32 caches and for G = 9 query heads per kv head (starcoder2-7b).
 ``flash_attention`` against its plain version: float32 within 1e-5
-absolute on unit-normal inputs (sums in another order: a D-long dot per
-score, a running softmax over 64-key tiles), bfloat16 within 2^-6 *
-max|want| as above; bitwise equal over two calls.
+absolute on unit-normal inputs (the 3xTF32 kernel: sums in another
+order, a running softmax over 32- or 64-key tiles), bfloat16 within 2^-6
+* max|want| as above; bitwise equal over two calls.  The float32 kernel
+against float64 attention: its error at most 4x the plain version's, or
+1e-6 of max|out| where that is larger.
+``tensor_alu_scatter`` (the tensor_alu kernel's scatter instance) byte
+for byte against its plain version on random block maps.
 ``gla_chunk`` against its plain version: within 3e-4 absolute plus 3e-4
 relative (the reference's own limit for its kernel against its oracle:
 float32 sums in another order, and tiles of at most 64 rows against the
@@ -35,7 +39,8 @@ import pytest
 import torch
 
 from repro_torch.core import hwspec
-from repro_torch.core.backend import CrossBackendChecker, assert_fast_path
+from repro_torch.core.backend import (CrossBackendChecker, assert_fast_path,
+                                      block_map_info)
 from repro_torch.core.conv import ConvShape, conv2d_reference
 from repro_torch.core.program import Program
 from repro_torch.core.runtime import Runtime
@@ -49,16 +54,19 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.gla_chunk import (gla_chunk, gla_chunk_plain,
                                            gla_recurrence)
 from repro_torch.kernels.lut_gemm import lut_gemm, lut_gemm_ref
-from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_ref
+from repro_torch.kernels.tensor_alu import (BlockMap, tensor_alu,
+                                            tensor_alu_ref,
+                                            tensor_alu_scatter,
+                                            tensor_alu_scatter_ref)
 from repro_torch.kernels.vta_gemm import (quantized_linear,
                                           quantized_linear_ref, vta_gemm,
                                           vta_gemm_ref)
 import repro_torch.kernels.vta_gemm.kernel as vta_kernel
 from repro_torch.kernels.vta_gemm.kernel import GemmPlan, gemm_plan
 from repro_torch.models.vta_decoder import DecoderConfig, QuantDecoder
-from torch_cases import (ENGINE_SHAPES, EPILOGUES, QLINEAR_CASES, SHAPES,
-                         SKINNY_SHAPES, alu_cases, gemm_inputs, qlinear_w,
-                         qlinear_x)
+from torch_cases import (ENGINE_SHAPES, EPILOGUES, QLINEAR_CASES,
+                         SCATTER_CHAINS, SHAPES, SKINNY_SHAPES, alu_cases,
+                         gemm_inputs, qlinear_w, qlinear_x, scatter_case)
 
 
 @pytest.fixture
@@ -339,6 +347,33 @@ def test_tensor_alu_kernel_matches_plain(cuda_dev, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("spec_name,src_int8", [
+    ("pynq", False), ("pynq_batch2", False), ("pynq", True)],
+    ids=["pynq", "batch2", "int8"])
+@pytest.mark.parametrize("chain_name", list(SCATTER_CHAINS))
+@pytest.mark.parametrize("T", [1, 2, 3, 4])
+def test_tensor_alu_scatter_kernel_matches_plain(cuda_dev, T, chain_name,
+                                                 spec_name, src_int8):
+    """Random block maps (overlapping parts and groups summed with int32
+    wraparound, uncovered blocks), T 1-4, with and without a chain and a
+    tensor operand, every op and the shr edge amounts: byte-equal to the
+    plain version, one launch."""
+    spec = getattr(hwspec, spec_name)()
+    nb, bo = spec.batch, spec.block_out
+    grid, groups, mats, bias, chain = scatter_case(
+        T * 100 + len(chain_name) + 7 * src_int8, T, chain_name, nb, bo,
+        src_int8)
+    bmap = BlockMap(grid, groups, nb, bo)
+    m = [[torch.from_numpy(x).to(cuda_dev) for x in tile] for tile in mats]
+    b = None if bias is None else list(torch.from_numpy(bias).to(cuda_dev))
+    before = tensor_alu_scatter.launches
+    got = tensor_alu_scatter(m, bmap, b, chain=chain)
+    torch.cuda.synchronize()
+    assert tensor_alu_scatter.launches == before + 1
+    assert torch.equal(got, tensor_alu_scatter_ref(m, bmap, b, chain=chain))
+
+
+@pytest.mark.cuda
 def test_engines_agree_on_the_card(cuda_dev):
     rng = np.random.default_rng(0)
     a = rng.integers(-128, 128, size=(64, 64), dtype=np.int8)
@@ -365,6 +400,36 @@ def test_conv_program_on_the_card(cuda_dev):
     assert vta_gemm.launches > before
     assert_fast_path(c.last_stats)
     np.testing.assert_array_equal(got, conv2d_reference(x, k, s, epilogue=ep))
+
+
+@pytest.mark.cuda
+def test_conv_scatter_maps_uploaded_once(cuda_dev):
+    """A 3x3 conv with bias, shift and relu on the card: its tile batches
+    go through the scatter instance, equal to conv2d_reference, and a
+    second request builds and uploads no block map."""
+    s = ConvShape(n=1, h=14, w=14, ic=32, oc=48, kh=3, kw=3, stride=1,
+                  pad=1)
+    spec = hwspec.pynq()
+    rng = np.random.default_rng(3)
+    k = rng.integers(-8, 8, size=(48, 32, 3, 3), dtype=np.int8)
+    bias = rng.integers(-512, 512, size=48, dtype=np.int32)
+    ep = Epilogue(bias_blocked=np.repeat(bias.reshape(-1, 1, spec.block_out),
+                                         spec.batch, axis=1),
+                  shift=8, relu=True)
+    p = Program(spec)
+    p.conv2d(p.input("x", (1, 32, 14, 14)), p.constant("k", k), s,
+             epilogue=ep)
+    c = p.compile(use_cache=False)
+    infos = []
+    for r in range(2):
+        x = rng.integers(-64, 64, size=(1, 32, 14, 14), dtype=np.int8)
+        before = tensor_alu_scatter.launches
+        np.testing.assert_array_equal(
+            c(x=x), conv2d_reference(x, k, s, epilogue=ep))
+        assert tensor_alu_scatter.launches > before
+        infos.append(block_map_info())
+    assert infos[1]["builds"] == infos[0]["builds"]
+    assert infos[1]["uploads"] == infos[0]["uploads"] > 0
 
 
 @pytest.mark.cuda
@@ -584,6 +649,62 @@ def test_flash_attention_kernel_matches_plain(cuda_dev, case, dtype):
     limit = 1e-5 if dtype == torch.float32 else \
         2.0 ** -6 * want.float().abs().max().item()
     assert err <= limit, (err, limit)
+
+
+#: float32-only cases of the 3xTF32 kernel: D = 4 mod 8 (padded with a
+#: zero column block in shared memory), D 100, 128-row blocks (whisper's
+#: cross-attention shape), GQA with rows that see no key
+FLASH_F32_CASES = [
+    (1, 50, 70, 4, 2, 36, True),
+    (2, 130, 130, 3, 3, 100, False),
+    (2, 1000, 1500, 20, 20, 64, False),
+    (1, 300, 200, 8, 2, 36, True),
+]
+
+
+def _f64_attention(q, k, v, causal):
+    B, S, HQ, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    g = HQ // KH
+    qh = q.double().transpose(1, 2)
+    kh = k.double().transpose(1, 2).repeat_interleave(g, dim=1)
+    vh = v.double().transpose(1, 2).repeat_interleave(g, dim=1)
+    s = qh @ kh.transpose(-1, -2) / D ** 0.5
+    if causal:
+        vis = torch.arange(Sk, device=q.device)[None] <= \
+            torch.arange(S, device=q.device)[:, None] + (Sk - S)
+        s = s.masked_fill(~vis, float("-inf"))
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    return (p @ vh).transpose(1, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_F32_CASES,
+                         ids=lambda c: "-".join(str(x) for x in c))
+def test_flash_f32_kernel_against_float64(cuda_dev, case):
+    """The 3xTF32 kernel within 1e-5 of its plain version, bitwise equal
+    over two calls, and its error against float64 attention at most 4x
+    the plain float32 version's (or 1e-6 of max|out|)."""
+    B, S, Sk, HQ, KH, D, causal = case
+    rng = np.random.default_rng(S * 3 + Sk + D)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(cuda_dev)
+    q, k, v = t(B, S, HQ, D), t(B, Sk, KH, D), t(B, Sk, KH, D)
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    want = _f64_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert (got - plain).abs().max().item() <= 1e-5
+    err = (got.double() - want).abs().max().item()
+    plain_err = (plain.double() - want).abs().max().item()
+    assert err <= max(4 * plain_err, 1e-6 * want.abs().max().item()), \
+        (err, plain_err)
+    if causal and S > Sk:
+        assert not got[:, :S - Sk].abs().any()
 
 
 @pytest.mark.cuda

@@ -18,8 +18,14 @@ held against them on the card, in ``tests/test_torch_cuda.py``).  Here:
     q_pos >= k_pos from 0 on both axes and so differs from its own oracle
     there (S = 16, Sk = 32: by more than 1.0); the test shows both;
   * a row that sees no key (causal, Sk < S) gives zeros in the port,
-    where the reference's materialized oracle gives the mean of v.
+    where the reference's materialized oracle gives the mean of v;
+  * the float32 CUDA kernel's tiles (``flash_f32_plan``) and its 3xTF32
+    arithmetic (``attention_tf32x3_model``): within 1e-5 of a float64
+    oracle, about as close as the plain float32 version, at phase 7's
+    float32 shapes cut down.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -182,7 +188,7 @@ def test_meta_tensors_have_no_kernel():
 def test_route_by_dtype_has_no_fallback():
     from repro_torch.kernels.flash_attention.kernel import route
     assert route(torch.bfloat16) == "wgmma"
-    assert route(torch.float32) == "fma"
+    assert route(torch.float32) == "tf32x3"
     with pytest.raises(TypeError):
         route(torch.float16)
 
@@ -237,3 +243,87 @@ def test_wgmma_plan_refuses_what_tma_cannot_read():
         wgmma_plan(*(_bf16(B, S, H, 40),) * 3)
     with pytest.raises(ValueError, match="multiple of 16"):
         wgmma_plan(*(_bf16(B, S, H, 144),) * 3)
+
+
+# ----------------------------------------------------------------------
+# the float32 kernel's tiles and arithmetic (plain Python / PyTorch)
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("D", [4, 8, 12, 36, 60, 64, 68, 96, 100, 128])
+@pytest.mark.parametrize("B,S,Sk,HQ,KH,causal", [
+    (1, 16, 16, 32, 32, True),        # zamba2-1.2b's served prompt
+    (2, 1000, 1500, 20, 20, False),   # whisper's cross-attention
+    (1, 4096, 4096, 24, 8, True),     # Llama-3.2-3B's prefill
+    (1, 100, 36, 2, 2, True)])
+def test_flash_f32_plan(B, S, Sk, HQ, KH, causal, D):
+    """D padded to a multiple of 8; a 64-key tile up to DP 64 and 32
+    above; 128-row blocks with a 3-stage ring where their grid gives each
+    SM a block, else 64 rows and 2 stages; the shared memory the C layout
+    takes (row strides padded for conflict-free fragment loads), at most
+    227 KB, and two 64-row blocks an SM."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        SMEM_MAX, SMS, flash_f32_plan)
+    p = flash_f32_plan(B, S, Sk, HQ, KH, D, causal)
+    assert p.dp == 8 * math.ceil(D / 8) and p.dp - D in (0, 4)
+    assert p.bk == (64 if p.dp <= 64 else 32)
+    assert p.bq == (128 if S > 64 and math.ceil(S / 128) * B * HQ >= SMS
+                    else 64)
+    assert p.stages == (3 if p.bq == 128 else 2)
+    qs = p.dp + (8 if p.dp % 16 == 0 else 0)
+    vs = p.dp + 4
+    assert qs % 16 == 8 and vs % 8 == 4
+    assert p.smem == 4 * (p.bq * qs + p.stages * p.bk * (qs + vs))
+    assert p.smem <= SMEM_MAX == 232448
+    if p.bq == 64:
+        assert 2 * (p.smem + 1024) <= 233472     # two blocks an SM
+
+
+def test_flash_f32_plan_refuses_d():
+    from repro_torch.kernels.flash_attention.kernel import flash_f32_plan
+    for D in (2, 6, 130, 132):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            flash_f32_plan(1, 16, 16, 2, 2, D, True)
+
+
+def _f64_attention(q, k, v, causal):
+    B, S, HQ, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    g = HQ // KH
+    qh = q.double().transpose(1, 2)
+    kh = k.double().transpose(1, 2).repeat_interleave(g, dim=1)
+    vh = v.double().transpose(1, 2).repeat_interleave(g, dim=1)
+    s = qh @ kh.transpose(-1, -2) / math.sqrt(D)
+    if causal:
+        vis = torch.arange(Sk)[None] <= torch.arange(S)[:, None] + (Sk - S)
+        s = s.masked_fill(~vis, -math.inf)
+    p = torch.softmax(s, dim=-1).nan_to_num(0.0)
+    return (p @ vh).transpose(1, 2)
+
+
+@pytest.mark.parametrize("B,S,Sk,HQ,KH,D,causal", [
+    (2, 100, 150, 4, 4, 64, False),   # whisper's cross-attention, cut
+    (1, 256, 256, 6, 2, 128, True),   # Llama-3.2-3B's prefill, cut
+    (1, 16, 16, 8, 8, 64, True),      # zamba2-1.2b's served prompt, cut
+    (1, 50, 40, 4, 2, 36, True),      # D = 4 mod 8; rows that see no key
+])
+def test_tf32x3_model_within_float64(B, S, Sk, HQ, KH, D, causal):
+    """The model of the float32 kernel's arithmetic (both products in
+    3xTF32: hi rounded to nearest, lo truncated by the tensor cores) is
+    within 1e-5 of float64 attention on unit-normal inputs, and within 4x
+    the plain float32 version's own error (plus 1e-7)."""
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_tf32x3_model, tf32_split)
+    q, k, v = (torch.from_numpy(x) for x in
+               _inputs(S + Sk + D, B, S, Sk, HQ, KH, D))
+    want = _f64_attention(q, k, v, causal)
+    got = attention_tf32x3_model(q, k, v, causal=causal)
+    plain = flash_attention_plain(q, k, v, causal=causal)
+    err = (got.double() - want).abs().max().item()
+    plain_err = (plain.double() - want).abs().max().item()
+    assert err <= 1e-5 and err <= 4 * plain_err + 1e-7, (err, plain_err)
+    hi, lo = tf32_split(q)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF,
+                       torch.zeros_like(hi, dtype=torch.int32))
+    assert (hi + lo - q).abs().max().item() <= \
+        2.0 ** -21 * q.abs().max().item()
+    if S > Sk and causal:
+        assert not got[:, :S - Sk].abs().any()

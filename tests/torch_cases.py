@@ -120,3 +120,63 @@ PREFILL_SHAPES = [(512, 8384, 2048), (512, 2048, 4096), (512, 2048, 2048),
                   (512, 8192, 2048), (512, 2048, 8192)] + [
     (m, n, k) for m in (512, 4096) for n, k in (
         (3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192))]
+
+
+#: chains of the scatter instance's cases: none, the 3x3 conv's epilogue
+#: (bias add, shift, relu, clip), every op with the shr edge amounts, and
+#: a tensor step in the middle
+SCATTER_CHAINS = {
+    "none": (),
+    "bias_shr_relu_clip": (("add", None), ("shr", 8), ("max", 0),
+                           ("max", -128), ("min", 127)),
+    "every_op": (("mul", 3), ("add", INT_MAX), ("shr", 33), ("min", 1000),
+                 ("max", -1000), ("shr", -3), ("shr", 31)),
+    "shr_src_edges": (("shr", None), ("add", 5)),
+    "mid_tensor": (("shr", 2), ("mul", None), ("max", -7)),
+}
+
+
+def scatter_case(seed, T, chain_name, batch=1, block_out=16,
+                 src_int8=False):
+    """Random inputs of the scatter instance: a tile grid of accumulator
+    ids in shuffled order, 1-3 weight groups of 1-3 parts each (row
+    ranges of the grid, a fixed column range per group: parts and groups
+    overlap, and some blocks are covered by none), T tiles of GEMM
+    outputs (int32 over the full range, so sums wrap, or int8), bias
+    operands whose first values are the shr edge amounts, and the chain.
+    Returns (grid, groups, mats, bias, chain): groups as lists of (part
+    grid, first row), mats[t][g] numpy, bias numpy (T, R, C) or None."""
+    rng = np.random.default_rng(seed)
+    io, ii = int(rng.integers(2, 7)), int(rng.integers(1, 6))
+    base = int(rng.integers(0, 500))
+    grid = base + rng.permutation(io * ii).reshape(io, ii)
+    groups = []
+    for _ in range(int(rng.integers(1, 4))):
+        c0 = int(rng.integers(0, ii))
+        w = int(rng.integers(1, ii - c0 + 1))
+        parts, row = [], 0
+        for _ in range(int(rng.integers(1, 4))):
+            r0 = int(rng.integers(0, io))
+            r1 = int(rng.integers(r0 + 1, io + 1))
+            parts.append((grid[r0:r1, c0:c0 + w], row))
+            row += (r1 - r0) * batch
+        groups.append(parts)
+    mats = []
+    for _ in range(T):
+        tile = []
+        for parts in groups:
+            rows = sum(g.shape[0] for g, _ in parts) * batch
+            shape = (rows, parts[0][0].shape[1] * block_out)
+            tile.append(rng.integers(-128, 128, shape, dtype=np.int8)
+                        if src_int8 else
+                        rng.integers(INT_MIN, INT_MAX, shape, dtype=np.int64)
+                        .astype(np.int32))
+        mats.append(tile)
+    chain = SCATTER_CHAINS[chain_name]
+    bias = None
+    if any(imm is None for _, imm in chain):
+        R, C = io * batch, ii * block_out
+        bias = rng.integers(-40, 40, (T, R, C), dtype=np.int32)
+        edges = np.array([-3, 0, 31, 33, INT_MIN, 40], np.int32)
+        bias.reshape(T, -1)[:, :edges.size] = edges
+    return grid, groups, mats, bias, chain

@@ -3,13 +3,13 @@
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME] [--big]
         [--ops lut_gemm,flash_attention,vta_gemm,quantized_linear,
-               decode_attention,gla_chunk,lm_step]
+               decode_attention,gla_chunk,lm_step,c9_request]
 
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``),
 builds its CUDA kernels, and times each op at the shapes ``chip_smoke.py``
 phases 1 and 7 time (the int4 decoder's lut_gemm launches, Llama-3.2-3B's
 lut_gemm at M 1 and 16 for bits 1, 2 and 4, flash_attention at the Llama
-and zamba2 prefill shapes; vta_gemm at the task-ISA engine's T1 M112 N128
+and zamba2 prefill shapes and whisper's float32 cross-attention; vta_gemm at the task-ISA engine's T1 M112 N128
 K1152 and its deep-K T2 tiles, at the LM decode linears, at zamba2-1.2b's
 512-token prefill linears and Llama-3.2-3B's at 512 and 4096 tokens;
 quantized_linear, the whole call from float activations, at the LM
@@ -22,7 +22,10 @@ head), a shape where a version that raises is recorded as "raises";
 lm_step, whole int8 decode steps of llama3.2-3b
 and zamba2-1.2b at 4 slots: the host-clock step ms of each of 8 steps,
 and of one more under torch.profiler the device busy ms, the idle share
-and the number of device operations), with ``chip_smoke.kernel_ms``
+and the number of device operations; c9_request, ``chip_smoke.request_profile``
+of a ResNet-18 C9 request on the task-ISA engine, twice: the launch and
+copy API calls, device operations, tensor_alu launches by instance and
+the idle share), with ``chip_smoke.kernel_ms``
 (torch.profiler
 device time per call of every kernel whose name holds "lut_gemm",
 "flash", "vta_gemm", "decode_" or "gla_kernel") beside the call's
@@ -57,14 +60,16 @@ LUT_SHAPES = [(1, 2, 192, 64, 4, "requant", 7),
               (1, 1, 192, 64, 4, "requant", 7),
               (1, 1, 64, 128, 4, "requant", 7)] + [
     (1, m, 8192, 3072, b, "none", 0) for m in (1, 16) for b in (1, 2, 4)]
-#: (B, S, HQ, KH, D, dtype): Llama's 16-token prefill, zamba2's 16- and
-#: 512-token prefills, Llama at S 4096 (both dtypes); all causal, Sk = S
-FLASH_SHAPES = [(1, 16, 24, 8, 128, "bfloat16"),
-                (1, 16, 32, 32, 64, "bfloat16"),
-                (1, 512, 32, 32, 64, "bfloat16"),
-                (1, 16, 32, 32, 64, "float32"),
-                (1, 4096, 24, 8, 128, "bfloat16"),
-                (1, 4096, 24, 8, 128, "float32")]
+#: (B, S, Sk, HQ, KH, D, dtype, causal): Llama's 16-token prefill,
+#: zamba2's 16- and 512-token prefills, Llama at S 4096 (both dtypes),
+#: all causal; whisper's cross-attention (non-causal, Sk 1500) in float32
+FLASH_SHAPES = [(1, 16, 16, 24, 8, 128, "bfloat16", True),
+                (1, 16, 16, 32, 32, 64, "bfloat16", True),
+                (1, 512, 512, 32, 32, 64, "bfloat16", True),
+                (1, 16, 16, 32, 32, 64, "float32", True),
+                (1, 4096, 4096, 24, 8, 128, "bfloat16", True),
+                (1, 4096, 4096, 24, 8, 128, "float32", True),
+                (2, 1000, 1500, 20, 20, 64, "float32", False)]
 #: (T, M, N, K, epilogue): the task-ISA engine's rows (T1 M112 N128 K1152,
 #: its deep-K T2 tiles and three one-step tiles), then the LM linears (Llama-3.2-3B decode at M
 #: 4 and prefill at M 16, zamba2-1.2b decode), zamba2-1.2b's five 512-token
@@ -136,22 +141,22 @@ def main():
         print(json.dumps(dict(label=args.label, card=card, op="lut_gemm",
                               T=T, M=M, N=N, K=K, bits=bits, epilogue=epi,
                               ms=ms, call_ms=call_ms)), flush=True)
-    shapes = FLASH_SHAPES + ([(1, 32768, 24, 8, 128, "bfloat16")]
-                             if args.big else [])
+    shapes = FLASH_SHAPES + ([(1, 32768, 32768, 24, 8, 128, "bfloat16",
+                               True)] if args.big else [])
     shapes *= "flash_attention" in ops
-    for B, S, HQ, KH, D, dt in shapes:
+    for B, S, Sk, HQ, KH, D, dt, causal in shapes:
         dtype = getattr(torch, dt)
         q = torch.randn((B, S, HQ, D), generator=g, device=dev).to(dtype)
-        k = torch.randn((B, S, KH, D), generator=g, device=dev).to(dtype)
-        v = torch.randn((B, S, KH, D), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, Sk, KH, D), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, Sk, KH, D), generator=g, device=dev).to(dtype)
         reps = 3 if S > 8192 else 20
-        call = lambda: flash_attention(q, k, v, causal=True)  # noqa
+        call = lambda: flash_attention(q, k, v, causal=causal)  # noqa
         call_ms = cs.cuda_time_ms(call, reps=reps, warmup=1)
         ms = cs.kernel_ms(call, "flash", call_ms, reps=reps)
         print(json.dumps(dict(label=args.label, card=card,
-                              op="flash_attention", B=B, S=S, HQ=HQ, KH=KH,
-                              D=D, dtype=dt, ms=ms, call_ms=call_ms)),
-              flush=True)
+                              op="flash_attention", B=B, S=S, Sk=Sk, HQ=HQ,
+                              KH=KH, D=D, dtype=dt, causal=causal, ms=ms,
+                              call_ms=call_ms)), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
     if "vta_gemm" in ops or "quantized_linear" in ops:
@@ -219,6 +224,12 @@ def main():
         print(json.dumps(dict(row, ms=ms, call_ms=call_ms)), flush=True)
         del q, k, v, la
         torch.cuda.empty_cache()
+    if "c9_request" in ops:
+        rec = {}
+        for _ in range(C9_PROFILES):
+            print(json.dumps(dict(label=args.label, card=card,
+                                  op="c9_request",
+                                  **cs.request_profile(rec))), flush=True)
     for arch, slots, max_len in LM_STEP_RUNS * ("lm_step" in ops):
         print(json.dumps(dict(label=args.label, card=card, op="lm_step",
                               arch=arch, slots=slots,
@@ -227,6 +238,8 @@ def main():
     return 0
 
 
+#: profiled C9 requests per c9_request run
+C9_PROFILES = 2
 #: (arch, slots, max_len) of the timed decode steps (chip_smoke's engines)
 LM_STEP_RUNS = [("llama3.2-3b", 4, 256), ("zamba2-1.2b", 4, 1024)]
 
