@@ -49,16 +49,19 @@ Phases, in the order they run:
      times beside the least time the card could take; and at every shape
      phases 5 and 6 launched (the
      int8 decoder's 1-2 row GEMMs, the decoders' epilogues), checked but
-     not timed; vta_gemm's skinny instance (M <= 16) at M 1, 3, 16 and 17
+     not timed, and every shape phase 10's search launched, checked;
+     vta_gemm's skinny instance (M <= 16) at M 1, 3, 16 and 17
      with K and N ragged; its wgmma instance (M > 16) at T 3 with M, N
      and K ragged, every epilogue, shifts 0, 9, 31 and 40, with bias, and
-     at a deep K in one slice; at every LM shape phases 8 and 9 launched
+     at a deep K in one slice; at every LM shape phases 8, 9 and 11
+     launched
      and at Llama-3.2-3B's prefill linears at 512 and 4096 tokens (timed,
      beside torch._int_mm, T calls for T peer tiles, with M padded to 32
      below 17 rows, the GEMM alone for an epilogue); every vta_gemm row
      bitwise equal to the plain version and over two calls;
      quantized_linear's fused route bitwise against its plain chain at
-     every (M, N, K, x dtype) phases 8 and 9 served and at M 17, 130,
+     every (M, N, K, x dtype) phases 8, 9 and 11 served (xlstm's gates
+     at N 8, K 4096 among them) and at M 17, 130,
      512 and 4096 (with a given x_scale there too), in bfloat16 and
      float32 x, on x.5 ties and an amax below 1e-6, timed beside the
      PyTorch-op chain the port ran before and torch._int_mm's GEMM, and
@@ -114,7 +117,8 @@ Phases, in the order they run:
      and 0 gla_chunk (0 vta_gemm on bf16 weights); the device idle share
      of one profiled decode step.  Its vta_gemm, decode_attention and
      flash_attention shapes join phases 1 and 7, and phase 7 holds
-     gla_chunk against its plain version at every shape the path launched
+     gla_chunk against its plain version at every shape the path (and
+     phase 11's xlstm path) launched
      (timed), at zamba2-1.2b's prefill at S 4096 and 32768 and at
      xlstm-1.3b's mLSTM scan (N 256, P 1025, chunk 512, bf16 q and k per
      head) at S 4096 (timed), at the reference's kernel-test shapes with a
@@ -122,6 +126,36 @@ Phases, in the order they run:
      stride-0 heads, at N 256 with S = chunk = 512, N 72 and N 1; bitwise
      equal over two calls; up to S 4096 also against the step recurrence
      in float64, within 4x the plain version's error;
+ 10. the autotuner (core/autotune.py, the paper's design-space search)
+     on the card, with the counts set to 0 just before it and read just
+     after: search(backend="cuda", torch_device="cuda") into a local
+     TuningCache on benchmarks/BENCH_autotune.json's two workloads
+     (conv3x3 14x14x32-32 and matmul 64x128x128, seed 0, 12 candidates,
+     top 4) and on ResNet-18's C9 (14x14, 256 -> 256, 3x3; 8 candidates,
+     top 2): stage 1 (candidates, replayed cycles, ranking) equal to
+     stage 1 on CPU tensors in the same run, no candidate dropped by
+     validation (the CUDA engine byte-equal to the simulator on every
+     segment, under tiles of block_in and block_out 8, 16 and 32), the
+     winner validated, its recompile under the search's records (swapped
+     into the global cache and restored) all hits, its output byte-equal
+     to conv2d_reference / matmul_reference; each stage-2 trial's
+     predicted over measured time recorded.  Every vta_gemm, tensor_alu
+     and tensor_alu_scatter shape the search launched joins phase 1's
+     checks (count 0);
+ 11. xlstm-1.3b served (src/repro_torch/configs/xlstm_1b.py, nothing
+     cut: 42 mLSTM and 6 sLSTM layers; seed 0, int8 PTQ) by ServeEngine
+     (4 slots, max_len 1024, float32 caches) to the reference CLI's
+     traffic, one 512-token prompt (gla_chunk B1 S512 H4 N256 P1025 at
+     chunk 512, bf16 q and k), 2 requests on bf16 weights and 2 through
+     a float32 copy; each run held to its teacher-forced plain replays
+     as phase 9's are, every
+     launch to its plain version (CheckedOps), every prefill to 42
+     gla_chunk and 306 vta_gemm launches and every decode step to 306
+     vta_gemm (0 on bf16 weights) and no other kernel; the device idle
+     share of one profiled decode step, and the time and device
+     operations of one sLSTM layer's 512-step prefill loop.  Its
+     vta_gemm and quantized_linear shapes join phase 1 and its gla_chunk
+     shapes phase 7 (timed);
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -2301,6 +2335,310 @@ def phase_hybrid(rec, counters):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 10: the autotuner on the card (the paper's design-space search)
+# ----------------------------------------------------------------------
+AUTOTUNE_SEED = 0
+
+
+def autotune_workloads():
+    """(workload, candidates, top-N): benchmarks/BENCH_autotune.json's two
+    workloads (conv3x3 14x14x32-32 and matmul 64x128x128, seed 0, 12
+    candidates, top 4), then ResNet-18's C9 at its published widths
+    (paper Table 1: 14x14, 256 -> 256, 3x3), 8 candidates, top 2."""
+    from repro_torch.core import autotune
+    from repro_torch.core.conv import ConvShape
+    from repro_torch.core.workloads import layer_by_name
+    c9 = layer_by_name("C9").shape
+    return [
+        (autotune.conv_workload(ConvShape(n=1, h=14, w=14, ic=32, oc=32,
+                                          kh=3, kw=3, stride=1, pad=1),
+                                seed=AUTOTUNE_SEED), 12, 4),
+        (autotune.matmul_workload(64, 128, 128, seed=AUTOTUNE_SEED), 12, 4),
+        (autotune.conv_workload(c9, seed=AUTOTUNE_SEED,
+                                name="C9 conv3x3_14x14x256-256"), 8, 2)]
+
+
+def stage1_table(trials):
+    return [(t.candidate.label(), t.predicted_cycles, t.error)
+            for t in trials]
+
+
+def phase_autotune(rec, counters):
+    """search(..., backend="cuda", torch_device="cuda") on each workload of
+    autotune_workloads, into a local TuningCache: stage 1 (the sampled
+    candidates, their replayed cycles, the ranking) equal to stage 1
+    computed on CPU tensors in this run; no candidate dropped by
+    validation (the CUDA engine byte-equal to the simulator on every
+    segment of every geometry the search took to stage 2, the output
+    equal to the numpy reference); the winner validated; its program
+    recompiled with the search's records swapped into the global cache
+    (restored after, as benchmarks/bench_program.py does) is all hits,
+    and its output byte-equal to conv2d_reference / matmul_reference.
+    Each stage-2 trial's predicted over measured time is recorded (the
+    engine is host-bound: no ranking by wall time is asserted).  The
+    counts are set to 0 just before and read just after."""
+    import numpy as np
+    from repro_torch.core import autotune, hwspec
+    base = hwspec.pynq()
+    out = []
+    counters.reset()
+    t_phase = time.perf_counter()
+    for wl, n_cand, top in autotune_workloads():
+        kw = dict(base_spec=base, seed=AUTOTUNE_SEED, n_candidates=n_cand)
+        t0 = time.perf_counter()
+        cpu_trials, _, cpu_total = autotune.oracle_stage(
+            wl, torch_device="cpu", **kw)
+        cpu_s = time.perf_counter() - t0
+        cache = autotune.TuningCache()
+        t0 = time.perf_counter()
+        res = autotune.search(wl, top_n=top, repeats=3, backend="cuda",
+                              torch_device=DEVICE, cache=cache,
+                              log=lambda s: log(f"    {s}"), **kw)
+        search_s = time.perf_counter() - t0
+        if res.candidates_total != cpu_total \
+                or stage1_table(res.trials) != stage1_table(cpu_trials):
+            fail(f"autotune {wl.name}: stage 1 on the card differs from "
+                 f"stage 1 on CPU tensors")
+        ranking = [t.candidate.label() for t in autotune.rank_trials(
+            res.trials)]
+        if ranking != [t.candidate.label()
+                       for t in autotune.rank_trials(cpu_trials)]:
+            fail(f"autotune {wl.name}: the ranking differs from CPU's")
+        stage2 = [t for t in res.trials if t.validated is not None]
+        if len(stage2) != 1 + min(top, len(ranking)):
+            fail(f"autotune {wl.name}: {len(stage2)} candidates in stage 2")
+        dropped = [t.candidate.label() for t in stage2 if not t.validated]
+        if dropped:
+            fail(f"autotune {wl.name}: candidates dropped by validation on "
+                 f"the card: {dropped} ({[t.error for t in stage2]})")
+        w = res.winner
+        if w is None or not w.validated:
+            fail(f"autotune {wl.name}: no validated winner")
+        prog, feeds, refs = wl.build(w.candidate.spec,
+                                     w.candidate.virtual_threads,
+                                     w.candidate.lowering)
+        n_ops = sum(1 for n in prog.nodes if n.op in ("conv2d", "matmul"))
+        gc = autotune.global_cache()
+        snap = (dict(gc.entries), gc.hits, gc.misses)
+        try:
+            gc.entries = dict(cache.entries)
+            again = prog.compile(use_cache=False, torch_device=DEVICE)
+        finally:
+            gc.entries, gc.hits, gc.misses = snap
+        if (again.tune_hits, again.tune_misses) != (n_ops, 0):
+            fail(f"autotune {wl.name}: the winner's recompile made "
+                 f"{again.tune_hits} hits, {again.tune_misses} misses over "
+                 f"{n_ops} accelerator ops")
+        got = again(backend="cuda", **feeds)
+        if got.dtype != refs["y"].dtype or not np.array_equal(got,
+                                                              refs["y"]):
+            fail(f"autotune {wl.name}: the winner's output differs from the "
+                 f"numpy reference")
+        trials = [dict(t.to_json(), predicted_over_measured=(
+            t.predicted_s / t.measured_s if t.measured_s else None))
+            for t in res.trials]
+        row = dict(workload=wl.name, candidates=len(res.trials),
+                   candidates_total=res.candidates_total, top_n=top,
+                   cpu_stage1_s=cpu_s, search_s=search_s,
+                   errors=sum(t.error is not None for t in res.trials),
+                   winner=w.candidate.label(),
+                   baseline=res.baseline.candidate.label(),
+                   speedup_predicted=res.speedup_predicted,
+                   speedup_measured=res.speedup_measured,
+                   recompile=dict(tune_hits=again.tune_hits,
+                                  tune_misses=again.tune_misses,
+                                  insns=again.insn_count),
+                   records=len(cache), trials=trials)
+        out.append(row)
+        log(f"  {wl.name}: {len(res.trials)} of {res.candidates_total} "
+            f"candidates, stage 1 equal to CPU's ({cpu_s:.1f} s there), "
+            f"search {search_s:.1f} s; stage 2 validated "
+            f"{len(stage2)}/{len(stage2)}; winner {w.candidate.label()} "
+            f"(predicted {res.speedup_predicted:.3f}x, measured "
+            f"{res.speedup_measured:.3f}x the baseline); recompile "
+            f"{again.tune_hits} hit/{again.tune_misses} miss, output "
+            f"byte-equal")
+        for t in stage2:
+            log(f"    {t.candidate.label()}: predicted {t.predicted_s * 1e3:.3f}"
+                f" ms ({t.predicted_cycles:.0f} cycles at "
+                f"{t.candidate.spec.freq_mhz:g} MHz), measured "
+                f"{t.measured_s * 1e3:.3f} ms, predicted / measured "
+                f"{t.predicted_s / t.measured_s:.4f}")
+    launches = counters.read()
+    for k in ("vta_gemm", "tensor_alu_scatter"):
+        if launches[k] <= 0:
+            fail(f"{k} was never launched by the autotuner on the card")
+    rec["autotune"] = dict(seconds=time.perf_counter() - t_phase,
+                           launches=launches, workloads=out)
+    log(f"  autotuner launches: {launches}")
+    return launches
+
+
+# ----------------------------------------------------------------------
+# phase 11: xlstm-1.3b served (gla_chunk's N 256 instance)
+# ----------------------------------------------------------------------
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_SLOTS, XLSTM_MAX_LEN = 4, 1024
+#: one prompt of one whole chunk: gla_chunk B1 S512 H4 N256 P1025
+XLSTM_LONG_PROMPT = 512
+
+
+def xlstm_launches(cfg, quantized):
+    """The launches one prefill and one decode step must make: a gla_chunk
+    per mLSTM layer in prefill only; with int8 weights a vta_gemm per
+    quantized linear (up_x, up_z, wq, wk, wv, w_if and down of an mLSTM;
+    w_in and down of an sLSTM); no other kernel (the sLSTM loop and the
+    mLSTM decode step are plain PyTorch, as in the reference)."""
+    pattern = cfg.block_pattern()
+    m, s = pattern.count("mlstm"), pattern.count("slstm")
+    gemms = (7 * m + 2 * s) * int(quantized)
+    none = {k: 0 for k in ("tensor_alu", "tensor_alu_scatter", "lut_gemm",
+                           "decode_attention", "flash_attention")}
+    return (dict(none, gla_chunk=m, vta_gemm=gemms),
+            dict(none, gla_chunk=0, vta_gemm=gemms))
+
+
+def slstm_loop_profile(cfg, params):
+    """One sLSTM layer's prefill of a XLSTM_LONG_PROMPT-token prompt (the
+    loop over time) on the card, under torch.profiler: its wall ms (after
+    a warm call), device operations and busy ms."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import xlstm
+    from repro_torch.models.layers import norm_apply
+    from repro_torch.models.transformer import _index
+    p = _index(params.tree()["layers"]["slstm"], 0)
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    x = torch.randn((1, XLSTM_LONG_PROMPT, cfg.d_model), generator=g,
+                    device=DEVICE).to(getattr(torch, cfg.dtype))
+    h = norm_apply(cfg, p["ln1"], x)
+
+    def run():
+        cache = xlstm.init_slstm_cache(cfg, 1, torch.device(DEVICE))
+        with torch.inference_mode():
+            xlstm.slstm_prefill(p["slstm"], cfg, h, cache)
+        torch.cuda.synchronize()
+    run()
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    out = dict(prompt=XLSTM_LONG_PROMPT, wall_ms=wall, profiled_ms=prof_ms,
+               device_operations=len(ev), device_busy_ms=busy,
+               idle_share=1 - busy / prof_ms,
+               operations_per_step=len(ev) / XLSTM_LONG_PROMPT)
+    log(f"  sLSTM prefill loop, one layer, {XLSTM_LONG_PROMPT} tokens: "
+        f"{wall:.1f} ms ({prof_ms:.1f} ms profiled), {len(ev)} device "
+        f"operations ({len(ev) / XLSTM_LONG_PROMPT:.1f} a step), device "
+        f"busy {busy:.2f} ms -> idle share {1 - busy / prof_ms:.4f}")
+    return out
+
+
+def phase_xlstm(rec, counters):
+    """xlstm-1.3b at full width (48 layers, an sLSTM every 8th: 42 mLSTM
+    and 6 sLSTM; d 2048, 4 heads, q/k width N 256, v width 1024 + the
+    denominator channel; vocab 50304, bf16): random weights from
+    torch.Generator seed 0, int8 PTQ, served by ServeEngine(4 slots,
+    max_len 1024, float32 caches) to the reference CLI's traffic (6
+    requests, 16-token prompts, 16 new tokens each), then to one request
+    with a 512-token prompt (gla_chunk B1 S512 H4 N256 P1025 at chunk
+    512, bf16 q and k), then 2 requests through the bf16 weights and 2
+    through a float32 copy of them.  Each run is replayed with the
+    kernels swapped for their plain versions (teacher-forced) and again
+    with the scan by its step recurrence, and held within LM_LOGIT_TOL of
+    max|logit| or twice the gap of the two plain runs where that is
+    larger (serve_run): on random weights the int8 and bf16 models carry
+    a rounding difference into every logit (their floors exceed the
+    tolerance), so the float32 run is the end-to-end check that stays
+    sharp where its floor is below the tolerance.
+    Every launch of the four runs is then held to its plain version on
+    the same inputs
+    (CheckedOps), every prefill and decode step to xlstm_launches, and
+    each int8 run's quantized_linear calls to its vta_gemm launches.  The
+    counts are set to 0 just before each served run and read just
+    after."""
+    import torch
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.models.transformer import LMParams
+    cfg, params, qparams, init_s = lm_weights(XLSTM_ARCH)
+
+    def to_f32(tree):
+        return {k: to_f32(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    cfg32, params32 = cfg.replace(dtype="float32"), \
+        LMParams(to_f32(params.tree()))
+    n_elems = sum(t.numel() for t in params.state_dict().values())
+    pattern = cfg.block_pattern()
+    log(f"  {XLSTM_ARCH}: {cfg.n_layers} layers ({pattern.count('mlstm')} "
+        f"mLSTM, {pattern.count('slstm')} sLSTM), d {cfg.d_model}, heads "
+        f"{cfg.n_heads}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+        f"{n_elems} parameters, init + PTQ {init_s:.1f} s")
+    kw = dict(slots=XLSTM_SLOTS, max_len=XLSTM_MAX_LEN)
+    for p in (qparams, params):
+        lm_engine(cfg, p, counters, **kw).run(
+            make_requests(cfg, 1, 2, seed=99))
+    torch.cuda.synchronize()
+    runs = (
+        ("int8", cfg, qparams, lambda: make_requests(cfg, LM_REQUESTS,
+                                                     LM_MAX_NEW)),
+        ("int8_long", cfg, qparams, lambda: make_requests(
+            cfg, 1, LM_MAX_NEW, prompt_len=XLSTM_LONG_PROMPT, seed=1)),
+        ("bf16", cfg, params, lambda: make_requests(cfg, LM_BF16_REQUESTS,
+                                                    LM_MAX_NEW)),
+        ("f32", cfg32, params32, lambda: make_requests(
+            cfg, LM_BF16_REQUESTS, LM_MAX_NEW)))
+    ql = counters.shaped["quantized_linear"]
+    out = {}
+    for name, c, p, requests in runs:
+        summary = serve_run(c, f"{XLSTM_ARCH} {name}", p, requests,
+                            counters, floor="recurrence", **kw)
+        want_prefill, want_step = xlstm_launches(cfg, p is qparams)
+        for what, got, want in (
+                ("prefill", summary["prefill_launches"], want_prefill),
+                ("decode step", summary["step_launches"], want_step)):
+            for i, d in enumerate(got):
+                bad = {k: d[k] for k in want if d[k] != want[k]}
+                if bad:
+                    fail(f"{XLSTM_ARCH} {name}: {what} {i} launched {bad}, "
+                         f"not {want}")
+        calls = sum(ql.shapes.values())
+        if calls != summary["launches"]["vta_gemm"]:
+            fail(f"{XLSTM_ARCH} {name}: {calls} quantized_linear calls, "
+                 f"{summary['launches']['vta_gemm']} vta_gemm launches")
+        summary["quantized_linear_calls"] = calls
+        out[name] = summary
+    checks = {}
+    for name, c, p, requests in runs:
+        with CheckedOps() as chk:
+            lm_engine(c, p, counters, **kw).run(requests())
+        if p is qparams and not chk.calls.get("quantized_linear"):
+            fail(f"{XLSTM_ARCH} {name}: no quantized_linear launch checked")
+        if not chk.calls.get("gla_chunk"):
+            fail(f"{XLSTM_ARCH} {name}: no gla_chunk launch checked")
+        checks[name] = dict(worst=chk.worst, launches=chk.calls)
+        log(f"  {XLSTM_ARCH} {name}, every launch against its plain version "
+            f"on the same inputs: " + ", ".join(
+                f"{k} x{chk.calls[k]} within {v:.2e} of max|plain|"
+                for k, v in sorted(chk.worst.items())))
+    out["launch_checks"] = checks
+    out["profile"] = lm_step_profile(cfg, qparams, counters,
+                                     label=XLSTM_ARCH, **kw)
+    out["slstm_loop"] = slstm_loop_profile(cfg, qparams)
+    rec["xlstm"] = dict(arch=XLSTM_ARCH, elements=n_elems, init_s=init_s,
+                        **kw, max_new=LM_MAX_NEW, **out)
+    del params, qparams, params32
+    torch.cuda.empty_cache()
+    return out
+
+
 def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
     """The larger of the bytes (q and k once, counted once where they are
     broadcast over heads; v, la and h0 read; y and h written) at the
@@ -2371,36 +2709,40 @@ def gla_f64_errors(got, want, q, k, v, la, h0):
             for g, w, e in zip(got, want, exact)]
 
 
-def phase_gla_kernel(rec, main_shapes):
+def phase_gla_kernel(rec, main_shapes, xlstm_shapes):
     """gla_chunk against its plain version within 3e-4 absolute plus 3e-4
     relative (the reference's own limit for its kernel against its
     oracle), y in float32 as chunked_gla asks, and bitwise equal over two
     calls; up to S 4096 also against the step recurrence in float64, the
     kernel's error at most 4x the plain version's or 1e-6 of the output's
-    max|.|; timed at every shape the hybrid path launched, at zamba2-1.2b's
-    prefill at S 4096 and 32768 and at xlstm-1.3b's at S 4096."""
+    max|.|; timed at every shape the hybrid and xlstm paths launched, at
+    zamba2-1.2b's prefill at S 4096 and 32768 and at xlstm-1.3b's at S
+    4096."""
     import torch
     from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
     cases = []
-    for (B, S, H, N, P, Q, dt, bc), n in main_shapes.items():
-        cases.append(((B, S, H, N, P, Q), dt, bc, False, n))
-    cases += [(sh, "float32", True, False, -1) for sh in ZAMBA2_PREFILL]
-    cases += [(XLSTM_PREFILL, "bfloat16", False, True, -1)]
+    for path, shapes in (("hybrid", main_shapes), ("xlstm", xlstm_shapes)):
+        for (B, S, H, N, P, Q, dt, bc), n in shapes.items():
+            cases.append(((B, S, H, N, P, Q), dt, bc, False, n, path))
+    cases += [(sh, "float32", True, False, -1, None)
+              for sh in ZAMBA2_PREFILL]
+    cases += [(XLSTM_PREFILL, "bfloat16", False, True, -1, None)]
     # the reference's kernel-test shapes (tests/test_kernels.py), nonzero
     # h0, one q and k per head; Q = 16; bf16 q and k over heads broadcast
-    cases += [((2, 256, 3, 32, 32, 64), "float32", False, True, 0),
-              ((1, 512, 2, 64, 64, 128), "float32", False, True, 0),
-              ((2, 128, 4, 16, 48, 32), "float32", False, True, 0),
-              ((1, 16, 64, 64, 64, 64), "float32", True, True, 0),
-              ((1, 512, 64, 64, 64, 64), "bfloat16", True, True, 0),
-              ((4, 256, 64, 64, 64, 64), "bfloat16", False, True, 0),
-              # xlstm's widths at a one-chunk prompt (S 512 = chunk 512),
-              # N 72 (not a multiple of 16) and N 1 (q and k padded)
-              ((1, 512, 4, 256, 1025, 512), "float32", False, True, 0),
-              ((1, 256, 3, 72, 40, 64), "float32", False, True, 0),
-              ((2, 128, 2, 1, 16, 32), "float32", False, True, 0)]
+    checked = [((2, 256, 3, 32, 32, 64), "float32", False, True, 0),
+               ((1, 512, 2, 64, 64, 128), "float32", False, True, 0),
+               ((2, 128, 4, 16, 48, 32), "float32", False, True, 0),
+               ((1, 16, 64, 64, 64, 64), "float32", True, True, 0),
+               ((1, 512, 64, 64, 64, 64), "bfloat16", True, True, 0),
+               ((4, 256, 64, 64, 64, 64), "bfloat16", False, True, 0),
+               # xlstm's widths at a one-chunk prompt (S 512 = chunk 512),
+               # N 72 (not a multiple of 16) and N 1 (q and k padded)
+               ((1, 512, 4, 256, 1025, 512), "float32", False, True, 0),
+               ((1, 256, 3, 72, 40, 64), "float32", False, True, 0),
+               ((2, 128, 2, 1, 16, 32), "float32", False, True, 0)]
+    cases += [c + (None,) for c in checked]
     rows, max_err = [], 0.0
-    for (B, S, H, N, P, Q), dt, bc, h0, launches in cases:
+    for (B, S, H, N, P, Q), dt, bc, h0, launches, path in cases:
         q, k, v, la, h = gla_inputs(B, S, H, N, P, S + H + N + P, dt, bc,
                                     h0)
         kw = dict(chunk=Q, y_dtype=torch.float32)
@@ -2444,7 +2786,8 @@ def phase_gla_kernel(rec, main_shapes):
         bound, by = gla_bound_ms(B, S, H, N, P, Q, q.element_size(), 4, h0,
                                  bc)
         rows.append(dict(shape, launches=max(launches, 0), timed=True,
-                         hybrid_path=launches > 0, ms=ms, call_ms=call_ms,
+                         hybrid_path=path == "hybrid",
+                         xlstm_path=path == "xlstm", ms=ms, call_ms=call_ms,
                          plain_ms=plain, library_ms=None, bound_ms=bound,
                          bound_by=by, max_abs_err=err))
         log(f"  gla_chunk B={B} S={S} H={H} N={N} P={P} chunk={Q} {dt}"
@@ -2452,7 +2795,8 @@ def phase_gla_kernel(rec, main_shapes):
             f"{call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
             f"{plain:.4f} ms; library none); max_abs_err {err:.3e}"
             + gla_f64_note(shape)
-            + (f" x{launches}" if launches > 0 else " (long prefill)"))
+            + (f" x{launches} ({path} path)" if launches > 0
+               else " (long prefill)"))
         del q, k, v, la, h, got, again, want
         torch.cuda.empty_cache()
     for r in rows:
@@ -2702,6 +3046,48 @@ def main():
     rec["hybrid_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                             for k, v in counters.shapes.items()}
 
+    # ---- phase 10: the autotuner on the card (counts from 0) ------------
+    log("phase 10: the autotuner on the card (search on the CUDA engine, "
+        "stage 1 against CPU tensors)")
+    counters.clear_shapes()
+    at_launches = phase_autotune(rec, counters)
+    # every engine shape the search launched under its candidates'
+    # geometries is held to the plain version in phase 1 too (count 0:
+    # checked, not timed), as the decode and phase-6 shapes are
+    added = {}
+    for main_set, k in ((gemm_shapes, "vta_gemm"), (alu_shapes, "tensor_alu"),
+                        (scatter_shapes, "tensor_alu_scatter")):
+        more = [sh for sh in counters.shapes[k] if sh not in main_set]
+        main_set.update((sh, 0) for sh in more)
+        added[k] = len(more)
+        log(f"  {k}: {len(counters.shapes[k])} shapes launched by the "
+            f"search, {len(more)} new: checked against the plain version "
+            f"in phase 1")
+    rec["autotune_shapes"] = dict(
+        added=added, shapes={k: [list(sh) + [n] for sh, n in v.items()]
+                             for k, v in counters.shapes.items() if v})
+
+    # ---- phase 11: xlstm-1.3b served (counts from 0 before each run) -----
+    log("phase 11: xlstm-1.3b served (full width, int8 PTQ and bf16 "
+        "weights, ServeEngine)")
+    counters.clear_shapes()
+    xl = phase_xlstm(rec, counters)
+    xl_runs = {name: xl[name]["launches"]
+               for name in ("int8", "int8_long", "bf16", "f32")}
+    xl_launches = {k: sum(r[k] for r in xl_runs.values())
+                   for k in counters.ops}
+    for k in ("gla_chunk", "vta_gemm"):
+        if xl_launches[k] <= 0:
+            fail(f"{k} was never launched on the xlstm serve path")
+    # the xlstm path's shapes are timed in phases 1 and 7 too
+    for main_set, k in ((gemm_shapes, "vta_gemm"),
+                        (ql_shapes, "quantized_linear")):
+        for sh, n in counters.shapes[k].items():
+            main_set[sh] = main_set.get(sh, 0) + n
+    xlstm_gla_shapes = dict(counters.shapes["gla_chunk"])
+    rec["xlstm_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
+                           for k, v in counters.shapes.items()}
+
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
@@ -2713,7 +3099,7 @@ def main():
     l_rows, l_err = phase_lut_kernel(rec, lut_shapes)
     d_rows, d_err = phase_attn_kernel(rec, attn_shapes)
     f_rows, f_err = phase_flash_kernel(rec, flash_shapes)
-    s_rows, s_err = phase_gla_kernel(rec, gla_shapes)
+    s_rows, s_err = phase_gla_kernel(rec, gla_shapes, xlstm_gla_shapes)
 
     # ---- phase 3: engines against each other ----------------------------
     log("phase 3: the engines against each other")
@@ -2743,6 +3129,8 @@ def main():
              launches=main_launches["vta_gemm"],
              lm_serve_launches=lm_launches["vta_gemm"],
              hybrid_serve_launches=hy_launches["vta_gemm"],
+             autotune_launches=at_launches["vta_gemm"],
+             xlstm_serve_launches=xl_launches["vta_gemm"],
              max_abs_err=g_err,
              ms=g["ms"], call_ms=g["call_ms"], plain_ms=g["plain_ms"],
              bound_ms=g["bound_ms"],
@@ -2767,6 +3155,7 @@ def main():
              source="src/repro_torch/kernels/tensor_alu/csrc/tensor_alu.cu",
              replaces="src/repro/kernels/tensor_alu/kernel.py:50",
              launches=main_launches["tensor_alu_scatter"],
+             autotune_launches=at_launches["tensor_alu_scatter"],
              max_abs_err=sc_err, ms=sc["ms"], call_ms=sc["call_ms"],
              plain_ms=sc["plain_ms"], bound_ms=sc["bound_ms"],
              bound_by=sc["bound_by"], library_ms=None, checked=True,
@@ -2852,6 +3241,9 @@ def main():
         replaces="src/repro/kernels/gla_chunk/kernel.py:73",
         launches=hy_launches["gla_chunk"], launches_by_run={
             k: v["gla_chunk"] for k, v in hy_runs.items()},
+        xlstm_serve_launches=xl_launches["gla_chunk"],
+        xlstm_launches_by_run={k: v["gla_chunk"]
+                               for k, v in xl_runs.items()},
         max_abs_err=s_err, ms=sg["ms"], call_ms=sg["call_ms"],
         plain_ms=sg["plain_ms"], bound_ms=sg["bound_ms"],
         bound_by=sg["bound_by"], library_ms=None, checked=True,

@@ -91,7 +91,9 @@ def lm_params_from_numpy(tree: Mapping[str, Any],
     arrays, raw or quantized.  Quantized weights cross as their int8
     bytes; each ``w_q`` (..., K, N) is stored as a transposed view of
     contiguous (..., N, K), as the port's own ``quantize_params`` stores
-    it."""
+    it.  Every other leaf keeps its dtype, whatever the model's: the
+    xlstm sLSTM's recurrent ``r`` and Mamba2's ``A_log``, ``D`` and
+    ``dt_bias`` stay float32 in a bfloat16 tree."""
     from .models.transformer import LMParams
     dev = resolve_torch_device(torch_device)
 

@@ -1,9 +1,11 @@
 """VTA core: the paper's contribution (template, ISA, runtime, simulator,
 scheduler, program-level JIT, serving plane) as a composable package on
 PyTorch."""
-from . import backend, chaos, compiler, conv, driver, hwspec  # noqa: F401
-from . import isa, layout, microop, program, quantize, runtime  # noqa: F401
-from . import sched, scheduler, serve, simulator, workloads  # noqa: F401
+from . import autotune, backend, chaos, compiler, conv, driver  # noqa: F401
+from . import hwspec, isa, layout, microop, pipeline_model  # noqa: F401
+from . import program, quantize, runtime, sched, scheduler  # noqa: F401
+from . import serve, simulator, workloads  # noqa: F401
+from .autotune import TuningCache, TuningRecord  # noqa: F401
 from .backend import (CrossBackendChecker, CudaBackend,  # noqa: F401
                       ExecutionBackend, SimulatorBackend, assert_fast_path,
                       decode_cache_info, resolve_backend,

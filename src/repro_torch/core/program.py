@@ -523,11 +523,14 @@ class Program:
                 dram_size: int = 1 << 28) -> "CompiledProgram":
         """Lower the graph into encoded stream segments.
 
-        Pending conv lowerings are resolved first by the replayed-cycle
-        comparison; this package has no tuning cache yet, so every
-        accelerator op node counts as a miss (``tune_misses``), as the
-        reference does with an empty cache.  The resolved decisions are
-        part of the compile-cache key.
+        Consults the global :class:`autotune.TuningCache` first: every
+        accelerator op node looks up its per-(spec, op-signature) record
+        — a hit steers pending conv lowerings (and is counted on
+        ``CompiledProgram.tune_hits``; misses fall back to the
+        replayed-cycle comparison and count on ``tune_misses``).  The
+        resolved decisions are part of the compile-cache key, so a
+        tuning record landing between two compiles of the same graph
+        changes the artifact instead of hitting a stale cache entry.
 
         torch_device: where the DRAM image (hence every engine's SRAMs
         and kernel operands) lives — default ``"cuda"``; pass ``"cpu"`` to
@@ -598,13 +601,35 @@ def compile_multi(progs: Sequence[Program], fence_mode: str = "buffer",
 
 
 # ----------------------------------------------------------------------
-# compile-time schedule resolution
+# tuning-cache consultation (compile-time schedule resolution)
 # ----------------------------------------------------------------------
+def op_signature(program: Program, n: Node) -> str:
+    """Stable per-op tuning key: what the node computes plus the schedule
+    knobs that shape its stream — shape-level, never data-level, so two
+    graphs differing only in weight values share tuning records, and
+    string-valued so a persisted TuningCache can use it as a JSON key.
+    The strings are the reference package's, so one cache file keys the
+    same records in both."""
+    ep = n.epilogue.n_alu_passes if n.epilogue is not None else 0
+    vt = program.virtual_threads
+    if n.op == "conv2d":
+        s = n.conv
+        return (f"conv2d:n{s.n}.ic{s.ic}.h{s.h}.w{s.w}.k{s.kh}x{s.kw}"
+                f".s{s.stride}.p{s.pad}.oc{s.oc}:ep{ep}:vt{vt}")
+    if n.op == "matmul":
+        a, w = (program.nodes[i] for i in n.inputs)
+        return f"matmul:m{a.shape[0]}.k{a.shape[1]}.n{w.shape[0]}:ep{ep}:vt{vt}"
+    if n.op == "vbinop":
+        return f"vbinop:{n.shape[0]}.{n.alu_op}:vt{vt}"
+    return f"{n.op}:{n.shape}"
+
+
 @dataclass(frozen=True)
 class _ResolvedTuning:
-    """The graph's nodes with pending conv lowerings resolved, the
-    (node-idx, mode) decisions (part of the compile-cache key), and the
-    tuning-cache tallies surfaced on the CompiledProgram."""
+    """Outcome of one tuning-cache consultation: the graph's nodes with
+    pending conv lowerings resolved, the (node-idx, mode) decisions (part
+    of the compile-cache key), and the hit/miss tallies surfaced on the
+    CompiledProgram."""
     nodes: Tuple[Node, ...]
     decisions: Tuple[Tuple[int, str], ...]
     hits: int
@@ -612,25 +637,44 @@ class _ResolvedTuning:
 
 
 def _resolve_tuning(program: Program) -> _ResolvedTuning:
-    """Resolve pending (auto) conv lowerings by the replayed-cycle
-    comparison in ``conv.select_conv_lowering``.  The tuning cache is not
-    ported yet: every accelerator op node is a miss, as in the reference
-    with an empty cache.  Explicit user requests are never overridden."""
-    misses = 0
+    """Consult the global :class:`autotune.TuningCache` for every
+    accelerator op node and resolve pending (auto) conv lowerings.
+
+    Lookup is per (spec, op-signature) — a different spec is a different
+    key, so spec changes invalidate naturally.  A hit with a usable
+    lowering steers a pending conv node; a miss (or a record whose mode
+    the shape cannot take) falls back to the replayed-cycle comparison
+    in ``conv.select_conv_lowering``.  Explicit user requests are never
+    overridden."""
+    from .autotune import global_cache      # autotune imports this module
+    cache = global_cache()
+    hits = misses = 0
     nodes = list(program.nodes)
     decisions = []
     for i, n in enumerate(nodes):
         if n.op not in ("conv2d", "matmul"):
             continue
-        misses += 1
+        rec = cache.lookup(program.spec, op_signature(program, n))
+        if rec is not None:
+            hits += 1
+        else:
+            misses += 1
         if n.op != "conv2d" or n.lowering is not None:
             continue
-        mode = select_conv_lowering(
-            n.conv, program.spec, None, epilogue=n.epilogue,
-            virtual_threads=program.virtual_threads)
+        mode = None
+        if rec is not None and rec.lowering:
+            try:
+                mode = select_conv_lowering(n.conv, program.spec,
+                                            rec.lowering)
+            except ValueError:
+                mode = None     # stale/shape-incompatible record
+        if mode is None:
+            mode = select_conv_lowering(
+                n.conv, program.spec, None, epilogue=n.epilogue,
+                virtual_threads=program.virtual_threads)
         nodes[i] = replace(n, lowering=mode)
         decisions.append((i, mode))
-    return _ResolvedTuning(tuple(nodes), tuple(decisions), 0, misses)
+    return _ResolvedTuning(tuple(nodes), tuple(decisions), hits, misses)
 
 
 # ----------------------------------------------------------------------

@@ -6,11 +6,13 @@ sequences.  The int8 path (``--quantized``) runs every layer-stack linear
 through the VTA GEMM semantics (``vta_gemm``, dequant epilogue) — the
 paper's PTQ deployment applied to LM serving.  Prefill attention runs
 ``flash_attention`` and decode attention ``decode_attention``, and a
-Mamba2 layer's prefill (zamba2-1.2b) the chunked scan ``gla_chunk``; on
-the card each is its CUDA kernel.  Every cache a slot holds (the KV
-caches, and Mamba2's conv and SSM states with the shared block's KV
-cache) is stacked over layers with the batch on axis 1, and a prefilled
-slot is spliced in along that axis.
+Mamba2 layer's prefill (zamba2-1.2b) and an mLSTM layer's (xlstm-1.3b,
+chunk 512) the chunked scan ``gla_chunk``; on the card each is its CUDA
+kernel.  Every cache a slot holds (the KV caches; Mamba2's conv and SSM
+states with the shared block's KV cache; the mLSTM's (C | n) state and
+the sLSTM's c, n and h, float32) is stacked over layers with the batch
+on axis 1, and a prefilled slot is spliced in along that axis: a fresh
+slot's sLSTM state starts from n = 1, as its one-row cache does.
 
 Like the reference, one decode step runs every slot at one position, the
 largest of the slots' positions (``max(slot_pos)``): a request admitted
@@ -23,6 +25,8 @@ Usage:
   python -m repro_torch.launch.serve --arch llama3.2-3b --reduced \\
       --device cpu --requests 6 --max-new 16
   python -m repro_torch.launch.serve --arch zamba2-1.2b --reduced \\
+      --device cpu --quantized
+  python -m repro_torch.launch.serve --arch xlstm-1.3b --reduced \\
       --device cpu --quantized
 """
 from __future__ import annotations

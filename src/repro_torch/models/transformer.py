@@ -1,11 +1,13 @@
 """The LM for the dense family (olmo-1b, llama3.2-3b, minitron-8b,
-starcoder2-7b) and the hybrid Mamba2 family (zamba2-1.2b): parameters,
-caches, prefill and decode.
+starcoder2-7b), the hybrid Mamba2 family (zamba2-1.2b) and xlstm-1.3b:
+parameters, caches, prefill and decode.
 
 The port of the serving half of the reference's ``models/transformer.py``
-for the ``"attn"``, ``"mamba2"`` and ``"mamba2_sharedattn"`` block types
-(the last applies one globally shared attention block, with a KV cache of
-its own per application).  Weights sit in an :class:`LMParams`
+for the ``"attn"``, ``"mamba2"``, ``"mamba2_sharedattn"`` (which applies
+one globally shared attention block, with a KV cache of its own per
+application), ``"mlstm"`` and ``"slstm"`` block types (each pre-norm with
+a residual and no MLP; their caches are float32 whatever dtype the other
+caches have).  Weights sit in an :class:`LMParams`
 ``nn.Module``, stacked over layers as in the reference, with state-dict
 keys that are the reference's tree paths joined by ``.`` (for example
 ``layers.attn.attn.wq.w``); the math is plain functions on the nested
@@ -14,9 +16,8 @@ over the stacked layers; here a Python loop indexes them, and caches are
 updated in place.
 
 Not ported yet (``NotImplementedError`` names the ROADMAP item): the
-other block types (moe, mlstm, slstm), the vision and audio
-frontends, the whisper encoder and cross-attention, and training
-(``forward_train``).
+moe block type, the vision and audio frontends, the whisper encoder and
+cross-attention, and training (``forward_train``).
 """
 from __future__ import annotations
 
@@ -29,16 +30,18 @@ from repro_torch.core.driver import TorchDeviceLike, resolve_torch_device
 
 from . import attention as attn
 from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .config import ModelConfig
 from .layers import (embed_apply, embed_init, linear_init, mlp_apply,
                      mlp_init, norm_apply, norm_init, torch_dtype)
 
 Params = Dict[str, Any]
 
-_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 10: the LM "
-               "substrate's xlstm, moe, cross-attention and frontend "
-               "modules)")
-_PORTED_BLOCKS = {"attn", "mamba2", "mamba2_sharedattn"}
+_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 4: the encoder, "
+               "cross-attention and frontends)")
+_NOT_PORTED_MOE = ("is not ported yet (ROADMAP Queue 1 item 3: the moe "
+                   "block, models/moe.py)")
+_PORTED_BLOCKS = {"attn", "mamba2", "mamba2_sharedattn", "mlstm", "slstm"}
 
 
 class LMParams(nn.Module):
@@ -66,7 +69,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.block_pattern())
     if not kinds <= _PORTED_BLOCKS:
         raise NotImplementedError(f"block types {sorted(kinds)} of "
-                                  f"{cfg.name}: {_NOT_PORTED}")
+                                  f"{cfg.name}: {_NOT_PORTED_MOE}")
     if cfg.encoder_layers:
         raise NotImplementedError(f"the encoder of {cfg.name}: {_NOT_PORTED}")
     if cfg.frontend != "none":
@@ -84,6 +87,12 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str, n: int,
     if btype in ("mamba2", "mamba2_sharedattn"):
         return {"ln1": norm_init(cfg, d, device, lead),
                 "mamba": ssm_mod.mamba2_init(gen, cfg, device, lead)}
+    if btype == "mlstm":
+        return {"ln1": norm_init(cfg, d, device, lead),
+                "mlstm": xlstm_mod.mlstm_init(gen, cfg, device, lead)}
+    if btype == "slstm":
+        return {"ln1": norm_init(cfg, d, device, lead),
+                "slstm": xlstm_mod.slstm_init(gen, cfg, device, lead)}
     return {"ln1": norm_init(cfg, d, device, lead),
             "attn": attn.attn_init(gen, cfg, device, lead),
             "ln2": norm_init(cfg, d, device, lead),
@@ -96,6 +105,10 @@ def _block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
     if btype == "attn":
         return {"kv": attn.init_kv_cache(cfg, batch, max_len, dtype, device,
                                          (n,))}
+    if btype == "mlstm":
+        return xlstm_mod.init_mlstm_cache(cfg, batch, device, (n,))
+    if btype == "slstm":
+        return xlstm_mod.init_slstm_cache(cfg, batch, device, (n,))
     c = ssm_mod.init_ssm_cache(cfg, batch, dtype, device, (n,))
     if btype == "mamba2_sharedattn":
         # the shared block's weights are global, but each application
@@ -127,6 +140,10 @@ def _block_apply(p: Params, cfg: ModelConfig, btype: str, x: torch.Tensor,
     if btype == "attn":
         return _attn_mlp(p, cfg, x, mode, cache["kv"], pos)
     h = norm_apply(cfg, p["ln1"], x)
+    if btype in ("mlstm", "slstm"):
+        fn = getattr(xlstm_mod, f"{btype}_{mode}")
+        o, _ = fn(p[btype], cfg, h, cache)
+        return x + o
     mamba = ssm_mod.mamba2_prefill if mode == "prefill" \
         else ssm_mod.mamba2_decode
     o, _ = mamba(p["mamba"], cfg, h, cache)
@@ -201,8 +218,9 @@ def logits_fn(params: Params, cfg: ModelConfig,
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 dtype: torch.dtype = torch.bfloat16,
                 torch_device: TorchDeviceLike = None) -> Params:
-    """Per-layer caches stacked over each block type's layers, zeros, on
-    `torch_device` (default the card)."""
+    """Per-layer caches stacked over each block type's layers, on
+    `torch_device` (default the card): zeros (the sLSTM normalizer ones),
+    in `dtype` (the xlstm caches float32)."""
     _check_supported(cfg)
     dev = resolve_torch_device(torch_device)
     pattern = cfg.block_pattern()

@@ -38,7 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import hwspec
+from repro_torch.core import autotune, hwspec
 from repro_torch.core.backend import (CrossBackendChecker, assert_fast_path,
                                       block_map_info)
 from repro_torch.core.conv import ConvShape, conv2d_reference
@@ -226,7 +226,10 @@ def test_vta_gemm_wgmma_reads_misaligned_views(cuda_dev):
 
 QLINEAR_SHAPES = [(1, 1000, 203), (4, 3072, 1024), (4, 8192, 3072),
                   (4, 2048, 8384), (16, 3072, 3072), (17, 1000, 203),
-                  (64, 2048, 520)]
+                  (64, 2048, 520),
+                  # xlstm-1.3b's mLSTM gates (w_if: N = 2H = 8, K 4096) at a
+                  # decode step and a 512-token prefill
+                  (4, 4096, 8), (512, 4096, 8)]
 
 
 @pytest.mark.cuda
@@ -986,3 +989,92 @@ def test_pooled_int4_decode_on_the_card(cuda_dev):
                 got[i].append(toks[i])
     assert got == want
     assert lut_gemm.launches > lut0 and decode_attention.launches > att0
+
+
+#: tile geometries of the autotuner's grid (core/autotune.py:
+#: enumerate_candidates around pynq) that pynq and pynq_batch2 do not
+#: have; (1, 8, 8) is not in it (no scratchpad split makes it feasible)
+AUTOTUNE_TILES = [(2, 8, 8), (1, 8, 32), (1, 32, 8), (1, 32, 32),
+                  (2, 8, 16), (2, 32, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["conv", "matmul"])
+@pytest.mark.parametrize("tile", AUTOTUNE_TILES,
+                         ids=lambda t: "x".join(map(str, t)))
+def test_engine_byte_equal_to_simulator_at_autotuner_tiles(cuda_dev, tile,
+                                                           kind):
+    """block_in and block_out of 8 and 32 (vta_gemm's K a multiple of 8
+    and not of 16; the scatter's block maps on new tile grids), each at
+    the first scratchpad split of the grid that takes the tile: every
+    accelerator segment's DRAM image byte-equal to the simulator's, the
+    output equal to the numpy reference (autotune.validate_candidate),
+    and the CUDA engine's kernels launched."""
+    spec = next(c.spec for c in autotune.enumerate_candidates(
+        hwspec.pynq()) if (c.spec.batch, c.spec.block_in,
+                           c.spec.block_out) == tile)
+    wl = autotune.conv_workload(ConvShape(n=1, h=14, w=14, ic=32, oc=32,
+                                          kh=3, kw=3, stride=1, pad=1)) \
+        if kind == "conv" else autotune.matmul_workload(64, 128, 128)
+    prog, feeds, refs = wl.build(spec, 2, None)
+    c = prog.compile(use_cache=False, dram_size=1 << 24)
+    before = vta_gemm.launches
+    autotune.validate_candidate(c, feeds, refs)
+    assert vta_gemm.launches > before
+    np.testing.assert_array_equal(c(backend="cuda", **feeds), refs["y"])
+
+
+def _xlstm_logits(tcfg, params, toks, dev):
+    """Prefill 12 tokens then 3 decode steps, teacher-forced on `toks`
+    (B, 15): each call's logits, on the CPU."""
+    from repro_torch.models import transformer as TT
+    caches = TT.init_caches(tcfg, toks.shape[0], 32, torch.float32, dev)
+    t = torch.from_numpy(toks).to(dev)
+    out = []
+    with torch.inference_mode():
+        lg, caches = TT.prefill(params, tcfg, {"tokens": t[:, :12]}, caches)
+        out.append(lg.cpu())
+        for i in range(3):
+            lg, caches = TT.decode_step(params, tcfg, caches,
+                                        t[:, 12 + i:13 + i], 12 + i)
+            out.append(lg.cpu())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,tol", [(False, 1e-4), (True, 5e-3)],
+                         ids=["float", "int8"])
+def test_reduced_xlstm_served_on_the_card(cuda_dev, quant, tol):
+    """Reduced xlstm (4 layers, mLSTM and sLSTM) on the card against its
+    CPU plain run: gla_chunk (N 64, P 33, chunk 512) and, on int8
+    weights, quantized_linear launch; the logits of a prefill and three
+    decode steps agree within `tol` of max|logit| (float: the scan's
+    3xTF32 sums; int8: an activation at a rounding tie may quantize to
+    the next step, tests/test_torch_xlstm.py); the served tokens on
+    float weights equal the CPU engine's."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import ServeEngine, make_requests
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.quantized import quantize_params
+    tcfg = reduced(get_arch("xlstm-1.3b").model)
+    cpu = TT.init_params(tcfg, 0, torch_device="cpu")
+    if quant:
+        cpu = quantize_params(cpu)
+    card = TT.LMParams({k: v for k, v in cpu.tree().items()}).to(cuda_dev)
+    toks = np.random.default_rng(40).integers(0, tcfg.vocab_size, (2, 15))
+    gla0, gemm0 = gla_chunk.launches, vta_gemm.launches
+    got = _xlstm_logits(tcfg, card, toks, cuda_dev)
+    assert gla_chunk.launches == gla0 + 2          # two mLSTM layers
+    assert (vta_gemm.launches > gemm0) == quant
+    want = _xlstm_logits(tcfg, cpu, toks, "cpu")
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) <= tol
+    if quant:
+        return
+    outs = []
+    for params, dev in ((card, cuda_dev), (cpu, "cpu")):
+        eng = ServeEngine(tcfg, params, batch_slots=4, max_len=64,
+                          torch_device=dev)
+        outs.append({r.rid: r.out_tokens
+                     for r in eng.run(make_requests(tcfg, 6, 16))})
+    assert outs[0] == outs[1]
