@@ -53,14 +53,14 @@ Phases, in the order they run:
      vta_gemm's skinny instance (M <= 16) at M 1, 3, 16 and 17
      with K and N ragged; its wgmma instance (M > 16) at T 3 with M, N
      and K ragged, every epilogue, shifts 0, 9, 31 and 40, with bias, and
-     at a deep K in one slice; at every LM shape phases 8, 9 and 11
+     at a deep K in one slice; at every LM shape phases 8, 9, 11 and 12
      launched
      and at Llama-3.2-3B's prefill linears at 512 and 4096 tokens (timed,
      beside torch._int_mm, T calls for T peer tiles, with M padded to 32
      below 17 rows, the GEMM alone for an epilogue); every vta_gemm row
      bitwise equal to the plain version and over two calls;
      quantized_linear's fused route bitwise against its plain chain at
-     every (M, N, K, x dtype) phases 8, 9 and 11 served (xlstm's gates
+     every (M, N, K, x dtype) phases 8, 9, 11 and 12 served (xlstm's gates
      at N 8, K 4096 among them) and at M 17, 130,
      512 and 4096 (with a given x_scale there too), in bfloat16 and
      float32 x, on x.5 ties and an amax below 1e-6, timed beside the
@@ -156,6 +156,34 @@ Phases, in the order they run:
      operations of one sLSTM layer's 512-step prefill loop.  Its
      vta_gemm and quantized_linear shapes join phase 1 and its gla_chunk
      shapes phase 7 (timed);
+ 12. the moe models served (models/moe.py: routing in float32, the
+     sort-based capacity dispatch, the experts' torch.bmm swiglu, the
+     combine), with the counts set to 0 just before each run and read
+     just after: phi3.5-moe-42b-a6.6b at its published widths
+     (src/repro_torch/configs/phi35_moe.py: 32 layers, d 4096, 16
+     experts, top-2, expert width 6400; seed 0), its weights built on the
+     card to fit (82.41 GB under int8 PTQ, the experts bf16 as the
+     reference keeps them), by ServeEngine (4 slots, max_len 256, float32
+     caches) to the reference CLI's traffic and one 512-token prompt
+     (max_len 544) on int8 PTQ, 2 requests with bf16 attention at
+     PHI_BF16_LAYERS layers beside the same experts, and 2 through a
+     float32 model at PHI_F32_LAYERS layers; then kimi-k2-1t-a32b at its
+     published widths (384 experts, top-8, a shared expert) cut to
+     KIMI_LAYERS layers, int8, to the CLI traffic.  Each run is held to
+     its plain replays, forced to its routing as to its tokens (the
+     float32 run within LM_LOGIT_TOL, the others within twice the gap
+     between two plain replays with other attention oracles where that
+     is larger), every launch to its plain version (CheckedOps), every
+     prefill to one flash_attention and every decode step to one
+     decode_attention a layer, and both to 4 quantized_linear calls a
+     layer (7 on kimi-k2) on int8 weights and nothing else; the float32
+     matmuls may not run in TF32; records mem_get_info beside each
+     build, the share of routing decisions the plain replay made as the
+     run did, the dropped pairs (by layer for the long prompt), and one
+     profiled decode step of each int8 model beside its byte bound, with
+     its expert FFNs timed alone.  Its
+     vta_gemm, quantized_linear, decode_attention and flash_attention
+     shapes join phases 1 and 7 (timed);
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -164,7 +192,9 @@ per-shape kernel times, the request profile, the nvcc reports) is
 written to PATH as JSON.
 """
 import argparse
+import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1817,18 +1847,36 @@ def flash_by_chunks(q, k, v, causal=True):
                                  causal=causal)
 
 
+def decode_by_heads(q, k, v, kv_len):
+    """The decode_attention op's function by the reference's head-major
+    oracle (decode_attention_ref over (B * KH, G, D) rows; plain PyTorch,
+    float32): the same math as the cache-layout oracle the plain version
+    runs, with the scale applied after the product and the normalization
+    inside the softmax."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    B, _, HQ, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+
+    def rows(t):
+        return t.permute(0, 2, 1, 3).reshape(B * KH, S, D)
+    out = decode_attention_ref(q.reshape(B * KH, HQ // KH, D), rows(k),
+                               rows(v), kv_len)
+    return out.reshape(B, 1, HQ, D)
+
+
 class PlainOps:
     """Swap the LM paths' kernel ops for their plain versions
     (flash_attention, decode_attention, quantized_linear at the name
     models/layers.py calls it by, the vta_gemm under its CPU chain, and
     the gla_chunk under Mamba2's chunked_gla), for the duration of the
     block; with scan="recurrence" the scan is gla_by_recurrence, with
-    flash="chunked" the prefill attention is flash_by_chunks.
+    flash="chunked" the prefill attention is flash_by_chunks, with
+    decode="heads" the decode attention is decode_by_heads.
     serve_run holds every kernel op's launch count still across a plain
     replay."""
 
-    def __init__(self, scan="chunked", flash="plain"):
-        self.scan, self.flash = scan, flash
+    def __init__(self, scan="chunked", flash="plain", decode="plain"):
+        self.scan, self.flash, self.decode = scan, flash, decode
 
     @staticmethod
     def _sites():
@@ -1854,7 +1902,9 @@ class PlainOps:
         from repro_torch.kernels.vta_gemm import (quantized_linear_ref,
                                                   vta_gemm_ref)
         self._swap([flash_attention_plain if self.flash == "plain"
-                    else flash_by_chunks, decode_attention_ref_4d,
+                    else flash_by_chunks,
+                    decode_attention_ref_4d if self.decode == "plain"
+                    else decode_by_heads,
                     quantized_linear_ref, vta_gemm_ref,
                     gla_chunk_plain if self.scan == "chunked"
                     else gla_by_recurrence])
@@ -2037,11 +2087,14 @@ FLOOR_REPLAYS = {
                    dict(scan="recurrence")),
     "chunked_flash": ("materialized and chunked attention oracles",
                       dict(flash="chunked")),
+    "attention_oracles": ("materialized and chunked prefill attention, "
+                          "cache-layout and head-major decode attention",
+                          dict(flash="chunked", decode="heads")),
 }
 
 
 def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
-              max_len=LM_MAX_LEN, floor=None):
+              max_len=LM_MAX_LEN, floor=None, forcing=None):
     """Serve `requests()` with the counts set to 0 just before and read
     just after; replay them with PlainOps, teacher-forced on the kernel
     run's tokens (no kernel op may launch in a replay), every call's
@@ -2049,8 +2102,9 @@ def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
     FLOOR_REPLAYS), a second plain replay measures the model's own
     rounding floor, the largest gap between the two plain runs; where
     twice that floor exceeds LM_LOGIT_TOL, the kernel run is held to
-    twice the floor instead.  Returns the run's summary, with its launch
-    counts."""
+    twice the floor instead.  `forcing`, where given, makes a context
+    entered around each replay (phase 12's forces the kernel run's
+    routing).  Returns the run's summary, with its launch counts."""
     import torch
     eng = lm_engine(cfg, params, counters, slots=slots, max_len=max_len)
     reqs = requests()
@@ -2060,6 +2114,9 @@ def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counters.read()
+    # only the logits and tokens are compared: each run's caches go before
+    # the next run's are made (phase 12's weights leave about 1 GB free)
+    eng.caches = None
     # flash_attention's two kernels by dtype: wgmma for bf16, FMA for f32
     flash_by_dtype = {}
     for key, n in counters.ops["flash_attention"].shapes.items():
@@ -2072,10 +2129,12 @@ def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
     def replay(**kind):
         """The plain replay, teacher-forced; no kernel op launches."""
         before = {k: op.launches for k, op in counters.ops.items()}
-        with PlainOps(**kind):
+        with PlainOps(**kind), \
+                (forcing() if forcing else contextlib.nullcontext()):
             eng_p = lm_engine(cfg, params, counters, forced=eng.chosen,
                               slots=slots, max_len=max_len)
             eng_p.run(requests())
+        eng_p.caches = None
         moved = {k: op.launches - before[k]
                  for k, op in counters.ops.items()
                  if op.launches != before[k]}
@@ -2639,6 +2698,525 @@ def phase_xlstm(rec, counters):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 12: the moe models served (phi3.5-moe, kimi-k2)
+# ----------------------------------------------------------------------
+PHI_ARCH, KIMI_ARCH = "phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"
+MOE_SLOTS, MOE_MAX_LEN = 4, 256
+#: phi3.5-moe's long prompt (capacity 80 a layer), served with caches of
+#: MOE_LONG_MAX_LEN rows: the prompt and 16 new tokens, rounded up to 32
+MOE_LONG_PROMPT, MOE_LONG_MAX_LEN = 512, 544
+#: the bf16 phi3.5-moe run's depth, the largest that fits: its bf16
+#: attention (84 MB a layer) takes the int8 attention's place beside the
+#: same 32 layers of experts.  Measured on an H100 80GB HBM3 (85.02 GB by
+#: mem_get_info): 3.01-3.11 GB free once the int8 attention is gone; 32
+#: layers leave 0.03 GB and the run's caches do not fit (out of memory);
+#: 31 leave 0.13 GB and run, at a peak of 84.05 GB allocated
+PHI_BF16_LAYERS = 31
+#: the float32 run's depth: phi3.5-moe's 32 layers would take 161 GB in
+#: float32, 4 take 20.1 GB of experts
+PHI_F32_LAYERS = 4
+#: kimi-k2's depth: each of its 61 layers holds 33.8 GB of bf16 experts,
+#: so 2 fit on one 80 GB card beside its 4.7 GB embedding and head
+KIMI_LAYERS = 2
+
+
+def mem_gb():
+    """(free, total) device memory in GB (torch.cuda.mem_get_info)."""
+    import torch
+    free, total = torch.cuda.mem_get_info()
+    return free / 1e9, total / 1e9
+
+
+def free_device_memory():
+    """Drop the compile cache's programs (each holds its device image,
+    256 MB by default) and what nothing references any more (lm_engine's
+    Engine classes hold their weights in a reference cycle, freed only
+    by the cyclic collector), and return the cached blocks to the card."""
+    import gc
+    import torch
+    from repro_torch.core.program import clear_compile_cache
+    clear_compile_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_attention(gen, cfg, quantized):
+    """cfg.n_layers layers of attention (attn_init: the reference's
+    distributions) drawn one layer at a time into stacks: bf16 {"w": (L,
+    K, N)}, or with `quantized` their int8 PTQ as quantize_params stores
+    it ({"w_q": (L, K, N), a view of contiguous (L, N, K), "w_scale": (L,
+    N)}), each layer quantized before the next is drawn.  So no float32
+    or bf16 stack of every layer exists beside the model."""
+    import torch
+    from repro_torch.models.attention import attn_init
+    from repro_torch.models.layers import quantize_linear_params
+    L = cfg.n_layers
+    stacks = {}
+    for i in range(L):
+        for name, lin in attn_init(gen, cfg, torch.device(DEVICE)).items():
+            if quantized:
+                q = quantize_linear_params(lin)
+                lin = {"w_q": q["w_q"].t(), "w_scale": q["w_scale"]}
+            for leaf, t in lin.items():
+                if i == 0:
+                    stacks.setdefault(name, {})[leaf] = torch.empty(
+                        (L,) + tuple(t.shape), dtype=t.dtype, device=DEVICE)
+                stacks[name][leaf][i] = t
+    if quantized:
+        for s in stacks.values():
+            s["w_q"] = s["w_q"].transpose(1, 2)
+    return stacks
+
+
+def moe_weights(arch, n_layers, dtype=None, quantized=True):
+    """`arch` at its published widths cut to `n_layers` (in `dtype` where
+    given), random weights from torch.Generator seed 0 with the
+    reference's distributions, built on the card to fit: the embedding,
+    head and final norm by init_params, then the layer stack: the norms,
+    the attention by moe_attention (int8 where `quantized`), the experts
+    by moe_init (straight into the model's dtype, one (d, f) matrix at a
+    time) and, where `quantized`, kimi-k2's shared expert quantized
+    (quantize_params).  Returns (cfg, tree, generator, record), the record
+    with the build's seconds and mem_get_info before and after."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import norm_init
+    from repro_torch.models.moe import moe_init
+    from repro_torch.models.quantized import quantize_params
+    cfg = get_arch(arch).model.replace(
+        n_layers=n_layers, **({} if dtype is None else {"dtype": dtype}))
+    dev, lead = torch.device(DEVICE), (n_layers,)
+    before = mem_gb()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    with torch.inference_mode():
+        tree = T.init_params(cfg.replace(n_layers=0), gen,
+                             torch_device=dev).tree()
+        tree["layers"] = {"moe": {
+            "ln1": norm_init(cfg, cfg.d_model, dev, lead),
+            "attn": moe_attention(gen, cfg, quantized),
+            "ln2": norm_init(cfg, cfg.d_model, dev, lead),
+            "moe": moe_init(gen, cfg, dev, lead)}}
+        if quantized:
+            tree = quantize_params(tree).tree()
+    torch.cuda.synchronize()
+    build = dict(arch=arch, n_layers=n_layers, dtype=cfg.dtype,
+                 quantized=quantized, seconds=time.perf_counter() - t0,
+                 weight_gb=tree_bytes(tree) / 1e9,
+                 mem_free_total_gb_before=before,
+                 mem_free_total_gb_after=mem_gb())
+    log(f"  {arch}, {n_layers} layers, {cfg.dtype}"
+        f"{', int8 PTQ' if quantized else ''}: {build['weight_gb']:.3f} GB "
+        f"of weights built in {build['seconds']:.1f} s; mem_get_info free "
+        f"/ total {before[0]:.3f} / {before[1]:.3f} GB before, "
+        f"{build['mem_free_total_gb_after'][0]:.3f} GB free after")
+    return cfg, tree, gen, build
+
+
+def first_layers(tree, n):
+    """Views of the first `n` layers of a stacked layer tree."""
+    return {k: first_layers(v, n) if isinstance(v, dict) else v[:n]
+            for k, v in tree.items()}
+
+
+def moe_capacity(cfg, tokens):
+    """The capacity of each expert when `tokens` tokens are routed."""
+    from repro_torch.models.moe import _capacity
+    return _capacity(tokens, cfg.moe_top_k, cfg.moe_experts,
+                     cfg.moe_capacity_factor)
+
+
+def tree_bytes(tree, skip=()):
+    """The bytes of a weight tree's tensors, the top-level keys in `skip`
+    left out."""
+    total = 0
+    for k, v in tree.items():
+        if k in skip:
+            continue
+        total += tree_bytes(v) if isinstance(v, dict) \
+            else v.numel() * v.element_size()
+    return total
+
+
+def moe_launches(cfg, quantized):
+    """The launches one prefill and one decode step must make: per layer
+    one flash_attention (prefill) or decode_attention (decode), and with
+    int8 weights one quantized_linear call, one vta_gemm count, per
+    quantized linear (wq, wk, wv, wo; kimi-k2's shared expert's wi, wg,
+    wo); no other kernel (routing, dispatch, the experts' torch.bmm FFN
+    and the combine are PyTorch operations, as the reference's are jnp)."""
+    L = cfg.n_layers
+    gemms = L * (4 + 3 * cfg.n_shared_experts) * int(quantized)
+    none = {k: 0 for k in ("tensor_alu", "tensor_alu_scatter", "lut_gemm",
+                           "gla_chunk")}
+    return (dict(none, flash_attention=L, decode_attention=0,
+                 vta_gemm=gemms),
+            dict(none, flash_attention=0, decode_attention=L,
+                 vta_gemm=gemms))
+
+
+class RouteLog:
+    """While active, wrap models/moe.py's _route and dispatch_plan (moe_apply
+    looks both up when it runs).  In the served run, record every moe
+    layer call's routing (its top-k expert ids) and the pairs its
+    dispatch plan drops.  Inside `forcing()` (around each teacher-forced
+    replay), the replay's calls take the served run's routing, call by
+    call, as its tokens are the served run's: each call still computes
+    its own top k, which is recorded, and its gates are its own
+    probabilities at the forced experts, renormalized as _route does.  So
+    a routing decision near its boundary, which a rounding difference may
+    flip, moves no logit, and the replay's own choices give the share of
+    decisions on which it agrees with the served run."""
+
+    def __enter__(self):
+        import repro_torch.models.moe as moe
+        self.mod, self.real = moe, (moe._route, moe.dispatch_plan)
+        self.routes, self.drops, self.own = [], [], []
+        self.at = None            # the replay's next call, inside forcing()
+
+        def route(cfg, xt, w):
+            import torch
+            top_i, top_g, aux = self.real[0](cfg, xt, w)
+            if self.at is None:
+                self.routes.append(top_i.clone())
+                return top_i, top_g, aux
+            if self.at >= len(self.routes):
+                fail("a replay made more moe layer calls than the served "
+                     "run")
+            want = self.routes[self.at]
+            self.at += 1
+            self.own.append(top_i.clone())
+            probs = torch.softmax(xt.to(torch.float32) @ w, dim=-1)
+            g = probs.gather(-1, want)
+            return want, g / g.sum(-1, keepdim=True).clamp_min(1e-9), aux
+
+        def plan(flat_e, n_experts, C):
+            out = self.real[1](flat_e, n_experts, C)
+            if self.at is None:
+                self.drops.append((flat_e.numel(), (~out[2]).sum()))
+            return out
+        moe._route, moe.dispatch_plan = route, plan
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._route, self.mod.dispatch_plan = self.real
+        return False
+
+    @contextlib.contextmanager
+    def forcing(self):
+        self.at = 0
+        try:
+            yield
+        finally:
+            at, self.at = self.at, None
+        if at != len(self.routes):
+            fail(f"a replay made {at} moe layer calls, the served run "
+                 f"{len(self.routes)}")
+
+    def agreement(self):
+        """The share of (token, layer) routing decisions (top-k sets) the
+        first replay made as the served run did."""
+        same = rows = 0
+        for a, b in zip(self.routes, self.own):
+            same += int((a.sort(-1).values == b.sort(-1).values)
+                        .all(-1).sum())
+            rows += a.shape[0]
+        return same / rows
+
+    def dropped(self, pairs=None):
+        """The served run's dropped pairs per moe layer call (the calls
+        routing `pairs` token-expert pairs, where given)."""
+        return [int(d) for tk, d in self.drops
+                if pairs is None or tk == pairs]
+
+
+def serve_moe(cfg, name, params, requests, counters, quantized, **kw):
+    """serve_run on a moe model, its replays forced to the kernel run's
+    routing as they are to its tokens (RouteLog: a routing decision near
+    its boundary would carry a rounding difference into an expert of its
+    own), held to twice the floor of the two attention oracles in
+    prefill and in decode where that exceeds LM_LOGIT_TOL; every prefill
+    and decode step held to moe_launches, the quantized_linear calls to
+    the vta_gemm count; with the share of routing decisions the plain
+    replay made as the kernel run did, the dropped pairs and the vta_gemm
+    device launches (one a call up to SKINNY_ROWS rows, the quantize
+    launch and the wgmma instance above)."""
+    what = f"{cfg.name} {name}"
+    with RouteLog() as routes:
+        summary = serve_run(cfg, what, params, requests, counters,
+                            floor="attention_oracles",
+                            forcing=routes.forcing, **kw)
+    want_prefill, want_step = moe_launches(cfg, quantized)
+    for which, got, want in (
+            ("prefill", summary["prefill_launches"], want_prefill),
+            ("decode step", summary["step_launches"], want_step)):
+        for i, d in enumerate(got):
+            bad = {k: d[k] for k in want if d[k] != want[k]}
+            if bad:
+                fail(f"{what}: {which} {i} launched {bad}, not {want}")
+    ql = counters.shaped["quantized_linear"].shapes
+    calls = sum(ql.values())
+    if calls != summary["launches"]["vta_gemm"]:
+        fail(f"{what}: {calls} quantized_linear calls, "
+             f"{summary['launches']['vta_gemm']} vta_gemm counts")
+    device = sum(n * (1 if M <= SKINNY_ROWS else 2)
+                 for (M, _, _, _), n in ql.items())
+    dropped = routes.dropped()
+    summary.update(quantized_linear_calls=calls,
+                   vta_gemm_device_launches=device,
+                   routing_agreement=routes.agreement(),
+                   dropped_pairs=sum(dropped), moe_layer_calls=len(dropped))
+    log(f"    routing (forced in the replays): the plain replay chose as "
+        f"the kernel run did in {summary['routing_agreement']:.4f} of "
+        f"(token, layer) decisions; "
+        f"{sum(dropped)} pairs dropped over {len(dropped)} moe layer calls;"
+        f" {calls} quantized_linear calls, {device} vta_gemm device "
+        f"launches")
+    return summary, routes
+
+
+def checked_run(cfg, name, params, requests, counters, quantized, **kw):
+    """The run again with every launch held to its plain version on the
+    same inputs (CheckedOps)."""
+    with CheckedOps() as chk:
+        lm_engine(cfg, params, counters, **kw).run(requests())
+    for k in ("flash_attention", "decode_attention") + (
+            ("quantized_linear",) if quantized else ()):
+        if not chk.calls.get(k):
+            fail(f"{cfg.name} {name}: no {k} launch checked")
+    log(f"  {cfg.name} {name}, every launch against its plain version on "
+        f"the same inputs: " + ", ".join(
+            f"{k} x{chk.calls[k]} within {v:.2e} of max|plain|"
+            for k, v in sorted(chk.worst.items())))
+    return dict(worst=chk.worst, launches=chk.calls)
+
+
+def device_busy_ms(fn, windows=3):
+    """Device busy ms of one call of fn(): every device operation's time
+    in a torch.profiler window around one call (after a warm call), the
+    largest of `windows` windows (the profiler loses records now and
+    then, and a lost record only shortens a window)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    busy = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        busy.append(sum(e.time_range.elapsed_us() for e in prof.events()
+                        if e.device_type == DeviceType.CUDA) / 1e3)
+    return max(busy)
+
+
+def expert_ffn_ms(cfg, tree, tokens):
+    """One decode step's expert FFNs (torch.bmm swiglu over every layer's
+    (E, C, d) buffer, C = _capacity(tokens, k, E, cf)) on their own:
+    device busy ms and CUDA-event ms, beside the experts' byte bound."""
+    import torch
+    from repro_torch.models.moe import _expert_ffn
+    E, C = cfg.moe_experts, moe_capacity(cfg, tokens)
+    p = tree["layers"]["moe"]["moe"]
+    g = torch.Generator(device=DEVICE).manual_seed(11)
+    buf = torch.randn((E, C, cfg.d_model), generator=g, device=DEVICE) \
+        .to(p["wi"].dtype)
+
+    def step():
+        with torch.inference_mode():
+            for i in range(cfg.n_layers):
+                _expert_ffn(buf, p["wi"][i], p["wg"][i], p["wo"][i])
+    nbytes = sum(p[w].numel() * p[w].element_size()
+                 for w in ("wi", "wg", "wo"))
+    return dict(capacity=C, device_ms=device_busy_ms(step),
+                call_ms=cuda_time_ms(step, reps=5, warmup=1),
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+
+
+def moe_profile(cfg, tree, counters, kw):
+    """lm_step_profile of one decode step beside its byte bound (every
+    weight but the embedding table read once at the memory rate) and
+    the step's expert FFNs on their own."""
+    prof = lm_step_profile(cfg, tree, counters, label=cfg.name, **kw)
+    prof["step_bytes"] = tree_bytes(tree, skip=("embed",))
+    prof["bound_ms"] = prof["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    prof["expert_ffn"] = expert_ffn_ms(cfg, tree, kw["slots"])
+    log(f"    the step's weights {prof['step_bytes'] / 1e9:.3f} GB: byte "
+        f"bound {prof['bound_ms']:.3f} ms; device busy "
+        f"{prof['device_busy_ms']:.3f} ms; its expert FFNs alone "
+        f"(C {prof['expert_ffn']['capacity']}): device "
+        f"{prof['expert_ffn']['device_ms']:.3f} ms, events "
+        f"{prof['expert_ffn']['call_ms']:.3f} ms, bound "
+        f"{prof['expert_ffn']['bound_ms']:.3f} ms")
+    return prof
+
+
+def moe_traffic(cfg, n, prompt_len=16, seed=0):
+    """n requests of `prompt_len` tokens, 16 new tokens each."""
+    from repro_torch.launch.serve import make_requests
+    return lambda: make_requests(cfg, n, LM_MAX_NEW, prompt_len=prompt_len,
+                                 seed=seed)
+
+
+def moe_serve_all(out, cfg, tree, runs, counters, quantized):
+    """Serve each (name, requests, engine kwargs) of `runs` (serve_moe),
+    then again with every launch checked (checked_run), after one warm-up
+    request; the summaries go into `out` under "<arch> <name>", with the
+    peak memory allocated since the warm-up and, for the long prompt, the
+    dropped pairs by layer."""
+    import torch
+    from repro_torch.launch.serve import make_requests
+    lm_engine(cfg, tree, counters, slots=MOE_SLOTS, max_len=MOE_MAX_LEN) \
+        .run(make_requests(cfg, 1, 2, seed=99))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for name, requests, run_kw in runs:
+        summary, routes = serve_moe(cfg, name, tree, requests, counters,
+                                    quantized, **run_kw)
+        if run_kw["max_len"] == MOE_LONG_MAX_LEN:
+            per_layer = routes.dropped(pairs=MOE_LONG_PROMPT
+                                       * cfg.moe_top_k)
+            summary["long_prompt_dropped_per_layer"] = per_layer
+            log(f"    the {MOE_LONG_PROMPT}-token prefill dropped "
+                f"{per_layer} pairs by layer (capacity "
+                f"{moe_capacity(cfg, MOE_LONG_PROMPT)} an expert)")
+        summary["launch_checks"] = checked_run(
+            cfg, name, tree, requests, counters, quantized, **run_kw)
+        summary["peak_allocated_gb"] = \
+            torch.cuda.max_memory_allocated() / 1e9
+        out[f"{cfg.name} {name}"] = summary
+
+
+def moe_phi(out, counters):
+    """phi3.5-moe at its published widths, int8 PTQ at every layer: the
+    CLI traffic and the long prompt, a profiled decode step; then bf16
+    attention in the int8 attention's place beside the same experts
+    (moe_phi_bf16)."""
+    import torch
+    cfg, tree, gen, build = moe_weights(PHI_ARCH, 32)
+    out["builds"].append(build)
+    kw = dict(slots=MOE_SLOTS, max_len=MOE_MAX_LEN)
+    moe_serve_all(out, cfg, tree, [
+        ("int8", moe_traffic(cfg, LM_REQUESTS), kw),
+        ("int8_long", moe_traffic(cfg, 1, MOE_LONG_PROMPT, seed=1),
+         dict(slots=MOE_SLOTS, max_len=MOE_LONG_MAX_LEN))],
+        counters, quantized=True)
+    out[f"{cfg.name} profile"] = moe_profile(cfg, tree, counters, kw)
+    moe_phi_bf16(out, counters, cfg, tree, gen)
+
+
+def moe_phi_bf16(out, counters, cfg, tree, gen):
+    """The bf16 phi3.5-moe run: the int8 attention of `tree` freed, bf16
+    attention drawn for PHI_BF16_LAYERS layers in its place beside the
+    same experts (views of their first PHI_BF16_LAYERS layers), 2
+    requests."""
+    import torch
+    layer = tree["layers"]["moe"]
+    layer["attn"] = None
+    free_device_memory()
+    before = mem_gb()
+    t0 = time.perf_counter()
+    cfg_bf = cfg.replace(n_layers=PHI_BF16_LAYERS)
+    with torch.inference_mode():
+        attn_bf = moe_attention(gen, cfg_bf, quantized=False)
+    torch.cuda.synchronize()
+    tree_bf = dict(tree, layers={"moe": dict(first_layers(
+        {k: v for k, v in layer.items() if k != "attn"}, PHI_BF16_LAYERS),
+        attn=attn_bf)})
+    out["builds"].append(dict(arch=PHI_ARCH, n_layers=PHI_BF16_LAYERS,
+                              what="bf16 attention in place of int8",
+                              seconds=time.perf_counter() - t0,
+                              weight_gb=tree_bytes(tree_bf) / 1e9,
+                              mem_free_total_gb_before=before,
+                              mem_free_total_gb_after=mem_gb()))
+    log(f"  {PHI_ARCH} bf16 attention at {PHI_BF16_LAYERS} layers in the "
+        f"int8 attention's place: {tree_bytes(tree_bf) / 1e9:.3f} GB of "
+        f"weights; mem_get_info free {before[0]:.3f} GB before, "
+        f"{mem_gb()[0]:.3f} GB after")
+    moe_serve_all(out, cfg_bf, tree_bf, [
+        ("bf16", moe_traffic(cfg, LM_BF16_REQUESTS),
+         dict(slots=MOE_SLOTS, max_len=MOE_MAX_LEN))],
+        counters, quantized=False)
+
+
+def moe_phi_f32(out, counters):
+    """phi3.5-moe in float32 at its published widths and PHI_F32_LAYERS
+    layers, 2 requests: the end-to-end check that stays sharp."""
+    cfg, tree, _, build = moe_weights(PHI_ARCH, PHI_F32_LAYERS,
+                                      dtype="float32", quantized=False)
+    out["builds"].append(build)
+    moe_serve_all(out, cfg, tree, [
+        ("f32", moe_traffic(cfg, LM_BF16_REQUESTS),
+         dict(slots=MOE_SLOTS, max_len=MOE_MAX_LEN))],
+        counters, quantized=False)
+
+
+def moe_kimi(out, counters):
+    """kimi-k2 at its published widths cut to KIMI_LAYERS layers, int8
+    PTQ, the CLI traffic, a profiled decode step."""
+    cfg, tree, _, build = moe_weights(KIMI_ARCH, KIMI_LAYERS)
+    out["builds"].append(build)
+    kw = dict(slots=MOE_SLOTS, max_len=MOE_MAX_LEN)
+    moe_serve_all(out, cfg, tree, [
+        ("int8", moe_traffic(cfg, LM_REQUESTS), kw)], counters,
+        quantized=True)
+    out[f"{cfg.name} profile"] = moe_profile(cfg, tree, counters, kw)
+
+
+def phase_moe(rec, counters):
+    """phi3.5-moe at its published widths (32 layers, d 4096, 32/8 heads
+    at hd 128, 16 experts, top-2, expert width 6400, layernorm, vocab
+    32064, bf16) on seed-0 weights built to fit (moe_weights): int8 PTQ
+    served by ServeEngine(4 slots, max_len 256, float32 caches) to the
+    reference CLI's traffic (6 requests, 16-token prompts, 16 new tokens
+    each), then one request with a 512-token prompt (max_len 544); then
+    bf16 attention in the int8 attention's place beside the same experts
+    (PHI_BF16_LAYERS layers), 2 requests; then a float32 model at
+    PHI_F32_LAYERS layers, 2 requests; then kimi-k2 at its published
+    widths (d 7168, 64/8 heads, 384 experts, top-8, expert width 2048,
+    one shared expert, rmsnorm, vocab 163840) cut to KIMI_LAYERS layers,
+    int8, to the CLI traffic.  Each run is held to its teacher-forced
+    plain replays (serve_moe), every launch of it to its plain version
+    (checked_run), every prefill and decode step to moe_launches; the
+    float32 matmuls must not run in TF32 (the router's logits are
+    float32).  Records the builds' seconds and mem_get_info, each run's
+    routing agreement and dropped pairs (by layer for the long prompt),
+    and a profiled decode step of each int8 model beside its byte
+    bound.  Each model is freed before the next is built."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.get_float32_matmul_precision() != "highest":
+        fail("float32 matmuls may run in TF32: the router's float32 logits "
+             "would not be float32")
+    t_phase = time.perf_counter()
+    out = {"builds": [], "mem_free_total_gb_at_start": None}
+    for stage in (moe_phi, moe_phi_f32, moe_kimi):
+        free_device_memory()
+        if out["mem_free_total_gb_at_start"] is None:
+            out["mem_free_total_gb_at_start"] = mem_gb()
+            out["allocated_gb_at_start"] = torch.cuda.memory_allocated() / 1e9
+            log(f"  mem_get_info at the start: free / total "
+                f"{out['mem_free_total_gb_at_start'][0]:.3f} / "
+                f"{out['mem_free_total_gb_at_start'][1]:.3f} GB; "
+                f"{out['allocated_gb_at_start']:.3f} GB allocated by "
+                f"PyTorch")
+        stage(out, counters)
+    free_device_memory()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {out['seconds']:.1f} s")
+    rec["moe"] = dict(slots=MOE_SLOTS, max_len=MOE_MAX_LEN,
+                      long_max_len=MOE_LONG_MAX_LEN, max_new=LM_MAX_NEW,
+                      phi_bf16_layers=PHI_BF16_LAYERS,
+                      phi_f32_layers=PHI_F32_LAYERS,
+                      kimi_layers=KIMI_LAYERS, **out)
+    return out
+
+
+
+
 def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
     """The larger of the bytes (q and k once, counted once where they are
     broadcast over heads; v, la and h0 read; y and h written) at the
@@ -2896,6 +3474,12 @@ def main():
     ap.add_argument("--record", type=Path, default=None,
                     help="write the detailed record to this JSON file")
     args = ap.parse_args()
+    # the allocator maps and unmaps pages of one growing segment, so a
+    # small tensor left behind cannot pin a freed model's whole segment:
+    # phase 12's phi3.5-moe needs 82.4 of the card's 85.0 GB after
+    # phases 1-11 have come and gone (read before torch touches the card)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     try:
         import torch
     except ImportError:
@@ -2983,6 +3567,7 @@ def main():
     phase_vta_linear(rec)
     decode_step_profile(rec, dec4, c4)
     counters.read()
+    del dec4, c4        # the decoder's device image: phase 12 needs the room
 
     # every shape a decode or phase-6 path launched that the sets above
     # lack is held against the plain version too (count 0: checked, not
@@ -3088,6 +3673,29 @@ def main():
     rec["xlstm_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                            for k, v in counters.shapes.items()}
 
+    # ---- phase 12: the moe models served (counts from 0 before each run) -
+    log("phase 12: the moe models served (phi3.5-moe at full width, int8 "
+        "PTQ, bf16 and float32; kimi-k2 at full width cut to "
+        f"{KIMI_LAYERS} layers, int8 PTQ; ServeEngine)")
+    counters.clear_shapes()
+    moe = phase_moe(rec, counters)
+    moe_runs = {name: r for name, r in moe.items()
+                if isinstance(r, dict) and "launches" in r}
+    moe_launches = {k: sum(r["launches"][k] for r in moe_runs.values())
+                    for k in counters.ops}
+    for k in ("flash_attention", "decode_attention", "vta_gemm"):
+        if moe_launches[k] <= 0:
+            fail(f"{k} was never launched on the moe serve path")
+    # the moe path's shapes are timed in phases 1 and 7 too
+    for main_set, k in ((gemm_shapes, "vta_gemm"),
+                        (attn_shapes, "decode_attention"),
+                        (flash_shapes, "flash_attention"),
+                        (ql_shapes, "quantized_linear")):
+        for sh, n in counters.shapes[k].items():
+            main_set[sh] = main_set.get(sh, 0) + n
+    rec["moe_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
+                         for k, v in counters.shapes.items()}
+
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
@@ -3131,6 +3739,7 @@ def main():
              hybrid_serve_launches=hy_launches["vta_gemm"],
              autotune_launches=at_launches["vta_gemm"],
              xlstm_serve_launches=xl_launches["vta_gemm"],
+             moe_serve_launches=moe_launches["vta_gemm"],
              max_abs_err=g_err,
              ms=g["ms"], call_ms=g["call_ms"], plain_ms=g["plain_ms"],
              bound_ms=g["bound_ms"],
@@ -3190,6 +3799,7 @@ def main():
              launches=decode_launches["decode_attention"],
              lm_serve_launches=lm_launches["decode_attention"],
              hybrid_serve_launches=hy_launches["decode_attention"],
+             moe_serve_launches=moe_launches["decode_attention"],
              max_abs_err=d_err["float32"],
              max_abs_err_bf16=d_err["bfloat16"],
              ms=dg["ms"], call_ms=dg["call_ms"], plain_ms=dg["plain_ms"],
@@ -3225,6 +3835,8 @@ def main():
             instance="wgmma" if dt == "bfloat16" else "tf32x3",
             hybrid_serve_launches=sum(h["flash_by_dtype"].get(dt, 0)
                                       for h in hy_summaries),
+            moe_serve_launches=sum(r["flash_by_dtype"].get(dt, 0)
+                                   for r in moe_runs.values()),
             max_abs_err=f_err[dt],
             ms=fg["ms"], call_ms=fg["call_ms"], plain_ms=fg["plain_ms"],
             bound_ms=fg["bound_ms"], bound_by=fg["bound_by"],

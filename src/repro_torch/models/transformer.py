@@ -1,9 +1,11 @@
 """The LM for the dense family (olmo-1b, llama3.2-3b, minitron-8b,
-starcoder2-7b), the hybrid Mamba2 family (zamba2-1.2b) and xlstm-1.3b:
-parameters, caches, prefill and decode.
+starcoder2-7b), the moe family (phi3.5-moe, kimi-k2), the hybrid Mamba2
+family (zamba2-1.2b) and xlstm-1.3b: parameters, caches, prefill and
+decode.
 
 The port of the serving half of the reference's ``models/transformer.py``
-for the ``"attn"``, ``"mamba2"``, ``"mamba2_sharedattn"`` (which applies
+for the ``"attn"``, ``"moe"`` (attention, then the mixture of experts in
+place of the MLP), ``"mamba2"``, ``"mamba2_sharedattn"`` (which applies
 one globally shared attention block, with a KV cache of its own per
 application), ``"mlstm"`` and ``"slstm"`` block types (each pre-norm with
 a residual and no MLP; their caches are float32 whatever dtype the other
@@ -16,8 +18,8 @@ over the stacked layers; here a Python loop indexes them, and caches are
 updated in place.
 
 Not ported yet (``NotImplementedError`` names the ROADMAP item): the
-moe block type, the vision and audio frontends, the whisper encoder and
-cross-attention, and training (``forward_train``).
+vision and audio frontends, the whisper encoder and cross-attention, and
+training (``forward_train``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from torch import nn
 from repro_torch.core.driver import TorchDeviceLike, resolve_torch_device
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from . import xlstm as xlstm_mod
 from .config import ModelConfig
@@ -39,9 +42,6 @@ Params = Dict[str, Any]
 
 _NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 4: the encoder, "
                "cross-attention and frontends)")
-_NOT_PORTED_MOE = ("is not ported yet (ROADMAP Queue 1 item 3: the moe "
-                   "block, models/moe.py)")
-_PORTED_BLOCKS = {"attn", "mamba2", "mamba2_sharedattn", "mlstm", "slstm"}
 
 
 class LMParams(nn.Module):
@@ -66,10 +66,6 @@ class LMParams(nn.Module):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    kinds = set(cfg.block_pattern())
-    if not kinds <= _PORTED_BLOCKS:
-        raise NotImplementedError(f"block types {sorted(kinds)} of "
-                                  f"{cfg.name}: {_NOT_PORTED_MOE}")
     if cfg.encoder_layers:
         raise NotImplementedError(f"the encoder of {cfg.name}: {_NOT_PORTED}")
     if cfg.frontend != "none":
@@ -93,6 +89,11 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str, n: int,
     if btype == "slstm":
         return {"ln1": norm_init(cfg, d, device, lead),
                 "slstm": xlstm_mod.slstm_init(gen, cfg, device, lead)}
+    if btype == "moe":
+        return {"ln1": norm_init(cfg, d, device, lead),
+                "attn": attn.attn_init(gen, cfg, device, lead),
+                "ln2": norm_init(cfg, d, device, lead),
+                "moe": moe_mod.moe_init(gen, cfg, device, lead)}
     return {"ln1": norm_init(cfg, d, device, lead),
             "attn": attn.attn_init(gen, cfg, device, lead),
             "ln2": norm_init(cfg, d, device, lead),
@@ -102,7 +103,7 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str, n: int,
 def _block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
                  dtype: torch.dtype, device: torch.device,
                  n: int) -> Params:
-    if btype == "attn":
+    if btype in ("attn", "moe"):
         return {"kv": attn.init_kv_cache(cfg, batch, max_len, dtype, device,
                                          (n,))}
     if btype == "mlstm":
@@ -120,8 +121,9 @@ def _block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
 
 def _attn_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
               kv: Params, pos: Optional[int]) -> torch.Tensor:
-    """Pre-norm attention then MLP, each with its residual; `kv` is
-    updated in place."""
+    """Pre-norm attention then the MLP (the mixture of experts where the
+    block has one), each with its residual; `kv` is updated in place.  The
+    moe layer's aux loss is a training term: serving drops it."""
     h = norm_apply(cfg, p["ln1"], x)
     if mode == "prefill":
         o, _ = attn.attn_prefill(p["attn"], cfg, h, kv)
@@ -129,6 +131,9 @@ def _attn_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
         o, _ = attn.attn_decode(p["attn"], cfg, h, kv, pos)
     x = x + o
     h = norm_apply(cfg, p["ln2"], x)
+    if "moe" in p:
+        o, _ = moe_mod.moe_apply(p["moe"], cfg, h)
+        return x + o
     return x + mlp_apply(p["mlp"], h, cfg)
 
 
@@ -137,7 +142,7 @@ def _block_apply(p: Params, cfg: ModelConfig, btype: str, x: torch.Tensor,
                  shared_p: Optional[Params] = None) -> torch.Tensor:
     """One block on x in `mode` ("prefill" or "decode"); its cache is
     updated in place.  `shared_p` is zamba2's shared attention block."""
-    if btype == "attn":
+    if btype in ("attn", "moe"):
         return _attn_mlp(p, cfg, x, mode, cache["kv"], pos)
     h = norm_apply(cfg, p["ln1"], x)
     if btype in ("mlstm", "slstm"):

@@ -14,7 +14,8 @@ unit-scale inputs; bfloat16, compared in float32, within 2^-6 * max|want|
 output's scale; two calls on the same inputs are bitwise equal (no
 float atomics; the split length is fixed by S, so a host and a device
 kv_len split alike).  The same holds for a bfloat16 query over
-float32 caches and for G = 9 query heads per kv head (starcoder2-7b).
+float32 caches, for G = 9 query heads per kv head (starcoder2-7b) and
+for kimi-k2's G = 8 at its decode step.
 ``flash_attention`` against its plain version: float32 within 1e-5
 absolute on unit-normal inputs (the 3xTF32 kernel: sums in another
 order, a running softmax over 32- or 64-key tiles), bfloat16 within 2^-6
@@ -553,8 +554,10 @@ def test_decode_attention_kernel_matches_plain(cuda_dev, B, S, HQ, KH, D,
     (torch.bfloat16, torch.float32)], ids=["f32", "bf16", "bf16q-f32kv"])
 @pytest.mark.parametrize("B,S,HQ,KH,D", [(1, 96, 2, 2, 32),
                                          (1, 4096, 24, 8, 128),
-                                         (2, 300, 36, 4, 128)],
-                         ids=["decoder", "llama", "starcoder2-G9"])
+                                         (2, 300, 36, 4, 128),
+                                         (4, 256, 64, 8, 128)],
+                         ids=["decoder", "llama", "starcoder2-G9",
+                              "kimi-k2-G8"])
 def test_decode_attention_any_group_and_mixed_dtype(cuda_dev, B, S, HQ, KH,
                                                     D, q_dtype, kv_dtype):
     """The repaired kernel: G = 9 and a query of another dtype than the
@@ -1024,7 +1027,7 @@ def test_engine_byte_equal_to_simulator_at_autotuner_tiles(cuda_dev, tile,
     np.testing.assert_array_equal(c(backend="cuda", **feeds), refs["y"])
 
 
-def _xlstm_logits(tcfg, params, toks, dev):
+def _served_logits(tcfg, params, toks, dev):
     """Prefill 12 tokens then 3 decode steps, teacher-forced on `toks`
     (B, 15): each call's logits, on the CPU."""
     from repro_torch.models import transformer as TT
@@ -1063,10 +1066,54 @@ def test_reduced_xlstm_served_on_the_card(cuda_dev, quant, tol):
     card = TT.LMParams({k: v for k, v in cpu.tree().items()}).to(cuda_dev)
     toks = np.random.default_rng(40).integers(0, tcfg.vocab_size, (2, 15))
     gla0, gemm0 = gla_chunk.launches, vta_gemm.launches
-    got = _xlstm_logits(tcfg, card, toks, cuda_dev)
+    got = _served_logits(tcfg, card, toks, cuda_dev)
     assert gla_chunk.launches == gla0 + 2          # two mLSTM layers
     assert (vta_gemm.launches > gemm0) == quant
-    want = _xlstm_logits(tcfg, cpu, toks, "cpu")
+    want = _served_logits(tcfg, cpu, toks, "cpu")
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max() / w.abs().max()) <= tol
+    if quant:
+        return
+    outs = []
+    for params, dev in ((card, cuda_dev), (cpu, "cpu")):
+        eng = ServeEngine(tcfg, params, batch_slots=4, max_len=64,
+                          torch_device=dev)
+        outs.append({r.rid: r.out_tokens
+                     for r in eng.run(make_requests(tcfg, 6, 16))})
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,tol", [(False, 1e-4), (True, 5e-3)],
+                         ids=["float", "int8"])
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "kimi-k2-1t-a32b"])
+def test_reduced_moe_served_on_the_card(cuda_dev, arch, quant, tol):
+    """Reduced phi3.5-moe and kimi-k2 (2 layers, 4 experts, top-2; kimi-k2
+    with a shared expert) on the card against the same model on the CPU:
+    flash_attention in every prefill layer, decode_attention in every
+    decode layer and, on int8 weights, quantized_linear (4 a layer, 7 on
+    kimi-k2) launch; the logits of a prefill and three decode steps agree
+    within `tol` of max|logit| (float: the 3xTF32 flash kernel's sums;
+    int8: an activation at a rounding tie may quantize to the next step);
+    the served tokens on float weights equal the CPU engine's."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.launch.serve import ServeEngine, make_requests
+    from repro_torch.models import transformer as TT
+    from repro_torch.models.quantized import quantize_params
+    tcfg = reduced(get_arch(arch).model)
+    cpu = TT.init_params(tcfg, 0, torch_device="cpu")
+    if quant:
+        cpu = quantize_params(cpu)
+    card = TT.LMParams({k: v for k, v in cpu.tree().items()}).to(cuda_dev)
+    toks = np.random.default_rng(41).integers(0, tcfg.vocab_size, (2, 15))
+    fa0, da0, gemm0 = (flash_attention.launches, decode_attention.launches,
+                       vta_gemm.launches)
+    got = _served_logits(tcfg, card, toks, cuda_dev)
+    assert flash_attention.launches == fa0 + 2       # two layers, a prefill
+    assert decode_attention.launches == da0 + 3 * 2
+    per_layer = 4 + 3 * tcfg.n_shared_experts
+    assert vta_gemm.launches - gemm0 == (4 * 2 * per_layer if quant else 0)
+    want = _served_logits(tcfg, cpu, toks, "cpu")
     for g, w in zip(got, want):
         assert float((g - w).abs().max() / w.abs().max()) <= tol
     if quant:

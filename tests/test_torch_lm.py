@@ -369,7 +369,6 @@ def test_logit_softcap_and_untied_head():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("phi3.5-moe-42b-a6.6b", "ROADMAP Queue 1 item 3: the moe block"),
     ("whisper-large-v3", "ROADMAP Queue 1 item 4: the encoder"),
     ("phi-3-vision-4.2b", "ROADMAP Queue 1 item 4: the encoder")])
 def test_other_families_name_their_roadmap_item(arch, item):

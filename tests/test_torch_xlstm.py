@@ -15,7 +15,10 @@ ulp or two before the first linear already, and an activation whose
 x / scale sits that close to a rounding tie quantizes to the next int8
 step in one package only: one such flip in the last layer's ``down``
 moved the logits by 1.7e-3 of max|logit| (seed 32, decode step 1; every
-other call within 2.2e-7).  Prefill(15) then one decode step against
+other call within 2.2e-7).  So the int8 run also holds every
+quantized_linear call's int8 activations to the reference's, a
+difference allowed only at such a tie
+(``torch_cases.assert_int8_activations_match``).  Prefill(15) then one decode step against
 prefill(16): 2e-3 on float weights (the reference's own limit,
 ``tests/test_arch_smoke.py``), and on int8 weights the reference's own
 gap (the activations' per-tensor scale spans 16 tokens in one case and
@@ -30,6 +33,11 @@ import numpy as np
 import pytest
 import torch
 
+import repro.kernels.vta_gemm.ops as r_vta_ops
+import repro.models.layers as RL
+import repro_torch.kernels.vta_gemm.ops as t_vta_ops
+import repro_torch.models.layers as TL
+
 from repro.configs import get_arch as r_get_arch, reduced as r_reduced
 from repro.launch import serve as R
 from repro.models import transformer as RT
@@ -40,6 +48,8 @@ from repro_torch.launch import serve as S
 from repro_torch.models import transformer as TT
 from repro_torch.models import xlstm as TX
 from repro_torch.models.quantized import quantize_params
+from torch_cases import (assert_int8_activations_match,
+                         record_int8_activations)
 
 ARCH = "xlstm-1.3b"
 CPU = torch.device("cpu")
@@ -145,9 +155,11 @@ def test_mlstm_qk_width_and_the_denominator_channel():
 # ----------------------------------------------------------------------
 @pytest.mark.parametrize("quant,tol", [(False, 1e-5), (True, 5e-3)],
                          ids=["float", "int8"])
-def test_prefill_and_decode_logits(quant, tol):
+def test_prefill_and_decode_logits(monkeypatch, quant, tol):
     rcfg, tcfg = configs()
     rp, tp = _params(rcfg, quant)
+    want_q = record_int8_activations(monkeypatch, RL, r_vta_ops)
+    got_q = record_int8_activations(monkeypatch, TL, t_vta_ops)
     toks = np.random.default_rng(32).integers(0, rcfg.vocab_size,
                                               (2, 12)).astype(np.int32)
     rc = RT.init_caches(rcfg, 2, 32, jnp.float32)
@@ -169,6 +181,9 @@ def test_prefill_and_decode_logits(quant, tol):
         errs.append(rel_err(got, want))
         tok = np.asarray(jnp.argmax(want, -1)).astype(np.int32)
     assert max(errs) <= tol, errs
+    # 7 quantized linears an mLSTM layer, 2 an sLSTM layer; 4 calls
+    assert len(got_q) == (4 * (7 * 2 + 2 * 2) if quant else 0)
+    assert_int8_activations_match(got_q, want_q)
 
 
 def _continue(prefill, decode, init, params, cfg, toks):

@@ -1,6 +1,7 @@
 """Seeded kernel inputs shared by the port's kernel tests (CPU parity in
-test_torch_kernels.py, kernel against plain version in test_torch_cuda.py).
-Imports neither JAX nor the reference package."""
+test_torch_kernels.py, kernel against plain version in test_torch_cuda.py),
+and the int8 activation check the LM tests share.  Imports neither JAX nor
+the reference package."""
 import numpy as np
 
 INT_MIN = -(1 << 31)
@@ -180,3 +181,72 @@ def scatter_case(seed, T, chain_name, batch=1, block_out=16,
         edges = np.array([-3, 0, 31, 33, INT_MIN, 40], np.int32)
         bias.reshape(T, -1)[:, :edges.size] = edges
     return grid, groups, mats, bias, chain
+
+
+# ----------------------------------------------------------------------
+# int8 activations of quantized_linear, port against reference
+# ----------------------------------------------------------------------
+def _host(a):
+    """A torch tensor or a JAX / numpy array as a numpy array (floats as
+    float32)."""
+    if hasattr(a, "detach"):
+        a = a.detach().cpu()
+        return (a.float() if a.is_floating_point() else a).numpy()
+    a = np.asarray(a)
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def record_int8_activations(monkeypatch, layers_module, gemm_module):
+    """Record every quantized_linear call a model makes: its float
+    activations x (rows, K) and the int8 operand x_q its GEMM receives.
+    `layers_module` holds the name ``quantized_linear`` that linear_apply
+    calls, `gemm_module` the name ``vta_gemm`` that the quantized_linear
+    chain calls (the port's CPU route and the reference's both).  Returns
+    the list the calls are appended to, as [x, x_q] pairs."""
+    calls = []
+    real_ql, real_gemm = layers_module.quantized_linear, gemm_module.vta_gemm
+
+    def ql(x, *args, **kw):
+        calls.append([_host(x).reshape(-1, x.shape[-1]), None])
+        return real_ql(x, *args, **kw)
+
+    def gemm(a, *args, **kw):
+        if calls and calls[-1][1] is None:
+            calls[-1][1] = _host(a)
+        return real_gemm(a, *args, **kw)
+    monkeypatch.setattr(layers_module, "quantized_linear", ql)
+    monkeypatch.setattr(gemm_module, "vta_gemm", gemm)
+    return calls
+
+
+def assert_int8_activations_match(got, want, ulps=4):
+    """Hold each quantized_linear call's int8 activations (`got`, the
+    port's record_int8_activations list) to the reference's (`want`), call
+    by call: equal, except by one step where the reference's x / x_scale
+    lies within `ulps` float32 ulps of a .5 rounding tie (there an ulp of
+    difference in x, which the two frameworks' norms and sums leave,
+    rounds to the other side).  x_scale is the reference's: max|x|
+    clamped at 1e-6, over 127, in float32.  Returns the number of such
+    tie flips."""
+    assert len(got) == len(want), (len(got), len(want))
+    flips = 0
+    for i, ((_, q_got), (x, q_want)) in enumerate(zip(got, want)):
+        assert q_got is not None and q_want is not None, i
+        assert q_got.dtype == q_want.dtype == np.int8, i
+        assert q_got.shape == q_want.shape, (i, q_got.shape, q_want.shape)
+        diff = q_got.astype(np.int32) - q_want.astype(np.int32)
+        if not diff.any():
+            continue
+        scale = np.float32(max(np.abs(x).max(), np.float32(1e-6))) \
+            / np.float32(127.0)
+        t = np.abs(x.astype(np.float64) / np.float64(scale))
+        near_tie = np.abs(t - np.floor(t) - 0.5) \
+            <= ulps * np.finfo(np.float32).eps * np.maximum(t, 1.0)
+        off = (diff != 0) & ~((np.abs(diff) == 1) & near_tie)
+        assert not off.any(), (
+            f"call {i}: {int(off.sum())} int8 activations differ from the "
+            f"reference away from a rounding tie (x / scale "
+            f"{t[off][:4].tolist()}, got {q_got[off][:4].tolist()}, want "
+            f"{q_want[off][:4].tolist()})")
+        flips += int((diff != 0).sum())
+    return flips
