@@ -184,6 +184,32 @@ Phases, in the order they run:
      its expert FFNs timed alone.  Its
      vta_gemm, quantized_linear, decode_attention and flash_attention
      shapes join phases 1 and 7 (timed);
+ 13. the encoder-decoder and vision paths, with the counts set to 0 just
+     before each run and read just after: whisper-large-v3 at its
+     published widths and full depth (src/repro_torch/configs/
+     whisper_large_v3.py: 32 encoder and 32 decoder layers, d 1280, 20
+     heads of 64, 1500 frames; seed 0) through T.prefill on 4 clips of
+     frames (N(0, 1) from a seeded torch.Generator) and 16-token prompts,
+     then 16 greedy T.decode_step calls (caches of 64 rows), on int8 PTQ
+     over float32 caches (the step's cross-attention a bfloat16 query
+     over float32 K/V: the mixed-dtype flash route), bf16 over bf16
+     caches and a float32 model; ServeEngine refusing it; then
+     phi-3-vision-4.2b at its published widths and full depth
+     (configs/phi3_vision.py: 32 layers, d 3072, 32 heads of 96, 576
+     patches) the same way on 2 images of patch embeddings and 16 text
+     tokens each (caches of 640 rows; int8, bf16 over bf16 caches,
+     float32), and on tokens alone through ServeEngine to the reference
+     CLI's traffic (int8).  Each run held to its teacher-forced plain
+     replays (the float32 runs within LM_LOGIT_TOL, the others within
+     twice the gap between two plain replays with other attention
+     oracles where that is larger), every launch to its plain version
+     (CheckedOps), every prefill and step to encdec_launches; records
+     mem_get_info beside each build, whisper's encoder ms apart from the
+     prefill, and one profiled int8 decode step of each model beside its
+     byte bound (step_bytes).  Its vta_gemm, quantized_linear,
+     decode_attention and flash_attention shapes join phases 1 and 7
+     (timed; the mixed-dtype flash shapes under the dtype
+     "bfloat16/float32");
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -1688,12 +1714,14 @@ def flash_f64(q, k, v, causal, rows=1024):
     return out
 
 
-def flash_bound_ms(B, S, Sk, HQ, KH, D, causal, elt):
+def flash_bound_ms(B, S, Sk, HQ, KH, D, causal, elt, kv_elt=None):
     """The larger of the operations (4 B HQ S Sk D, halved when causal) at
     the bf16 dense tensor-core peak and the bytes (q, k, v read once, out
-    written once) at the memory rate."""
+    written once; q and out of `elt` bytes an element, k and v of
+    `kv_elt`, default the same) at the memory rate."""
     ops = 4 * B * HQ * S * Sk * D / (2 if causal else 1)
-    nbytes = (2 * B * S * HQ * D + 2 * B * Sk * KH * D) * elt
+    nbytes = 2 * B * S * HQ * D * elt \
+        + 2 * B * Sk * KH * D * (kv_elt or elt)
     t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -1705,7 +1733,11 @@ def phase_flash_kernel(rec, main_shapes):
     attn_tolerance, bitwise equal over two calls; against float64
     attention (flash_f64) within FLASH_ORACLE_MULT x the error of
     scaled_dot_product_attention on the same inputs; timed at every shape
-    the LM path launched and at Llama-3.2-3B's prefill shapes."""
+    the LM path launched and at Llama-3.2-3B's prefill shapes.  A shape
+    key's dtype "bfloat16/float32" is the mixed-dtype route (a bfloat16
+    query over float32 K/V: the 3xTF32 kernel on the upcast query), held
+    to the bfloat16 tolerance; SDPA, which takes one dtype, gets the
+    query upcast there."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -1721,30 +1753,39 @@ def phase_flash_kernel(rec, main_shapes):
     cases += [((1, 77, 130, 8, 2, 128, True, "bfloat16"), 0)]
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     for (B, S, Sk, HQ, KH, D, causal, dt), launches in cases:
-        dtype = getattr(torch, dt)
+        qdt, kvdt = (dt.split("/") * 2)[:2]
+        # the kernel that runs: float32 operands anywhere take the 3xTF32
+        kdt = "float32" if "float32" in (qdt, kvdt) else "bfloat16"
         g = torch.Generator(device=dev).manual_seed(S + Sk + HQ)
-        q = torch.randn((B, S, HQ, D), generator=g, device=dev).to(dtype)
-        k = torch.randn((B, Sk, KH, D), generator=g, device=dev).to(dtype)
-        v = torch.randn((B, Sk, KH, D), generator=g, device=dev).to(dtype)
+        q = torch.randn((B, S, HQ, D), generator=g, device=dev) \
+            .to(getattr(torch, qdt))
+        k = torch.randn((B, Sk, KH, D), generator=g, device=dev) \
+            .to(getattr(torch, kvdt))
+        v = torch.randn((B, Sk, KH, D), generator=g, device=dev) \
+            .to(getattr(torch, kvdt))
         got = flash_attention(q, k, v, causal=causal)
         again = flash_attention(q, k, v, causal=causal)
         want = flash_attention_plain(q, k, v, causal=causal)
         torch.cuda.synchronize()
         err = float((got.float() - want.float()).abs().max())
-        tol = attn_tolerance(dt, want)
+        tol = attn_tolerance(qdt, want)
         if err > tol or not torch.equal(got, again):
             fail(f"flash_attention {(B, S, Sk, HQ, KH, D, causal, dt)}: "
                  f"error {err} > {tol} or not reproducible")
-        max_err[dt] = max(max_err[dt], err)
+        max_err[dt] = max(max_err.get(dt, 0.0), err)
         shape = dict(B=B, S=S, Sk=Sk, HQ=HQ, KH=KH, D=D, causal=causal,
                      dtype=dt)
         # the float64 oracle: the kernel's error beside SDPA's
         f64 = flash_f64(q, k, v, causal)
-        lib_call = sdpa_call(q, k, v, causal)
+        lib_call = sdpa_call(q if qdt == kvdt else q.to(k.dtype), k, v,
+                             causal)
         # SDPA's causal mask is aligned top-left: its output is another
         # function where Sk != S, and the plain version stands in there
         sdpa_base = lib_call is not None and (not causal or S == Sk)
-        base = lib_call().transpose(1, 2) if sdpa_base else want
+        # in the op's output dtype (q's: the mixed route rounds its float32
+        # result to bfloat16, as the plain version does)
+        base = lib_call().transpose(1, 2).to(q.dtype) if sdpa_base \
+            else want
         err64 = float((got.double() - f64).abs().max())
         base64 = float((base.double() - f64).abs().max())
         if err64 > FLASH_ORACLE_MULT * base64:
@@ -1767,7 +1808,7 @@ def phase_flash_kernel(rec, main_shapes):
         reps = 3 if big else 20
         call = lambda: flash_attention(q, k, v, causal=causal)  # noqa
         call_ms = cuda_time_ms(call, reps=reps, warmup=1)
-        ms = kernel_ms(call, FLASH_KERNEL_NAMES[dt], call_ms, reps=reps)
+        ms = kernel_ms(call, FLASH_KERNEL_NAMES[kdt], call_ms, reps=reps)
         plain = cuda_time_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal), reps=1 if big else 5, warmup=1)
         lib = lib_err = None
@@ -1776,22 +1817,25 @@ def phase_flash_kernel(rec, main_shapes):
                              - want.float()).abs().max())
             lib = cuda_time_ms(lib_call, reps=reps, warmup=1)
         bound, by = flash_bound_ms(B, S, Sk, HQ, KH, D, causal,
-                                   q.element_size())
-        if dt == "float32":
+                                   q.element_size(), k.element_size())
+        if kdt == "float32":
             # the 3xTF32 kernel's floor: three TF32 products per product
             shape["tf32x3_floor_ms"] = 3 * 4 * B * HQ * S * Sk * D / (
                 2 if causal else 1) / TF32_TENSOR_OPS_PER_S * 1e3
         rows.append(dict(shape, launches=max(launches, 0), timed=True,
-                         lm_path=launches > 0, kernel=FLASH_KERNEL_NAMES[dt],
+                         lm_path=launches > 0, kernel=FLASH_KERNEL_NAMES[kdt],
                          ms=ms, call_ms=call_ms,
                          plain_ms=plain, library_ms=lib,
+                         library_what="" if qdt == kvdt else
+                         " (q upcast to float32 before the call)",
                          library_max_abs_err=lib_err, bound_ms=bound,
                          bound_by=by, max_abs_err=err, limit=tol))
         log(f"  flash_attention B={B} S={S} Sk={Sk} HQ={HQ} KH={KH} D={D} "
             f"{'causal' if causal else 'full'} {dt}: kernel {ms:.4f} ms, "
             f"call {call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
             f"{plain:.4f} ms; sdpa "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}); max_abs_err "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}"
+            f"{rows[-1]['library_what']}); max_abs_err "
             f"{err:.3e} within {tol:.3e} "
             + (f"x{launches}" if launches > 0 else ""))
         del q, k, v, got, again, want
@@ -1952,9 +1996,13 @@ class CheckedOps(PlainOps):
                     else [(got, want)]
                 for a, b in pairs:
                     if not close(name, a, b):
+                        d = float((a.float() - b.float()).abs().max())
                         fail(f"{name} differs from its plain version at a "
                              f"launch of the served path, shapes "
-                             f"{[tuple(t.shape) for t in args[:2]]}")
+                             f"{[tuple(t.shape) for t in args[:2]]}, "
+                             f"dtypes {[str(t.dtype) for t in args[:3]]}:"
+                             f" max|difference| {d:.3e}, max|plain| "
+                             f"{float(b.float().abs().max()):.3e}")
                     rel = float((a.float() - b.float()).abs().max()
                                 / b.float().abs().max().clamp_min(1e-30))
                     self.worst[name] = max(self.worst.get(name, 0.0), rel)
@@ -2062,20 +2110,23 @@ def lm_summary(eng, done, wall_s):
                 launches_per_step=per(eng.step_launches))
 
 
-def lm_weights(arch):
-    """An arch's config at full width, its random weights from
-    torch.Generator seed 0 (the reference's distributions) on the card,
-    and their int8 PTQ; the seconds both took."""
+def lm_weights(arch, dtype=None, quantized=True):
+    """An arch's config at full width (in `dtype` where given), its random
+    weights from torch.Generator seed 0 (the reference's distributions)
+    on the card, and their int8 PTQ (None unless `quantized`); the
+    seconds both took."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as T
     from repro_torch.models.quantized import quantize_params
     cfg = get_arch(arch).model
+    if dtype is not None:
+        cfg = cfg.replace(dtype=dtype)
     t0 = time.perf_counter()
     with torch.inference_mode():
         params = T.init_params(cfg, torch.Generator(device=DEVICE)
                                .manual_seed(0), torch_device=DEVICE)
-        qparams = quantize_params(params)
+        qparams = quantize_params(params) if quantized else None
     torch.cuda.synchronize()
     return cfg, params, qparams, time.perf_counter() - t0
 
@@ -2091,6 +2142,23 @@ FLOOR_REPLAYS = {
                           "cache-layout and head-major decode attention",
                           dict(flash="chunked", decode="heads")),
 }
+
+
+def plain_replay(what, counters, run, forcing=None, **kind):
+    """run() with the kernel ops swapped for their plain versions
+    (PlainOps(**kind)), inside forcing() where given: a teacher-forced
+    replay, which fails if a kernel op launched.  Returns run()'s engine,
+    its caches dropped."""
+    before = {k: op.launches for k, op in counters.ops.items()}
+    with PlainOps(**kind), \
+            (forcing() if forcing else contextlib.nullcontext()):
+        eng = run()
+    eng.caches = None
+    moved = {k: op.launches - before[k] for k, op in counters.ops.items()
+             if op.launches != before[k]}
+    if moved:
+        fail(f"{what}: a plain replay ({kind}) launched kernels: {moved}")
+    return eng
 
 
 def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
@@ -2127,21 +2195,12 @@ def serve_run(cfg, what, params, requests, counters, slots=LM_SLOTS,
     summary = lm_summary(eng, done, wall)
 
     def replay(**kind):
-        """The plain replay, teacher-forced; no kernel op launches."""
-        before = {k: op.launches for k, op in counters.ops.items()}
-        with PlainOps(**kind), \
-                (forcing() if forcing else contextlib.nullcontext()):
+        def run():
             eng_p = lm_engine(cfg, params, counters, forced=eng.chosen,
                               slots=slots, max_len=max_len)
             eng_p.run(requests())
-        eng_p.caches = None
-        moved = {k: op.launches - before[k]
-                 for k, op in counters.ops.items()
-                 if op.launches != before[k]}
-        if moved:
-            fail(f"{what}: a plain replay ({kind}) launched kernels: "
-                 f"{moved}")
-        return eng_p
+            return eng_p
+        return plain_replay(what, counters, run, forcing, **kind)
     plain = replay()
     limit, floor_gap = LM_LOGIT_TOL, None
     if floor:
@@ -2247,22 +2306,30 @@ def lm_step_profile(cfg, params, counters, slots=LM_SLOTS,
     """Device idle share of one profiled decode step with every slot
     active (after a warm one): device busy time over the profiled wall
     time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import make_requests
     eng = lm_engine(cfg, params, counters, slots=slots, max_len=max_len)
     for r in make_requests(cfg, slots, LM_MAX_NEW, seed=7):
         eng.add_request(r)
-    eng.step()
+    return step_profile(eng.step, f"{label} decode step ({slots} slots, "
+                        f"int8)")
+
+
+def step_profile(step, label):
+    """Device idle share of one profiled call of step() (after a warm one
+    and a timed one): device busy time over the profiled wall time.
+    step() ends in a host read, as a served step does."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.step()
+    step()
     plain_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.step()
+        step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
                  if e.device_type == DeviceType.CUDA) / 1e3
@@ -2274,8 +2341,7 @@ def lm_step_profile(cfg, params, counters, slots=LM_SLOTS,
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     out = dict(step_ms=plain_ms, profiled_ms=wall_ms, device_busy_ms=dev_ms,
                idle_share=1 - dev_ms / wall_ms, top_device_ms=top)
-    log(f"  profile of one {label} decode step ({slots} slots, int8): "
-        f"{plain_ms:.2f} ms "
+    log(f"  profile of one {label}: {plain_ms:.2f} ms "
         f"({wall_ms:.2f} ms profiled); device busy {dev_ms:.3f} ms -> idle "
         f"share {1 - dev_ms / wall_ms:.4f}")
     for k, t in top[:5]:
@@ -2932,6 +2998,30 @@ class RouteLog:
                 if pairs is None or tk == pairs]
 
 
+def check_launches(what, prefill, steps, want):
+    """Every prefill and decode step's launch counts as `want` says."""
+    for which, got, need in (("prefill", prefill, want[0]),
+                             ("decode step", steps, want[1])):
+        for i, d in enumerate(got):
+            bad = {k: d[k] for k in need if d[k] != need[k]}
+            if bad:
+                fail(f"{what}: {which} {i} launched {bad}, not {need}")
+
+
+def gemm_launches(what, counters, launches):
+    """The run's quantized_linear calls, held equal to its vta_gemm count
+    (one a call), and the vta_gemm device launches they made: one a call
+    up to SKINNY_ROWS rows, the quantize launch and the wgmma instance
+    above."""
+    ql = counters.shaped["quantized_linear"].shapes
+    calls = sum(ql.values())
+    if calls != launches["vta_gemm"]:
+        fail(f"{what}: {calls} quantized_linear calls, "
+             f"{launches['vta_gemm']} vta_gemm counts")
+    return calls, sum(n * (1 if M <= SKINNY_ROWS else 2)
+                      for (M, _, _, _), n in ql.items())
+
+
 def serve_moe(cfg, name, params, requests, counters, quantized, **kw):
     """serve_run on a moe model, its replays forced to the kernel run's
     routing as they are to its tokens (RouteLog: a routing decision near
@@ -2948,21 +3038,9 @@ def serve_moe(cfg, name, params, requests, counters, quantized, **kw):
         summary = serve_run(cfg, what, params, requests, counters,
                             floor="attention_oracles",
                             forcing=routes.forcing, **kw)
-    want_prefill, want_step = moe_launches(cfg, quantized)
-    for which, got, want in (
-            ("prefill", summary["prefill_launches"], want_prefill),
-            ("decode step", summary["step_launches"], want_step)):
-        for i, d in enumerate(got):
-            bad = {k: d[k] for k in want if d[k] != want[k]}
-            if bad:
-                fail(f"{what}: {which} {i} launched {bad}, not {want}")
-    ql = counters.shaped["quantized_linear"].shapes
-    calls = sum(ql.values())
-    if calls != summary["launches"]["vta_gemm"]:
-        fail(f"{what}: {calls} quantized_linear calls, "
-             f"{summary['launches']['vta_gemm']} vta_gemm counts")
-    device = sum(n * (1 if M <= SKINNY_ROWS else 2)
-                 for (M, _, _, _), n in ql.items())
+    check_launches(what, summary["prefill_launches"],
+                   summary["step_launches"], moe_launches(cfg, quantized))
+    calls, device = gemm_launches(what, counters, summary["launches"])
     dropped = routes.dropped()
     summary.update(quantized_linear_calls=calls,
                    vta_gemm_device_launches=device,
@@ -3212,6 +3290,369 @@ def phase_moe(rec, counters):
                       phi_bf16_layers=PHI_BF16_LAYERS,
                       phi_f32_layers=PHI_F32_LAYERS,
                       kimi_layers=KIMI_LAYERS, **out)
+    return out
+
+
+# ----------------------------------------------------------------------
+# phase 13: the encoder-decoder and vision paths (whisper, phi-3-vision)
+# ----------------------------------------------------------------------
+WHISPER_ARCH, VISION_ARCH = "whisper-large-v3", "phi-3-vision-4.2b"
+#: whisper: 4 clips of frames and 16-token decoder prompts (the reference
+#: CLI's prompt length), 16 greedy steps, caches of 64 rows
+WHISPER_B, ENCDEC_PROMPT, ENCDEC_STEPS, WHISPER_MAX_LEN = 4, 16, 16, 64
+#: phi-3-vision with patches: 2 images and 16 text tokens each; its
+#: caches hold the 576 patches, the text and 16 new tokens, rounded up
+VISION_B, VISION_MAX_LEN = 2, 640
+
+
+def encdec_launches(cfg, quantized):
+    """(prefill, decode step) launches.  whisper at prefill: per encoder
+    layer one non-causal flash_attention and 6 linears (wq wk wv wo wi
+    wo); per decoder layer a causal flash_attention, a cross
+    flash_attention and 10 linears (4 self, wk wv of encode_cross_kv, wq
+    wo of the cross-attention, wi wo); a step: per layer one
+    decode_attention, one cross flash_attention (S 1) and 8 linears.
+    phi-3-vision: one flash_attention (prefill) or decode_attention (a
+    step) and 7 linears a layer.  One vta_gemm count a quantized linear,
+    none on float weights; no other kernel."""
+    L, E, q = cfg.n_layers, cfg.encoder_layers, int(quantized)
+    none = {k: 0 for k in ("tensor_alu", "tensor_alu_scatter", "lut_gemm",
+                           "gla_chunk")}
+    if E:
+        return (dict(none, flash_attention=E + 2 * L, decode_attention=0,
+                     vta_gemm=q * (6 * E + 10 * L)),
+                dict(none, flash_attention=L, decode_attention=L,
+                     vta_gemm=q * 8 * L))
+    return (dict(none, flash_attention=L, decode_attention=0,
+                 vta_gemm=q * 7 * L),
+            dict(none, flash_attention=0, decode_attention=L,
+                 vta_gemm=q * 7 * L))
+
+
+def encdec_batch(cfg, B, text=ENCDEC_PROMPT):
+    """B prompts of `text` tokens and the model's stub inputs, drawn from
+    torch.Generator seed 13 on the card: whisper's frames (B, 1500, d)
+    and phi-3-vision's patch embeddings (B, 576, d), N(0, 1) in the
+    model's dtype."""
+    import torch
+    g = torch.Generator(device=DEVICE).manual_seed(13)
+    dt = getattr(torch, cfg.dtype)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, text),
+                                     generator=g, device=DEVICE)}
+    for key, on, rows in (("frames", cfg.encoder_layers, cfg.encoder_seq),
+                          ("patch_emb", cfg.frontend == "vision_stub",
+                           cfg.n_patches)):
+        if on:
+            batch[key] = torch.randn((B, rows, cfg.d_model), generator=g,
+                                     device=DEVICE).to(dt)
+    return batch
+
+
+class EncDecDrive:
+    """One prefill of a batch through T.prefill, then ENCDEC_STEPS greedy
+    T.decode_step calls at one position (the reference's entry points),
+    on caches of `cache_dtype` and `max_len` rows.  Keeps every call's
+    logits on the card, its host ms (each ends in a host read of the
+    chosen tokens) and its launches; with `forced`, takes those tokens in
+    place of its own choice (a teacher-forced replay)."""
+
+    def __init__(self, cfg, params, batch, cache_dtype, max_len, counters,
+                 forced=None):
+        import torch
+        from repro_torch.models import transformer as T
+        self.logits, self.chosen = [], []
+        self.prefill_ms, self.step_ms = [], []
+        self.prefill_launches, self.step_launches = [], []
+        self.cfg, self.params, self.counters = cfg, params, counters
+        self.forced = forced
+        self.pos = batch["tokens"].shape[1] + (
+            batch["patch_emb"].shape[1] if "patch_emb" in batch else 0)
+        with torch.inference_mode():
+            self.caches = T.init_caches(cfg, batch["tokens"].shape[0],
+                                        max_len, cache_dtype, DEVICE)
+            self.tok = self._timed(lambda: T.prefill(
+                params, cfg, batch, self.caches)[0], self.prefill_ms,
+                self.prefill_launches)
+            for _ in range(ENCDEC_STEPS):
+                self.step()
+
+    def step(self):
+        """One greedy decode step of every row at the next position."""
+        import torch
+        from repro_torch.models import transformer as T
+
+        def call():
+            token = torch.tensor(self.tok, device=DEVICE)[:, None]
+            return T.decode_step(self.params, self.cfg, self.caches, token,
+                                 self.pos)[0]
+        with torch.inference_mode():
+            self.tok = self._timed(call, self.step_ms, self.step_launches)
+        self.pos += 1
+
+    def _timed(self, fn, ms, launches):
+        import torch
+        ops = self.counters.ops
+        before = {k: op.launches for k, op in ops.items()}
+        t0 = time.perf_counter()
+        logits = fn()[:, -1]
+        self.logits.append(logits.float().clone())
+        own = torch.argmax(logits, dim=-1).tolist()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: op.launches - before[k] for k, op in ops.items()})
+        self.chosen.append(own)
+        return own if self.forced is None \
+            else self.forced[len(self.chosen) - 1]
+
+
+def step_bytes(cfg, tree, caches, kv_len):
+    """The bytes one decode step must read: the decoder's weights (every
+    layer, the final norm and the head; not the embedding table, of which
+    it gathers B rows, nor the cross-attention's wk and wv, which only
+    prefill uses), each self-attention cache up to kv_len rows and
+    whisper's cross_kv whole."""
+    layers = tree["layers"]["attn"]
+    skip = [layers["cross"][w] for w in ("wk", "wv")] if "cross" in layers \
+        else []
+    total = tree_bytes(tree, skip=("embed", "encoder")) \
+        - sum(tree_bytes(w) for w in skip)
+    for name, c in caches["layers"]["attn"].items():
+        for t in c.values():
+            rows = t.shape[2] if name == "cross_kv" else kv_len
+            total += t[:, :, :rows].numel() * t.element_size()
+    return total
+
+
+def encdec_profile(cfg, tree, cache_dtype, max_len, batch_rows, counters):
+    """One decode step (after a prefill and its first steps) profiled
+    (step_profile) beside its byte bound (step_bytes at 3.35 TB/s)."""
+    drive = EncDecDrive(cfg, tree, encdec_batch(cfg, batch_rows),
+                        cache_dtype, max_len, counters)
+    prof = step_profile(drive.step, f"{cfg.name} decode step ({batch_rows} "
+                        f"rows, int8)")
+    prof["kv_len"] = drive.pos
+    prof["step_bytes"] = step_bytes(cfg, tree, drive.caches, drive.pos)
+    prof["bound_ms"] = prof["step_bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"    the step reads {prof['step_bytes'] / 1e9:.3f} GB: byte bound "
+        f"{prof['bound_ms']:.3f} ms; device busy "
+        f"{prof['device_busy_ms']:.3f} ms")
+    return prof
+
+
+def encoder_ms(cfg, tree, batch, reps=3):
+    """whisper's encoder alone (T._encode over the batch's frames): the
+    median of `reps` host-timed calls, each synchronized."""
+    import torch
+    from repro_torch.models import transformer as T
+    times = []
+    with torch.inference_mode():
+        for _ in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T._encode(tree, cfg, batch["frames"])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times[1:])
+
+
+def encdec_run(cfg, what, tree, batch_rows, cache_dtype, max_len, counters,
+               quantized):
+    """Prefill and ENCDEC_STEPS greedy steps (EncDecDrive) with the counts
+    set to 0 just before and read just after, every prefill and step held
+    to encdec_launches; replayed with PlainOps teacher-forced on the
+    run's tokens (no kernel may launch) and again with the other attention
+    oracles (the model's own rounding floor); the logits within
+    LM_LOGIT_TOL of the plain replay's max|logit| where the model is
+    float32, else within twice the floor where that is larger; then run
+    again with every launch held to its plain version (CheckedOps)."""
+    import torch
+    batch = lambda: encdec_batch(cfg, batch_rows)  # noqa: E731
+    counters.reset()
+    t0 = time.perf_counter()
+    run = EncDecDrive(cfg, tree, batch(), cache_dtype, max_len, counters)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    run.caches = None
+    check_launches(what, run.prefill_launches, run.step_launches,
+                   encdec_launches(cfg, quantized))
+    flash_by_dtype = {}
+    for key, n in counters.ops["flash_attention"].shapes.items():
+        flash_by_dtype[key[-1]] = flash_by_dtype.get(key[-1], 0) + n
+    calls, device = gemm_launches(what, counters, launches)
+    enc_ms = encoder_ms(cfg, tree, batch()) if cfg.encoder_layers else None
+
+    def replay(**kind):
+        return plain_replay(what, counters, lambda: EncDecDrive(
+            cfg, tree, batch(), cache_dtype, max_len, counters,
+            forced=run.chosen), **kind)
+    plain = replay()
+    floor_gap, _ = compare_logits(
+        replay(**FLOOR_REPLAYS["attention_oracles"][1]), plain, what,
+        limit=None)
+    limit = LM_LOGIT_TOL if cfg.dtype == "float32" \
+        else max(LM_LOGIT_TOL, 2 * floor_gap)
+    worst, agree = compare_logits(run, plain, what, limit=limit)
+    del plain
+    with CheckedOps() as chk:
+        EncDecDrive(cfg, tree, batch(), cache_dtype, max_len, counters)
+    for k in ("flash_attention", "decode_attention") + (
+            ("quantized_linear",) if quantized else ()):
+        if not chk.calls.get(k):
+            fail(f"{what}: no {k} launch checked")
+    rows = batch_rows * (ENCDEC_STEPS + 1)
+    st = sorted(run.step_ms)
+    summary = dict(
+        rows=batch_rows, cache_dtype=str(cache_dtype).split(".")[-1],
+        max_len=max_len, launches=launches, flash_by_dtype=flash_by_dtype,
+        launches_per_prefill=run.prefill_launches[0],
+        launches_per_step=run.step_launches[0],
+        quantized_linear_calls=calls,
+        vta_gemm_device_launches=device, wall_s=wall,
+        tokens=rows, tokens_per_s=rows / wall,
+        prefill_ms=run.prefill_ms[0], encoder_ms=enc_ms,
+        step_ms=run.step_ms, step_ms_median=statistics.median(st),
+        step_ms_p90=st[int(0.9 * (len(st) - 1))],
+        logit_max_rel_err=worst, logit_limit=limit,
+        logit_floor=floor_gap, argmax_agreement=agree,
+        launch_checks=dict(worst=chk.worst, launches=chk.calls),
+        tokens_head=[c[:4] for c in run.chosen[:8]])
+    log(f"  {what}: {rows} tokens in {wall:.2f} s "
+        f"({summary['tokens_per_s']:.1f} tokens/s); prefill "
+        f"{summary['prefill_ms']:.2f} ms"
+        + ("" if enc_ms is None else f" (the encoder alone {enc_ms:.2f} ms)")
+        + f"; decode step median {summary['step_ms_median']:.2f} ms, p90 "
+        f"{summary['step_ms_p90']:.2f} ms over {len(st)} steps")
+    log("    launches per prefill: " + ", ".join(
+        f"{k} {v}" for k, v in summary["launches_per_prefill"].items() if v)
+        + "; per decode step: " + ", ".join(
+        f"{k} {v}" for k, v in summary["launches_per_step"].items() if v)
+        + f"; {summary['quantized_linear_calls']} quantized_linear calls, "
+        f"{device} vta_gemm device launches; flash by dtype "
+        f"{flash_by_dtype}")
+    log(f"    against the plain run (teacher-forced): logits within "
+        f"{worst:.3e} of max|logit| (limit {limit:.3e}); argmax agreement "
+        f"{agree:.4f}; the two plain runs "
+        f"({FLOOR_REPLAYS['attention_oracles'][0]}) differ by "
+        f"{floor_gap:.3e}")
+    log(f"    every launch against its plain version on the same inputs: "
+        + ", ".join(f"{k} x{chk.calls[k]} within {v:.2e} of max|plain|"
+                    for k, v in sorted(chk.worst.items())))
+    return summary
+
+
+def encdec_model(out, arch, dtype, runs, counters, quantized=True):
+    """Build `arch` at its published widths and full depth (lm_weights,
+    in `dtype` where given), record the build and mem_get_info, and run
+    each (name, int8?, cache dtype, rows, max_len) of `runs`
+    (encdec_run); returns the config and the weight trees."""
+    import torch
+    free_device_memory()
+    before = mem_gb()
+    cfg, params, qparams, init_s = lm_weights(arch, dtype, quantized)
+    trees = dict(float=params.tree(),
+                 int8=qparams.tree() if quantized else None)
+    build = dict(arch=arch, dtype=cfg.dtype, n_layers=cfg.n_layers,
+                 encoder_layers=cfg.encoder_layers, seconds=init_s,
+                 weight_gb=tree_bytes(trees["float"]) / 1e9,
+                 int8_weight_gb=None if not quantized
+                 else tree_bytes(trees["int8"]) / 1e9,
+                 mem_free_total_gb_before=before,
+                 mem_free_total_gb_after=mem_gb())
+    out["builds"].append(build)
+    log(f"  {arch}, {cfg.n_layers} layers"
+        + (f" and {cfg.encoder_layers} encoder layers"
+           if cfg.encoder_layers else "")
+        + f", d {cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, "
+        f"{cfg.dtype}: {build['weight_gb']:.3f} GB of weights"
+        + ("" if not quantized else
+           f" ({build['int8_weight_gb']:.3f} GB under int8 PTQ)")
+        + f", built in {init_s:.1f} s; mem_get_info free / total "
+        f"{before[0]:.3f} / {before[1]:.3f} GB before, "
+        f"{build['mem_free_total_gb_after'][0]:.3f} GB free after")
+    for name, q, cache_dtype, rows, max_len in runs:
+        out[f"{arch} {name}"] = encdec_run(
+            cfg, f"{arch} {name}", trees["int8" if q else "float"], rows,
+            getattr(torch, cache_dtype), max_len, counters, q)
+    return cfg, trees
+
+
+def encdec_whisper(out, counters):
+    """whisper-large-v3 at full width and depth: int8 PTQ over float32
+    caches (the mixed-dtype cross route), bf16 over bf16 caches, then a
+    float32 model; a profiled int8 step; ServeEngine refuses it."""
+    import torch
+    from repro_torch.launch.serve import ServeEngine
+    cfg, trees = encdec_model(out, WHISPER_ARCH, None, [
+        ("int8", True, "float32", WHISPER_B, WHISPER_MAX_LEN),
+        ("bf16", False, "bfloat16", WHISPER_B, WHISPER_MAX_LEN)], counters)
+    out[f"{WHISPER_ARCH} profile"] = encdec_profile(
+        cfg, trees["int8"], torch.float32, WHISPER_MAX_LEN,
+        WHISPER_B, counters)
+    try:
+        ServeEngine(cfg, trees["float"], torch_device=DEVICE)
+    except ValueError as e:
+        out["whisper_serve_engine_refusal"] = str(e)
+        log(f"  ServeEngine({WHISPER_ARCH}) refuses it: {e}")
+    else:
+        fail("ServeEngine took an encoder-decoder, whose requests carry no "
+             "frames")
+    del trees
+    encdec_model(out, WHISPER_ARCH, "float32", [
+        ("f32", False, "float32", WHISPER_B, WHISPER_MAX_LEN)], counters,
+        quantized=False)
+
+
+def encdec_vision(out, counters):
+    """phi-3-vision-4.2b at full width and depth: 2 images of patches and
+    16 text tokens each through T.prefill and 16 greedy steps, int8 PTQ
+    over float32 caches and bf16 over bf16 caches, and a profiled int8
+    step; the reference CLI's traffic (tokens alone) through ServeEngine
+    on int8, held as phase 8's runs are; then a float32 model."""
+    import torch
+    from repro_torch.launch.serve import make_requests
+    cfg, trees = encdec_model(out, VISION_ARCH, None, [
+        ("int8 patches", True, "float32", VISION_B, VISION_MAX_LEN),
+        ("bf16 patches", False, "bfloat16", VISION_B, VISION_MAX_LEN)],
+        counters)
+    out[f"{VISION_ARCH} profile"] = encdec_profile(
+        cfg, trees["int8"], torch.float32, VISION_MAX_LEN, VISION_B,
+        counters)
+    what = f"{VISION_ARCH} int8 CLI traffic"
+    requests = lambda: make_requests(cfg, LM_REQUESTS, LM_MAX_NEW)  # noqa
+    summary = serve_run(cfg, what, trees["int8"], requests, counters,
+                        floor="attention_oracles")
+    check_launches(what, summary["prefill_launches"],
+                   summary["step_launches"], encdec_launches(cfg, True))
+    summary["launch_checks"] = checked_run(cfg, "int8 CLI traffic",
+                                           trees["int8"], requests,
+                                           counters, True)
+    out[what] = summary
+    del trees
+    encdec_model(out, VISION_ARCH, "float32", [
+        ("f32 patches", False, "float32", VISION_B, VISION_MAX_LEN)],
+        counters, quantized=False)
+
+
+def phase_encdec(rec, counters):
+    """whisper-large-v3 (32 encoder and 32 decoder layers, d 1280, 20
+    heads of 64, 1500 frames, layernorm, learned positions, gelu) and
+    phi-3-vision-4.2b (32 layers, d 3072, 32 heads of 96, 576 patches,
+    rmsnorm, rope, swiglu) at their published widths and full depth, seed
+    0 weights: encdec_whisper, then encdec_vision.  Each model is freed
+    before the next is built."""
+    import torch
+    t_phase = time.perf_counter()
+    out = {"builds": []}
+    encdec_whisper(out, counters)
+    encdec_vision(out, counters)
+    free_device_memory()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"  phase 13 took {out['seconds']:.1f} s")
+    rec["encdec"] = dict(whisper_rows=WHISPER_B, vision_rows=VISION_B,
+                         prompt=ENCDEC_PROMPT, steps=ENCDEC_STEPS,
+                         whisper_max_len=WHISPER_MAX_LEN,
+                         vision_max_len=VISION_MAX_LEN, **out)
     return out
 
 
@@ -3696,6 +4137,31 @@ def main():
     rec["moe_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                          for k, v in counters.shapes.items()}
 
+    # ---- phase 13: whisper and phi-3-vision (counts from 0 before each
+    # run) -------------------------------------------------------------
+    log("phase 13: the encoder-decoder and vision paths (whisper-large-v3 "
+        "and phi-3-vision-4.2b at full width and depth, int8 PTQ, bf16 and "
+        "float32; T.prefill / T.decode_step, and ServeEngine)")
+    counters.clear_shapes()
+    ed = phase_encdec(rec, counters)
+    ed_runs = {name: r for name, r in ed.items()
+               if isinstance(r, dict) and "launches" in r}
+    ed_launches = {k: sum(r["launches"][k] for r in ed_runs.values())
+                   for k in counters.ops}
+    for k in ("flash_attention", "decode_attention", "vta_gemm"):
+        if ed_launches[k] <= 0:
+            fail(f"{k} was never launched on the encoder-decoder and vision "
+                 f"paths")
+    # their shapes are timed in phases 1 and 7 too
+    for main_set, k in ((gemm_shapes, "vta_gemm"),
+                        (attn_shapes, "decode_attention"),
+                        (flash_shapes, "flash_attention"),
+                        (ql_shapes, "quantized_linear")):
+        for sh, n in counters.shapes[k].items():
+            main_set[sh] = main_set.get(sh, 0) + n
+    rec["encdec_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
+                            for k, v in counters.shapes.items()}
+
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
@@ -3740,6 +4206,7 @@ def main():
              autotune_launches=at_launches["vta_gemm"],
              xlstm_serve_launches=xl_launches["vta_gemm"],
              moe_serve_launches=moe_launches["vta_gemm"],
+             encdec_serve_launches=ed_launches["vta_gemm"],
              max_abs_err=g_err,
              ms=g["ms"], call_ms=g["call_ms"], plain_ms=g["plain_ms"],
              bound_ms=g["bound_ms"],
@@ -3800,6 +4267,7 @@ def main():
              lm_serve_launches=lm_launches["decode_attention"],
              hybrid_serve_launches=hy_launches["decode_attention"],
              moe_serve_launches=moe_launches["decode_attention"],
+             encdec_serve_launches=ed_launches["decode_attention"],
              max_abs_err=d_err["float32"],
              max_abs_err_bf16=d_err["bfloat16"],
              ms=dg["ms"], call_ms=dg["call_ms"], plain_ms=dg["plain_ms"],
@@ -3837,7 +4305,15 @@ def main():
                                       for h in hy_summaries),
             moe_serve_launches=sum(r["flash_by_dtype"].get(dt, 0)
                                    for r in moe_runs.values()),
+            # the mixed-dtype route ("bfloat16/float32") runs the 3xTF32
+            # kernel
+            encdec_serve_launches=sum(
+                n for r in ed_runs.values()
+                for key, n in r["flash_by_dtype"].items()
+                if (key == "bfloat16") == (dt == "bfloat16")),
             max_abs_err=f_err[dt],
+            **({} if dt == "bfloat16" else dict(
+                max_abs_err_mixed_dtype=f_err.get("bfloat16/float32"))),
             ms=fg["ms"], call_ms=fg["call_ms"], plain_ms=fg["plain_ms"],
             bound_ms=fg["bound_ms"], bound_by=fg["bound_by"],
             library_ms=fg["library_ms"], checked=True,

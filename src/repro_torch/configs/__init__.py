@@ -2,7 +2,8 @@
 only; the port's copies of the reference's ``repro.configs``)."""
 from typing import List
 
-from .base import SHAPES, ArchSpec, ShapeSpec, for_shape, reduced  # noqa: F401
+from .base import (SHAPES, ArchSpec, ShapeSpec, for_shape,  # noqa: F401
+                   input_specs, reduced)
 
 _ARCH_MODULES = {
     "phi3.5-moe-42b-a6.6b": "phi35_moe",

@@ -1,14 +1,17 @@
-"""Architecture registry plumbing: ArchSpec, the shape table and the
-reduced (smoke-test) configs.
+"""Architecture registry plumbing: ArchSpec, the shape table, input
+specs and the reduced (smoke-test) configs.
 
 The port's copy of the reference's ``configs/base.py``.  ``input_specs``
-(shape stand-ins for the dry run) is not here: the dry run is not ported
-yet.
+returns tensors on the ``meta`` device, PyTorch's shape stand-ins, where
+the reference returns ``jax.ShapeDtypeStruct``s: the same keys, shapes
+and dtypes, and nothing is allocated.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.models.config import ModelConfig, ShardingConfig
 
@@ -59,6 +62,37 @@ def for_shape(spec: ArchSpec, shape: ShapeSpec,
         # would move far more bytes than the step uses
         kw["moe_expert_2d"] = True
     return spec.model.replace(**kw)
+
+
+# ----------------------------------------------------------------------
+# input specs (meta tensors: shapes and dtypes, no allocation)
+# ----------------------------------------------------------------------
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Model inputs for the given shape, as tensors on the ``meta``
+    device.
+
+    Modality frontends are stubs: ``patch_emb`` (phi-3-vision) and
+    ``frames`` (whisper) are precomputed embeddings in the model's dtype;
+    the image's patches count against the shape's sequence length."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(shape_, dtype=torch.int32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    if shape.kind == "decode":
+        # one new token against a seq_len-deep cache
+        return {"token": spec((B, 1)), "pos": spec(())}
+    text = S
+    batch: Dict[str, Any] = {}
+    if cfg.frontend == "vision_stub":
+        text = S - cfg.n_patches
+        batch["patch_emb"] = spec((B, cfg.n_patches, cfg.d_model), dt)
+    if cfg.frontend == "audio_stub":
+        batch["frames"] = spec((B, cfg.encoder_seq, cfg.d_model), dt)
+    batch["tokens"] = spec((B, text))
+    if shape.kind == "train":
+        batch["targets"] = spec((B, text))
+    return batch
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:

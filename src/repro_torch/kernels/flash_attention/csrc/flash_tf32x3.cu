@@ -33,7 +33,12 @@
 // (hopper.cuh: split, mma3).  Each operand is split in registers into hi,
 // x rounded to TF32 to nearest, and lo = x − hi; hi·hi, lo·hi and hi·lo go
 // into separate float32 accumulators and the two small ones are added to
-// the big one at the end of each key tile.  One TF32 product would round
+// the big one at the end of each key tile.  The three accumulators of P V
+// start from zero at each key tile and are added to the running output on
+// the CUDA cores: the tensor cores' float32 accumulation truncates, and
+// with every tile chained into the output, whisper's 1500 keys left an
+// error of about 1e-5 of max|out|, 5x the plain version's, at its
+// encoder (PERF.md).  One TF32 product would round
 // q, k and the weights to 10 mantissa bits, far outside the 1e-5 float32
 // check; 3xTF32 is as accurate as float32 FMAs (ref.py:
 // attention_tf32x3_model models the arithmetic on the CPU; chip_smoke.py
@@ -288,16 +293,18 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l0 = l0 * a0 + sum0;  // this lane's share of the row sums
       l1 = l1 * a1 + sum1;
 
-      // o = alpha o + P V, one 8-column tile of the output at a time
+      // o = alpha o + P V, one 8-column tile of the output at a time.  The
+      // tile's P V is summed in fresh accumulators and added to o on the
+      // CUDA cores: the tensor cores' float32 accumulation truncates, so
+      // chaining every key tile's products into o would carry a one-signed
+      // error that grows with Sk (about 1e-5 of max|out| at whisper's 1500
+      // keys); a tile's 8 chained products carry little of it
       const float* pv = Vs + 2 * t * vs + g;
 #pragma unroll
       for (int jn = 0; jn < OT; ++jn) {
         if (8 * jn < dp) {
-          o[jn][0] *= a0;
-          o[jn][1] *= a0;
-          o[jn][2] *= a1;
-          o[jn][3] *= a1;
-          float c1[4], c2[4];
+          float c0[4], c1[4], c2[4];
+          zero(c0);
           zero(c1);
           zero(c2);
 #pragma unroll
@@ -306,10 +313,12 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 pv[(8 * j + 1) * vs + 8 * jn]};
             Frag<2> fb;
             split<false>(z, fb);
-            mma3<false, false>(k0 + 8 * j < w_end, o[jn], c1, c2, pf[j], fb);
+            mma3<false, false>(k0 + 8 * j < w_end, c0, c1, c2, pf[j], fb);
           }
 #pragma unroll
-          for (int e = 0; e < 4; ++e) o[jn][e] += c1[e] + c2[e];
+          for (int e = 0; e < 4; ++e)
+            o[jn][e] = o[jn][e] * (e < 2 ? a0 : a1)
+                       + (c0[e] + (c1[e] + c2[e]));
         }
       }
     }

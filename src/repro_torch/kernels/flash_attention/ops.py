@@ -6,6 +6,13 @@ the chunked one above, as the reference op chooses); a CUDA tensor
 launches a CUDA kernel, chosen by dtype (``kernel.route``: bfloat16 the
 wgmma kernel, float32 the 3xTF32 one); any other device raises.  There is
 no fallback between any of them.
+
+Operands of mixed dtype (whisper's decode step: a bfloat16 query over K/V
+read from float32 caches) follow one fixed rule, the reference's
+promotion: on the CPU the plain version computes in float32 anyway; on
+the card the bfloat16 operands are upcast to float32, which is exact, the
+3xTF32 kernel runs, and the result is cast to q's dtype.  K/V are never
+cast down.
 """
 from __future__ import annotations
 
@@ -56,7 +63,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, S, HQ, D); k/v: (B, Sk, KH, D), HQ a multiple of KH.
-    Returns (B, S, HQ, D) in q's dtype.  Query head h reads kv head
+    Returns (B, S, HQ, D) in q's dtype; q and k/v may differ in dtype
+    (see the module docstring).  Query head h reads kv head
     h // (HQ // KH); with ``causal`` the diagonal is aligned bottom-right
     (row i sees keys j <= i + Sk - S)."""
     _check(q, k, v)
@@ -65,16 +73,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for device {dev}")
-    out = flash_attention_cuda(q, k, v, causal)
+    names = [str(t.dtype).split(".")[-1] for t in (q, k, v)]
+    if len(set(names)) == 1:
+        out = flash_attention_cuda(q, k, v, causal)
+        dtype = names[0]
+    else:
+        # the reference's promotion: bfloat16 is exact in float32
+        up = [t.float() if t.dtype == torch.bfloat16 else t
+              for t in (q, k, v)]
+        out = flash_attention_cuda(*up, causal).to(q.dtype)
+        dtype = f"{names[0]}/{names[1]}"
     flash_attention.launches += 1
     B, S, HQ, D = q.shape
-    key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal),
-           str(q.dtype).split(".")[-1])
+    key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal), dtype)
     flash_attention.shapes[key] = flash_attention.shapes.get(key, 0) + 1
     return out
 
 
 #: kernel launches made by this op (plain-version calls do not count)
 flash_attention.launches = 0
-#: (B, S, Sk, HQ, KH, D, causal, dtype) -> launches at that shape
+#: (B, S, Sk, HQ, KH, D, causal, dtype) -> launches at that shape; dtype
+#: "bfloat16", "float32", or "<q dtype>/<k/v dtype>" where they differ
 flash_attention.shapes = {}

@@ -28,6 +28,12 @@ Usage:
       --device cpu --quantized
   python -m repro_torch.launch.serve --arch xlstm-1.3b --reduced \\
       --device cpu --quantized
+  python -m repro_torch.launch.serve --arch phi-3-vision-4.2b --reduced \\
+      --device cpu --quantized
+
+phi-3-vision is served on tokens alone, as the reference's CLI serves
+it; whisper-large-v3 is refused (its prefill needs frames: serve it
+through ``transformer.prefill`` and ``decode_step``).
 """
 from __future__ import annotations
 
@@ -66,11 +72,19 @@ def _tensors(tree):
 class ServeEngine:
     """Fixed-batch engine with slot recycling (continuous batching).
     Caches of `dtype` live on `torch_device` (default the card), where the
-    weights must already be."""
+    weights must already be.  Requests are tokens alone: phi-3-vision is
+    served without image patches, as the reference serves it, and an
+    encoder-decoder (whisper), whose prefill needs frames, is refused
+    with ValueError (the reference's engine has no frames path either;
+    serve whisper through ``transformer.prefill`` and ``decode_step``)."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int = 4,
                  max_len: int = 256, dtype: torch.dtype = torch.float32,
                  torch_device: TorchDeviceLike = None):
+        if cfg.encoder_layers:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its "
+                             f"prefill needs frames, which ServeEngine's "
+                             f"token requests do not carry")
         self.device = resolve_torch_device(torch_device)
         self.cfg = cfg
         self.params = params.tree() if isinstance(params, T.LMParams) \

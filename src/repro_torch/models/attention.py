@@ -1,15 +1,18 @@
-"""GQA attention with KV cache: prefill and decode modes.
+"""GQA attention with KV cache: prefill and decode modes, the whisper
+encoder's full-sequence pass and its decoder's cross-attention.
 
 The port of the reference's ``models/attention.py`` for the serve path.
-Prefill runs the ``flash_attention`` op and decode the ``decode_attention``
-op; each picks its kernel or plain version by the device of its tensors.
-Caches are written in place (the reference returns updated copies): the
-cache dict is returned so the call sites read as the reference's.
-Training (``attn_train``) and cross-attention (whisper) are not ported yet.
+Prefill, the encoder (``attn_train``) and cross-attention run the
+``flash_attention`` op and decode the ``decode_attention`` op; each picks
+its kernel or plain version by the device of its tensors.  Caches are
+written in place (the reference returns updated copies): the cache dict
+is returned so the call sites read as the reference's.  ``attn_train`` is
+the forward only: no op here records a gradient (training is ROADMAP
+Queue 1 item 5).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -39,6 +42,19 @@ def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attn_train(p: Params, cfg, x: torch.Tensor, *, causal: bool = True,
+               positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention over the whole sequence x (B, S, d), no cache: the
+    whisper encoder's pass (``causal=False``).  The forward only: its
+    gradient waits for the training slice (ROADMAP Queue 1 item 5)."""
+    B, S, _ = x.shape
+    if positions is None:
+        positions = torch.arange(S, device=x.device).expand(B, S)
+    q, k, v = _qkv(p, cfg, x, positions)
+    o = flash_attention(q, k, v, causal=causal)
+    return linear_apply(p["wo"], o.reshape(B, S, cfg.q_dim))
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
@@ -121,3 +137,29 @@ def attn_decode(p: Params, cfg, x: torch.Tensor,
     o = decode_attention(q, k_cache, v_cache, pos + 1)
     out = linear_apply(p["wo"], o.reshape(B, 1, cfg.q_dim))
     return out, cache
+
+
+def cross_attn_init(gen: torch.Generator, cfg, device: torch.device,
+                    lead: Tuple[int, ...] = ()) -> Params:
+    return attn_init(gen, cfg, device, lead)
+
+
+def cross_attn_apply(p: Params, cfg, x: torch.Tensor,
+                     enc_kv: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Decoder cross-attention (whisper): x (B, S, d) over the encoder's
+    K/V (B, T, KH, hd), non-causal.  K/V may be in another dtype than x
+    (the decode step reads them from the cache): the op promotes."""
+    B, S, _ = x.shape
+    q = linear_apply(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.hd)
+    o = flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
+    return linear_apply(p["wo"], o.reshape(B, S, cfg.q_dim))
+
+
+def encode_cross_kv(p: Params, cfg,
+                    enc_out: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """K and V (B, T, KH, hd) of the encoder output (B, T, d), in its
+    dtype."""
+    B, T, _ = enc_out.shape
+    k = linear_apply(p["wk"], enc_out).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    v = linear_apply(p["wv"], enc_out).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    return {"k": k, "v": v}

@@ -1,7 +1,8 @@
-"""The LM for the dense family (olmo-1b, llama3.2-3b, minitron-8b,
-starcoder2-7b), the moe family (phi3.5-moe, kimi-k2), the hybrid Mamba2
-family (zamba2-1.2b) and xlstm-1.3b: parameters, caches, prefill and
-decode.
+"""The LM for all ten architecture configs: the dense family (olmo-1b,
+llama3.2-3b, minitron-8b, starcoder2-7b), the moe family (phi3.5-moe,
+kimi-k2), the hybrid Mamba2 family (zamba2-1.2b), xlstm-1.3b, the vision
+model phi-3-vision-4.2b and the encoder-decoder whisper-large-v3:
+parameters, caches, prefill and decode.
 
 The port of the serving half of the reference's ``models/transformer.py``
 for the ``"attn"``, ``"moe"`` (attention, then the mixture of experts in
@@ -17,13 +18,22 @@ dict of tensors that :meth:`LMParams.tree` returns.  The reference scans
 over the stacked layers; here a Python loop indexes them, and caches are
 updated in place.
 
-Not ported yet (``NotImplementedError`` names the ROADMAP item): the
-vision and audio frontends, the whisper encoder and cross-attention, and
-training (``forward_train``).
+The modality frontends are stubs, as in the reference: phi-3-vision's
+``patch_emb`` (B, n_patches, d) prefixes the text, so its rope positions
+count the patches; whisper's ``frames`` (B, encoder_seq, d) run through
+the non-causal encoder (``_encode``), and each decoder layer adds
+cross-attention over them.  Prefill attends over the K/V it has just
+computed from the encoder output, in the activation dtype, and writes a
+copy in the cache dtype into ``cross_kv`` (never int8); a decode step
+reads ``cross_kv``.  ``cross_kv`` is ``encoder_seq`` rows long and
+written in place, so frames of another length raise ``ValueError``
+(the reference swaps in whatever length it is given).
+
+Not ported yet: training (``forward_train``, ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -39,9 +49,6 @@ from .layers import (embed_apply, embed_init, linear_init, mlp_apply,
                      mlp_init, norm_apply, norm_init, torch_dtype)
 
 Params = Dict[str, Any]
-
-_NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 item 4: the encoder, "
-               "cross-attention and frontends)")
 
 
 class LMParams(nn.Module):
@@ -65,14 +72,6 @@ class LMParams(nn.Module):
         return out
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers:
-        raise NotImplementedError(f"the encoder of {cfg.name}: {_NOT_PORTED}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"the {cfg.frontend} frontend of "
-                                  f"{cfg.name}: {_NOT_PORTED}")
-
-
 # ----------------------------------------------------------------------
 # per-block init / cache / apply
 # ----------------------------------------------------------------------
@@ -94,10 +93,14 @@ def _block_init(gen: torch.Generator, cfg: ModelConfig, btype: str, n: int,
                 "attn": attn.attn_init(gen, cfg, device, lead),
                 "ln2": norm_init(cfg, d, device, lead),
                 "moe": moe_mod.moe_init(gen, cfg, device, lead)}
-    return {"ln1": norm_init(cfg, d, device, lead),
-            "attn": attn.attn_init(gen, cfg, device, lead),
-            "ln2": norm_init(cfg, d, device, lead),
-            "mlp": mlp_init(gen, cfg, d, cfg.d_ff, device, lead)}
+    p = {"ln1": norm_init(cfg, d, device, lead),
+         "attn": attn.attn_init(gen, cfg, device, lead),
+         "ln2": norm_init(cfg, d, device, lead),
+         "mlp": mlp_init(gen, cfg, d, cfg.d_ff, device, lead)}
+    if cfg.encoder_layers:      # whisper decoder layer: add cross-attn
+        p["lnx"] = norm_init(cfg, d, device, lead)
+        p["cross"] = attn.cross_attn_init(gen, cfg, device, lead)
+    return p
 
 
 def _block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
@@ -120,16 +123,31 @@ def _block_cache(cfg: ModelConfig, btype: str, batch: int, max_len: int,
 
 
 def _attn_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
-              kv: Params, pos: Optional[int]) -> torch.Tensor:
-    """Pre-norm attention then the MLP (the mixture of experts where the
-    block has one), each with its residual; `kv` is updated in place.  The
-    moe layer's aux loss is a training term: serving drops it."""
+              kv: Params, pos: Optional[int],
+              cross_kv: Optional[Params] = None,
+              enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pre-norm attention, cross-attention where the block has it
+    (whisper's decoder), then the MLP (the mixture of experts where the
+    block has one), each with its residual; `kv` and `cross_kv` are
+    updated in place.  At prefill cross-attention attends over the K/V of
+    `enc_out` just computed, in the activation dtype, and writes them into
+    `cross_kv` in its dtype; a decode step reads `cross_kv`.  The moe
+    layer's aux loss is a training term: serving drops it."""
     h = norm_apply(cfg, p["ln1"], x)
     if mode == "prefill":
         o, _ = attn.attn_prefill(p["attn"], cfg, h, kv)
     else:
         o, _ = attn.attn_decode(p["attn"], cfg, h, kv, pos)
     x = x + o
+    if "cross" in p:
+        h = norm_apply(cfg, p["lnx"], x)
+        if mode == "prefill":
+            enc_kv = attn.encode_cross_kv(p["cross"], cfg, enc_out)
+            for name, t in enc_kv.items():
+                cross_kv[name].copy_(t)
+        else:
+            enc_kv = cross_kv
+        x = x + attn.cross_attn_apply(p["cross"], cfg, h, enc_kv)
     h = norm_apply(cfg, p["ln2"], x)
     if "moe" in p:
         o, _ = moe_mod.moe_apply(p["moe"], cfg, h)
@@ -139,11 +157,14 @@ def _attn_mlp(p: Params, cfg: ModelConfig, x: torch.Tensor, mode: str,
 
 def _block_apply(p: Params, cfg: ModelConfig, btype: str, x: torch.Tensor,
                  mode: str, cache: Params, pos: Optional[int],
-                 shared_p: Optional[Params] = None) -> torch.Tensor:
+                 shared_p: Optional[Params] = None,
+                 enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One block on x in `mode` ("prefill" or "decode"); its cache is
-    updated in place.  `shared_p` is zamba2's shared attention block."""
+    updated in place.  `shared_p` is zamba2's shared attention block,
+    `enc_out` whisper's encoder output (prefill only)."""
     if btype in ("attn", "moe"):
-        return _attn_mlp(p, cfg, x, mode, cache["kv"], pos)
+        return _attn_mlp(p, cfg, x, mode, cache["kv"], pos,
+                         cache.get("cross_kv"), enc_out)
     h = norm_apply(cfg, p["ln1"], x)
     if btype in ("mlstm", "slstm"):
         fn = getattr(xlstm_mod, f"{btype}_{mode}")
@@ -166,7 +187,6 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
     """Random weights with the reference's distributions, drawn from
     `generator` (a seeded ``torch.Generator`` on `torch_device`, or a
     seed), on `torch_device` (default the card)."""
-    _check_supported(cfg)
     dev = resolve_torch_device(torch_device)
     gen = generator
     if not isinstance(gen, torch.Generator):
@@ -185,20 +205,52 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
                             "attn": attn.attn_init(gen, cfg, dev),
                             "ln2": norm_init(cfg, d, dev),
                             "mlp": mlp_init(gen, cfg, d, cfg.d_ff, dev)}
+    if cfg.encoder_layers:
+        d, lead = cfg.d_model, (cfg.encoder_layers,)
+        p["encoder"] = {
+            "layers": {"ln1": norm_init(cfg, d, dev, lead),
+                       "attn": attn.attn_init(gen, cfg, dev, lead),
+                       "ln2": norm_init(cfg, d, dev, lead),
+                       "mlp": mlp_init(gen, cfg, d, cfg.d_ff, dev, lead)},
+            "norm": norm_init(cfg, d, dev)}
     return LMParams(p)
+
+
+# ----------------------------------------------------------------------
+# encoder (whisper): a non-causal attention stack over the frame stubs
+# ----------------------------------------------------------------------
+def _encode(params: Params, cfg: ModelConfig,
+            frames: torch.Tensor) -> torch.Tensor:
+    """frames (B, T, d) -> the encoder output (B, T, d).  No position
+    term is added to the frames, as in the reference."""
+    enc = params["encoder"]
+    x = frames
+    for i in range(cfg.encoder_layers):
+        lp = _index(enc["layers"], i)
+        h = norm_apply(cfg, lp["ln1"], x)
+        x = x + attn.attn_train(lp["attn"], cfg, h, causal=False)
+        h = norm_apply(cfg, lp["ln2"], x)
+        x = x + mlp_apply(lp["mlp"], h, cfg)
+    return norm_apply(cfg, enc["norm"], x)
 
 
 # ----------------------------------------------------------------------
 # inputs -> first hidden states, hidden states -> logits
 # ----------------------------------------------------------------------
 def embed_inputs(params: Params, cfg: ModelConfig,
-                 batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """Token embedding (tokens only: the modality prefixes of the vision
-    and audio frontends are not ported)."""
-    if set(batch) - {"tokens"}:
-        raise NotImplementedError(f"inputs {sorted(set(batch) - {'tokens'})}"
-                                  f": {_NOT_PORTED}")
-    return embed_apply(params["embed"], cfg, batch["tokens"])
+                 batch: Mapping[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Token embedding and the modality prefixes.  Returns (x, enc_out):
+    phi-3-vision's ``patch_emb``, cast to x's dtype, ahead of the text;
+    whisper's ``frames``, cast to x's dtype, through the encoder (enc_out
+    None without them)."""
+    x = embed_apply(params["embed"], cfg, batch["tokens"])
+    enc_out = None
+    if cfg.frontend == "vision_stub" and "patch_emb" in batch:
+        x = torch.cat([batch["patch_emb"].to(x.dtype), x], dim=1)
+    if cfg.encoder_layers and "frames" in batch:
+        enc_out = _encode(params, cfg, batch["frames"].to(x.dtype))
+    return x, enc_out
 
 
 def _head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -225,13 +277,21 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 torch_device: TorchDeviceLike = None) -> Params:
     """Per-layer caches stacked over each block type's layers, on
     `torch_device` (default the card): zeros (the sLSTM normalizer ones),
-    in `dtype` (the xlstm caches float32)."""
-    _check_supported(cfg)
+    in `dtype` (the xlstm caches float32).  Whisper's decoder layers also
+    hold ``cross_kv``: the encoder's K/V, (n_layers, batch, encoder_seq,
+    KH, hd) in `dtype`, never int8, filled at prefill."""
     dev = resolve_torch_device(torch_device)
     pattern = cfg.block_pattern()
-    return {"layers": {b: _block_cache(cfg, b, batch, max_len, dtype, dev,
-                                       pattern.count(b))
-                       for b in sorted(set(pattern))}}
+    caches = {"layers": {b: _block_cache(cfg, b, batch, max_len, dtype, dev,
+                                         pattern.count(b))
+                         for b in sorted(set(pattern))}}
+    if cfg.encoder_layers:
+        shape = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads,
+                 cfg.hd)
+        caches["layers"]["attn"]["cross_kv"] = {
+            k: torch.zeros(shape, dtype=dtype, device=dev)
+            for k in ("k", "v")}
+    return caches
 
 
 def _index(tree: Params, i: int) -> Params:
@@ -241,8 +301,9 @@ def _index(tree: Params, i: int) -> Params:
 
 
 def _run_stack_cached(params: Params, cfg: ModelConfig, x: torch.Tensor,
-                      caches: Params, mode: str,
-                      pos: Optional[int]) -> torch.Tensor:
+                      caches: Params, mode: str, pos: Optional[int],
+                      enc_out: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     counters = {b: 0 for b in set(cfg.block_pattern())}
     shared_p = params.get("shared_attn")
     for btype in cfg.block_pattern():
@@ -250,7 +311,7 @@ def _run_stack_cached(params: Params, cfg: ModelConfig, x: torch.Tensor,
         counters[btype] += 1
         x = _block_apply(_index(params["layers"][btype], i), cfg, btype, x,
                          mode, _index(caches["layers"][btype], i), pos,
-                         shared_p)
+                         shared_p, enc_out)
     return x
 
 
@@ -262,11 +323,23 @@ def prefill(params: Union[LMParams, Params], cfg: ModelConfig,
             batch: Mapping[str, torch.Tensor],
             caches: Params) -> tuple:
     """Run the prompt; returns (logits at the last position, caches), the
-    caches updated in place."""
-    _check_supported(cfg)
+    caches updated in place.  Whisper needs ``frames`` of ``encoder_seq``
+    rows: anything else raises ValueError, before any work."""
     params = _tree(params)
-    x = embed_inputs(params, cfg, batch)
-    x = _run_stack_cached(params, cfg, x, caches, "prefill", None)
+    if cfg.encoder_layers:
+        frames = batch.get("frames")
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: its prefill "
+                             f"needs frames (B, {cfg.encoder_seq}, "
+                             f"{cfg.d_model})")
+        rows = caches["layers"]["attn"]["cross_kv"]["k"].shape[2]
+        if frames.shape[1] != rows:
+            raise ValueError(f"{cfg.name}: {frames.shape[1]} frames, but "
+                             f"the cross-attention cache holds {rows} "
+                             f"(encoder_seq); frames are never truncated "
+                             f"or padded")
+    x, enc_out = embed_inputs(params, cfg, batch)
+    x = _run_stack_cached(params, cfg, x, caches, "prefill", None, enc_out)
     return logits_fn(params, cfg, x[:, -1:]), caches
 
 
@@ -275,7 +348,6 @@ def decode_step(params: Union[LMParams, Params], cfg: ModelConfig,
                 pos: Union[int, torch.Tensor]) -> tuple:
     """token: (B, 1) integer; pos: the step's position (an int), the same
     for every row.  Returns (logits (B, 1, V), caches updated in place)."""
-    _check_supported(cfg)
     params = _tree(params)
     pos = int(pos)
     x = embed_apply(params["embed"], cfg, token,

@@ -555,9 +555,12 @@ def test_decode_attention_kernel_matches_plain(cuda_dev, B, S, HQ, KH, D,
 @pytest.mark.parametrize("B,S,HQ,KH,D", [(1, 96, 2, 2, 32),
                                          (1, 4096, 24, 8, 128),
                                          (2, 300, 36, 4, 128),
-                                         (4, 256, 64, 8, 128)],
+                                         (4, 256, 64, 8, 128),
+                                         (4, 64, 20, 20, 64),
+                                         (4, 640, 32, 32, 96)],
                          ids=["decoder", "llama", "starcoder2-G9",
-                              "kimi-k2-G8"])
+                              "kimi-k2-G8", "whisper-step",
+                              "phi3-vision-D96"])
 def test_decode_attention_any_group_and_mixed_dtype(cuda_dev, B, S, HQ, KH,
                                                     D, q_dtype, kv_dtype):
     """The repaired kernel: G = 9 and a query of another dtype than the
@@ -711,6 +714,90 @@ def test_flash_f32_kernel_against_float64(cuda_dev, case):
         (err, plain_err)
     if causal and S > Sk:
         assert not got[:, :S - Sk].abs().any()
+
+
+#: whisper's and phi-3-vision's served flash shapes: cross-attention at a
+#: decode step (S 1) and at prefill (S 16) over whisper's 1500 frames, its
+#: encoder (S = Sk = 1500, 23.4 key tiles of 64: the masked last tile),
+#: and phi-3-vision's prompt at D 96 (576 patches and 16 tokens)
+ENCDEC_FLASH_CASES = [
+    (4, 1, 1500, 20, 20, 64, False),
+    (4, 16, 1500, 20, 20, 64, False),
+    (2, 1500, 1500, 20, 20, 64, False),
+    (2, 592, 592, 32, 32, 96, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ENCDEC_FLASH_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_attention_encdec_shapes_match_plain(cuda_dev, case, dtype):
+    """Within 1e-5 (float32) or 2^-6 * max|want| (bfloat16) of the plain
+    version, bitwise equal over two calls, one launch a call."""
+    test_flash_attention_kernel_matches_plain(cuda_dev, case, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ENCDEC_FLASH_CASES[:2] + [
+    (1, 200, 333, 4, 1, 128, False), (1, 40, 130, 4, 2, 32, True)],
+    ids=lambda c: "-".join(str(x) for x in c))
+def test_flash_attention_bf16_query_over_f32_kv(cuda_dev, case):
+    """The mixed-dtype rule (whisper's decode step on a bfloat16 model over
+    float32 caches): one launch of the 3xTF32 kernel on the query upcast
+    to float32, the result in bfloat16, counted under its own shapes key;
+    bitwise equal to the float32 call on the upcast query cast back, and
+    within 2^-6 * max|want| of the plain version, which promotes."""
+    B, S, Sk, HQ, KH, D, causal = case
+    rng = np.random.default_rng(S + Sk + 5)
+
+    def t(dtype, *shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(cuda_dev).to(dtype)
+    q = t(torch.bfloat16, B, S, HQ, D)
+    k, v = t(torch.float32, B, Sk, KH, D), t(torch.float32, B, Sk, KH, D)
+    key = (B, S, Sk, HQ, KH, D, causal, "bfloat16/float32")
+    before = flash_attention.launches
+    seen = flash_attention.shapes.get(key, 0)
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert flash_attention.shapes[key] == seen + 2
+    upcast = flash_attention(q.float(), k, v, causal=causal) \
+        .to(torch.bfloat16)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, again) and torch.equal(got, upcast)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2.0 ** -6 * want.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Sk", [1500, 8192])
+def test_flash_f32_kernel_long_sums_stay_float32(cuda_dev, Sk):
+    """Values with a common offset (v = 1 + N(0, 1)), so every output is
+    a one-signed sum of about 1 over Sk keys: the 3xTF32 kernel's error
+    against float64 at most 4x the plain float32 version's, as above.
+    The tensor cores' float32 accumulation truncates; summed through
+    every key tile, it left whisper's encoder (Sk 1500) 6x the plain
+    version's error, growing with Sk: the kernel sums each tile apart."""
+    rng = np.random.default_rng(Sk)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(cuda_dev)
+    q, k = t(2, 256, 4, 64), t(2, Sk, 4, 64)
+    v = t(2, Sk, 4, 64) + 1.0
+    got = flash_attention(q, k, v, causal=False)
+    plain = flash_attention_plain(q, k, v, causal=False)
+    want = _f64_attention(q, k, v, False)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs().max().item()
+    plain_err = (plain.double() - want).abs().max().item()
+    assert err <= 4 * plain_err, (err, plain_err)
 
 
 @pytest.mark.cuda

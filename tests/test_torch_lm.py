@@ -366,14 +366,3 @@ def test_logit_softcap_and_untied_head():
     got = TT.logits_fn(cpu_params(rp).tree(), tcfg, torch.from_numpy(h))
     assert rel_err(got, want) <= 1e-5
     assert float(got.abs().max()) < 3.0
-
-
-@pytest.mark.parametrize("arch,item", [
-    ("whisper-large-v3", "ROADMAP Queue 1 item 4: the encoder"),
-    ("phi-3-vision-4.2b", "ROADMAP Queue 1 item 4: the encoder")])
-def test_other_families_name_their_roadmap_item(arch, item):
-    cfg = reduced(get_arch(arch).model)
-    with pytest.raises(NotImplementedError, match=item):
-        TT.init_params(cfg, 0, torch_device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TT.init_caches(cfg, 1, 8, torch.float32, "cpu")
