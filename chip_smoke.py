@@ -210,6 +210,24 @@ Phases, in the order they run:
      decode_attention and flash_attention shapes join phases 1 and 7
      (timed; the mixed-dtype flash shapes under the dtype
      "bfloat16/float32");
+ 14. training, with the counts set to 0 just before the run and read
+     just after: llama3.2-3b at its published width and depth (28 layers,
+     bf16 parameters, AdamW, remat) trains 4 steps of 2 x 4096 tokens
+     through repro_torch.launch.train.Trainer (the reference's train_4k
+     shape, its global batch of 256 cut to 2 for one card): per-step loss
+     and ms, tokens/s, the peak allocated memory, 56 flash forward and 28
+     backward launches a step (asserted), the first step's backward
+     launches of layers 27 and 0 held to the plain backward, and a fifth
+     step under torch.profiler for the device idle share; then full width
+     at 2 layers in float32 (S 512), one step's loss and every gradient
+     leaf held to a replay with every op's plain version (PlainOps), and a
+     checkpoint round trip (save after step 2, restore into a fresh
+     Trainer, step 3 bitwise equal to the uninterrupted run's); then the
+     flash backward kernel (flash_bwd.cu) against the plain backward at
+     Llama's, whisper's encoder (bf16 and float32), phi-3-vision's and a
+     long-key float32 shape, timed beside its bound, the plain backward
+     and scaled_dot_product_attention's backward.  Its flash forward
+     shapes join phase 7;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -3658,6 +3676,478 @@ def phase_encdec(rec, counters):
 
 
 
+# ----------------------------------------------------------------------
+# phase 14: training (the seventh main path) and the flash backward kernel
+# ----------------------------------------------------------------------
+TRAIN_ARCH = "llama3.2-3b"
+#: the reference's train_4k shape (S 4096, src/repro/configs/base.py), its
+#: global batch of 256 cut to 2 sequences for one card; 4 timed steps
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 4
+#: the float32 replay and the checkpoint round trip: full width, 2 layers
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ = 2, 512
+#: (B, S, Sk, HQ, KH, D, causal, dtype) the backward kernel is held to its
+#: plain version at (and timed), besides any other shape training launched
+FLASH_BWD_CASES = [
+    (2, 4096, 4096, 24, 8, 128, True, "bfloat16"),    # llama3.2-3b train_4k
+    (4, 1500, 1500, 20, 20, 64, False, "bfloat16"),   # whisper's encoder
+    (4, 1500, 1500, 20, 20, 64, False, "float32"),
+    (2, 592, 592, 32, 32, 96, True, "bfloat16"),      # phi-3-vision
+    (1, 16, 8192, 4, 4, 64, False, "float32"),        # long keys
+]
+#: the shape whose keys are v = 1 + N(0, 1): a one-signed error from sums
+#: chained on the tensor cores would grow with the keys
+FLASH_BWD_LONG = (1, 16, 8192, 4, 4, 64, False, "float32")
+
+
+def _row_norms(x):
+    """The 2-norm of each length-D row of x, in float64."""
+    return x.double().reshape(-1, x.shape[-1]).norm(dim=-1)
+
+
+def flash_bwd_errors(got, q, k, v, o, do, causal):
+    """The backward kernel's (dq, dk, dv) against the plain backward on
+    the same inputs.  bfloat16, row by row (a query row of dq, a key row
+    of dk and dv): against the plain backward in float64 (on the inputs
+    upcast, so unrounded), each row's error at most 4x that row's error of
+    a floor, the plain backward that rounds P and dS once to bf16 where
+    they enter a product and its result once to bf16, as the kernel does,
+    plus 2^-10 of the median norm of the rows that are not zero (rows that
+    see no key are); rows are compared with their own
+    norms because the gradients of long causal rows and keys are an order
+    smaller than those of the first ones, and a limit taken from the
+    largest value would let a late row be wrong by tens of percent.
+    float32: against the plain backward in float64, the error at most 4x
+    the float32 plain backward's, or 1e-6 of max|want| where that is
+    larger.  Returns a list of dicts (name, err, limit, ok, and the
+    median and max |want|) and the largest error against the float32
+    plain backward (the kernels line's max_abs_err)."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    group = q.shape[2] // k.shape[2]
+    want = attention_bwd_ref(q, k, v, o, do, group=group, causal=causal)
+    names = ("dq", "dk", "dv")
+    worst = max(float((a.float() - w.float()).abs().max())
+                for a, w in zip(got, want))
+    out = []
+    if q.dtype == torch.float32:
+        want64 = attention_bwd_ref(q, k, v, o, do, group=group,
+                                   causal=causal, dtype=torch.float64)
+        for name, a, w, w64 in zip(names, got, want, want64):
+            w64 = w64.double()
+            e64 = float((a.double() - w64).abs().max())
+            base = float((w.double() - w64).abs().max())
+            mx = float(w64.abs().max())
+            limit = max(4 * base, 1e-6 * mx)
+            out.append(dict(name=name, err=e64, limit=limit,
+                            ok=e64 <= limit, median_want=float(
+                                w64.abs().median()), max_want=mx,
+                            rule="max abs against float64"))
+        return out, worst
+    del want
+    oracle = attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                               group=group, causal=causal,
+                               dtype=torch.float64)
+    floor = attention_bwd_ref(q, k, v, o, do, group=group, causal=causal,
+                              dtype=torch.float64, operands=torch.bfloat16)
+    for name, a, w64, f in zip(names, got, oracle, floor):
+        norms = _row_norms(w64)
+        norms = norms[norms > 0] if bool((norms > 0).any()) else norms
+        atol = 2.0 ** -10 * float(norms.median())
+        e_k, e_f = _row_norms(a.double() - w64), _row_norms(f.double() - w64)
+        lim = 4 * e_f + atol
+        r = int(torch.argmax(e_k / lim))
+        out.append(dict(name=name, err=float(e_k[r]), limit=float(lim[r]),
+                        ok=bool((e_k <= lim).all()),
+                        median_want=float(w64.abs().median()),
+                        max_want=float(w64.abs().max()),
+                        median_row_norm=float(norms.median()),
+                        row_norm=float(_row_norms(w64)[r]), row=r,
+                        max_abs_err=float((a.double() - w64).abs().max()),
+                        rule="row norm against 4x a bf16-operand floor"))
+    del oracle, floor
+    return out, worst
+
+
+def flash_bwd_check_line(checks):
+    """One log line's text for flash_bwd_errors' checks."""
+    return ", ".join(
+        f"{c['name']} {c['err']:.3e} (limit {c['limit']:.3e}"
+        + (f" at row {c['row']} of norm {c['row_norm']:.3e}, median row "
+           f"norm {c['median_row_norm']:.3e}, max abs err "
+           f"{c['max_abs_err']:.3e}" if "row" in c else "")
+        + f"; median|want| {c['median_want']:.3e}, max|want| "
+        f"{c['max_want']:.3e})" for c in checks)
+
+
+def flash_bwd_bound_ms(B, S, Sk, HQ, KH, D, causal, elt):
+    """The larger of the operations (5 products of S x Sk x D a head, 2
+    flops a multiply-add, halved when causal) at the bf16 dense
+    tensor-core peak and the bytes (q, o, do, k, v read once; dq, dk, dv
+    written once) at the memory rate."""
+    ops = 2 * 5 * B * HQ * S * Sk * D / (2 if causal else 1)
+    nbytes = elt * (4 * B * S * HQ * D + 4 * B * Sk * KH * D)
+    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sdpa_bwd_call(q, k, v, do, causal):
+    """A closure making the backward alone of one
+    scaled_dot_product_attention call (torch.autograd.grad of a forward
+    whose graph is kept, so the forward's time is not in it), flash and
+    memory-efficient backends only, GQA through enable_gqa; or None where
+    PyTorch refuses the inputs.  The port never calls this."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    dos = do.transpose(1, 2)
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                          SDPBackend.EFFICIENT_ATTENTION]):
+            out = F.scaled_dot_product_attention(qs, ks, vs,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+        torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+    except RuntimeError as e:          # a layout or size it refuses
+        log(f"  scaled_dot_product_attention backward refused: "
+            f"{str(e)[:200]}")
+        return None
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), dos,
+                                       retain_graph=True)
+
+
+def flash_bwd_inputs(B, S, Sk, HQ, KH, D, causal, dt):
+    """Seed-made q, k, v, do (unit normal; v = 1 + N(0, 1) at
+    FLASH_BWD_LONG) and the forward kernel's o."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(S + Sk + HQ + D)
+    dtype = getattr(torch, dt)
+
+    def t(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    q, k, v, do = t(B, S, HQ, D), t(B, Sk, KH, D), t(B, Sk, KH, D), \
+        t(B, S, HQ, D)
+    if (B, S, Sk, HQ, KH, D, causal, dt) == FLASH_BWD_LONG:
+        v = v + 1.0
+    with torch.no_grad():
+        o = flash_attention(q, k, v, causal=causal)
+    return q, k, v, o, do
+
+
+def phase_flash_bwd_kernel(rec, train_shapes):
+    """The backward kernel against the plain backward (flash_bwd_errors),
+    bitwise equal over two calls, at FLASH_BWD_CASES and every other shape
+    the training run launched; timed at each: kernel ms (torch.profiler,
+    the three kernels of a call), call ms (CUDA events), the plain
+    backward's ms, the bound, and SDPA's backward alone."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     flash_attention_bwd)
+    cases = list(FLASH_BWD_CASES) + [sh for sh in train_shapes
+                                     if sh not in FLASH_BWD_CASES]
+    rows, max_err = [], {"bfloat16": 0.0, "float32": 0.0}
+    for B, S, Sk, HQ, KH, D, causal, dt in cases:
+        shape = (B, S, Sk, HQ, KH, D, causal, dt)
+        q, k, v, o, do = flash_bwd_inputs(*shape)
+        got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"the flash backward kernel at {shape} is not "
+                 f"reproducible")
+        checks, err = flash_bwd_errors(got, q, k, v, o, do, causal)
+        max_err[dt] = max(max_err[dt], err)
+        bad = [c for c in checks if not c["ok"]]
+        log(f"  flash backward {shape}: {flash_bwd_check_line(checks)}")
+        if bad:
+            fail(f"the flash backward kernel at {shape} differs from the "
+                 f"plain backward: {bad}")
+        del got, again
+        big = S * Sk >= 4096 * 4096
+        call = lambda: flash_attention_bwd(q, k, v, o, do,  # noqa
+                                           causal=causal)
+        call_ms = cuda_time_ms(call, reps=5 if big else 20, warmup=1)
+        ms = kernel_ms(call, "flash_bwd", call_ms, reps=5 if big else 20)
+        group = HQ // KH
+        plain = cuda_time_ms(lambda: attention_bwd_ref(
+            q, k, v, o, do, group=group, causal=causal), reps=2, warmup=1)
+        lib_call = sdpa_bwd_call(q, k, v, do, causal) \
+            if causal is False or S == Sk else None
+        lib = cuda_time_ms(lib_call, reps=5 if big else 20, warmup=1) \
+            if lib_call is not None else None
+        bound, by = flash_bwd_bound_ms(B, S, Sk, HQ, KH, D, causal,
+                                       q.element_size())
+        row = dict(B=B, S=S, Sk=Sk, HQ=HQ, KH=KH, D=D, causal=causal,
+                   dtype=dt, launches=train_shapes.get(shape, 0), ms=ms,
+                   call_ms=call_ms, plain_ms=plain, library_ms=lib,
+                   bound_ms=bound, bound_by=by, max_abs_err=checks,
+                   err_vs_plain=err)
+        rows.append(row)
+        log(f"  flash backward B={B} S={S} Sk={Sk} HQ={HQ} KH={KH} D={D} "
+            f"{'causal' if causal else 'full'} {dt}: kernel {ms:.4f} ms, "
+            f"call {call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
+            f"{plain:.4f} ms; sdpa backward "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'})"
+            + (f" x{row['launches']}" if row["launches"] else ""))
+        del q, k, v, o, do, lib_call
+        torch.cuda.empty_cache()
+    rec["flash_bwd_shapes"] = rows
+    return rows, max_err
+
+
+def train_llama(out, counters):
+    """llama3.2-3b at its published width and depth (28 layers, bf16
+    parameters, AdamW, remat) trains TRAIN_STEPS steps of TRAIN_BATCH x
+    TRAIN_SEQ tokens through Trainer, with every kernel's count set to 0
+    just before; then a fifth step under torch.profiler for the device
+    idle share.  Each step launches the flash forward kernel twice a layer
+    (the forward and its recompute under remat) and the backward once;
+    the first step's backward launches of layers 27 and 0 are held to the
+    plain backward."""
+    import math
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.launch.train import Trainer
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    spec = get_arch(TRAIN_ARCH)
+    cfg = spec.model.replace(max_seq=max(spec.model.max_seq, TRAIN_SEQ))
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, optimizer=spec.optimizer, seq_len=TRAIN_SEQ,
+                 global_batch=TRAIN_BATCH, seed=0, torch_device=DEVICE)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["state_gb"] = torch.cuda.memory_allocated() / 1e9
+    log(f"  {TRAIN_ARCH}: {L} layers, d {cfg.d_model}, {cfg.dtype} "
+        f"parameters and AdamW state ({out['state_gb']:.2f} GB) built in "
+        f"{out['build_s']:.1f} s; batch cut from 256 to {TRAIN_BATCH} "
+        f"sequences of {TRAIN_SEQ}")
+    captured, real_bwd = [], fops.flash_attention_bwd
+
+    def capture(q, k, v, o, do, *, causal=True):
+        grads = real_bwd(q, k, v, o, do, causal=causal)
+        n = len(captured)
+        if n in (0, L - 1):       # the backward runs from the last layer
+            captured.append(dict(layer=L - 1 - n, causal=causal,
+                                 inputs=[t.detach().clone()
+                                         for t in (q, k, v, o, do)],
+                                 grads=[g.clone() for g in grads]))
+        else:
+            captured.append(None)
+        return grads
+
+    counters.reset()
+    flash_attention.bwd_launches = 0
+    flash_attention.bwd_shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        before = (flash_attention.launches, flash_attention.bwd_launches)
+        fops.flash_attention_bwd = capture if i == 0 else real_bwd
+        try:
+            hist = tr.train(1, log_every=1)
+        finally:
+            fops.flash_attention_bwd = real_bwd
+        fwd = flash_attention.launches - before[0]
+        bwd = flash_attention.bwd_launches - before[1]
+        steps.append(dict(loss=hist["loss"][0], ms=hist["seconds"][0] * 1e3,
+                          flash_fwd=fwd, flash_bwd=bwd))
+        log(f"  step {i + 1}: loss {hist['loss'][0]:.4f}, "
+            f"{steps[-1]['ms']:.1f} ms, flash launches: {fwd} forward, "
+            f"{bwd} backward")
+        if (fwd, bwd) != (2 * L, L):
+            fail(f"training step {i + 1} launched the flash kernels {fwd} "
+                 f"(forward) and {bwd} (backward) times, not {2 * L} and "
+                 f"{L}")
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = counters.read()
+    out["bwd_launches"] = flash_attention.bwd_launches
+    out["bwd_shapes"] = dict(flash_attention.bwd_shapes)
+    if not all(math.isfinite(s["loss"]) for s in steps):
+        fail(f"training losses are not finite: {[s['loss'] for s in steps]}")
+    # the captured backward launches against the plain backward
+    checked = []
+    for c in (c for c in captured if c is not None):
+        q, k, v, o, do = c["inputs"]
+        checks, err = flash_bwd_errors(c["grads"], q, k, v, o, do,
+                                       c["causal"])
+        checked.append(dict(layer=c["layer"], checks=checks))
+        log(f"  step 1 backward launch of layer {c['layer']}: "
+            f"{flash_bwd_check_line(checks)}")
+        if not all(ck["ok"] for ck in checks):
+            fail(f"the flash backward launch of layer {c['layer']} differs "
+                 f"from the plain backward: {checks}")
+    del captured
+    med = statistics.median(s["ms"] for s in steps[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # a fifth step under the profiler: device busy over the step's wall
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prof_loss = tr.train(1, log_every=10 ** 9)["loss"][0]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if t > 0 and e.device_type == DeviceType.CUDA:
+            kernels[e.key] = t / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    out.update(steps=steps, step_ms_median=med,
+               tokens_per_s=tokens / (med / 1e3), checked_launches=checked,
+               profiled_step=dict(loss=prof_loss, wall_ms=wall_ms,
+                                  device_busy_ms=busy_ms,
+                                  idle_share=1 - busy_ms / wall_ms,
+                                  top_device_ms=top),
+               batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+               reduced=["global batch 256 -> 2 sequences (one card)"])
+    log(f"  {TRAIN_ARCH} training: step {med:.1f} ms (median of steps "
+        f"2-{TRAIN_STEPS}), {tokens / (med / 1e3):.0f} tokens/s, peak "
+        f"allocated {out['peak_allocated_gb']:.2f} GB; profiled step "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.4f}")
+    for k, t in top[:5]:
+        log(f"    {k[:90]}: {t:.2f} ms")
+    del tr
+    free_device_memory()
+
+
+def train_f32_replay(out, counters):
+    """Full width at TRAIN_SMALL_LAYERS layers in float32: one step's loss
+    and every gradient leaf with the kernels, against a replay with every
+    op's plain version (PlainOps) on the same weights and batch: the loss
+    within 1e-5 relative, each leaf within 1e-4 of its max|grad|.  No
+    kernel may launch in the replay."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import flatten, requires_grad_
+    cfg = get_arch(TRAIN_ARCH).model.replace(
+        n_layers=TRAIN_SMALL_LAYERS, dtype="float32")
+    params = requires_grad_(T.init_params(cfg, 0, DEVICE).tree())
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+             SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_SMALL_SEQ,
+                                           1, seed=0)).batch(0).items()}
+
+    def grads():
+        loss, _ = T.forward_train(params, cfg, batch)
+        flat = flatten(params)
+        g = torch.autograd.grad(loss, list(flat.values()))
+        return float(loss.detach()), dict(zip(flat, g))
+    from repro_torch.kernels.flash_attention import flash_attention
+    counters.reset()
+    bwd0 = flash_attention.bwd_launches
+    loss_k, g_k = grads()
+    kernel = dict(counters.read(), flash_bwd=flash_attention.bwd_launches
+                  - bwd0)
+    with PlainOps():
+        counters.reset()
+        bwd0 = flash_attention.bwd_launches
+        loss_p, g_p = grads()
+        plain = dict(counters.read(), flash_bwd=flash_attention.bwd_launches
+                     - bwd0)
+    if kernel["flash_attention"] <= 0 or kernel["flash_bwd"] <= 0 \
+            or any(plain.values()):
+        fail(f"float32 replay: kernel run launches {kernel}, replay "
+             f"launches {plain}")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    errs = {k: float((g_k[k] - g_p[k]).abs().max()
+                     / g_p[k].abs().max().clamp_min(1e-30)) for k in g_p}
+    worst = max(errs, key=errs.get)
+    out.update(loss=loss_k, loss_plain=loss_p, loss_rel_err=rel,
+               worst_leaf=worst, worst_leaf_rel_err=errs[worst],
+               leaves=len(errs), layers=TRAIN_SMALL_LAYERS,
+               seq_len=TRAIN_SMALL_SEQ)
+    log(f"  float32 replay ({TRAIN_SMALL_LAYERS} layers, S "
+        f"{TRAIN_SMALL_SEQ}): loss {loss_k:.6f} against the plain "
+        f"version's {loss_p:.6f} (relative {rel:.2e}, limit 1e-5); worst "
+        f"of {len(errs)} gradient leaves {worst} at {errs[worst]:.2e} of "
+        f"its max|grad| (limit 1e-4)")
+    if rel > 1e-5 or errs[worst] > 1e-4:
+        fail("float32 training step differs from its plain replay")
+    del params, g_k, g_p
+    free_device_memory()
+
+
+def train_checkpoint(out):
+    """Full width at TRAIN_SMALL_LAYERS layers (bf16, AdamW): a run saves
+    after step 2 and goes on to step 3; a fresh Trainer restores the
+    checkpoint and takes step 3.  Its loss and every parameter and state
+    leaf must equal the uninterrupted run's, bitwise."""
+    import shutil
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import Trainer
+    from repro_torch.tree import leaves
+    spec = get_arch(TRAIN_ARCH)
+    cfg = spec.model.replace(n_layers=TRAIN_SMALL_LAYERS)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    kw = dict(optimizer=spec.optimizer, seq_len=TRAIN_SMALL_SEQ,
+              global_batch=1, seed=0, torch_device=DEVICE,
+              ckpt_dir=str(ckpt))
+    try:
+        a = Trainer(cfg, **kw)
+        t0 = time.perf_counter()
+        a.train(2, log_every=10 ** 9, ckpt_every=10 ** 9)  # saves at 2
+        save_s = time.perf_counter() - t0
+        a.ckpt = None                  # the uninterrupted run saves no more
+        loss_a = a.train(1, log_every=10 ** 9)["loss"]
+        b = Trainer(cfg, **kw)
+        t0 = time.perf_counter()
+        if not b.maybe_restore() or b.step != 2:
+            fail("the training checkpoint did not restore at step 2")
+        restore_s = time.perf_counter() - t0
+        b.ckpt = None
+        loss_b = b.train(1, log_every=10 ** 9)["loss"]
+        same = loss_a == loss_b and all(
+            torch.equal(x, y) for x, y in zip(
+                leaves(a.params) + leaves(a.opt_state),
+                leaves(b.params) + leaves(b.opt_state)))
+        nbytes = sum(f.stat().st_size for f in ckpt.rglob("*.npy"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out.update(loss=loss_a[0], loss_restored=loss_b[0], bitwise=same,
+               checkpoint_gb=nbytes / 1e9, save_and_steps_s=save_s,
+               restore_s=restore_s)
+    log(f"  checkpoint round trip ({TRAIN_SMALL_LAYERS} layers, "
+        f"{nbytes / 1e9:.2f} GB on disk; two steps and the save "
+        f"{save_s:.1f} s, restore {restore_s:.1f} s): step 3 loss "
+        f"{loss_a[0]:.6f} uninterrupted, {loss_b[0]:.6f} restored, "
+        f"bitwise equal: {same}")
+    if not same:
+        fail("the restored run's step 3 differs from the uninterrupted run")
+    del a, b
+    free_device_memory()
+
+
+def phase_train(rec, counters):
+    """Training on the card: train_llama (the main path, counts from 0),
+    then the float32 replay, the checkpoint round trip, and the backward
+    kernel against its plain version (phase_flash_bwd_kernel)."""
+    t_phase = time.perf_counter()
+    out = {"llama": {}, "f32_replay": {}, "checkpoint": {}}
+    train_llama(out["llama"], counters)
+    train_f32_replay(out["f32_replay"], counters)
+    train_checkpoint(out["checkpoint"])
+    rows, err = phase_flash_bwd_kernel(rec, out["llama"]["bwd_shapes"])
+    out["llama"]["bwd_shapes"] = [list(sh) + [n] for sh, n in
+                                  out["llama"]["bwd_shapes"].items()]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14 took {out['seconds']:.1f} s")
+    rec["train"] = out
+    return out, rows, err
+
+
 def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
     """The larger of the bytes (q and k once, counted once where they are
     broadcast over heads; v, la and h0 read; y and h written) at the
@@ -4162,6 +4652,23 @@ def main():
     rec["encdec_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                             for k, v in counters.shapes.items()}
 
+    # ---- phase 14: training (counts from 0 before the run) --------------
+    log("phase 14: training (llama3.2-3b at full width and depth, bf16 and "
+        f"AdamW, B{TRAIN_BATCH} S{TRAIN_SEQ}, Trainer), a float32 replay, a "
+        "checkpoint round trip, and the flash backward kernel")
+    free_device_memory()
+    counters.clear_shapes()
+    tr, fb_rows, fb_err = phase_train(rec, counters)
+    train_launches = tr["llama"]["launches"]
+    if train_launches["flash_attention"] <= 0 \
+            or tr["llama"]["bwd_launches"] <= 0:
+        fail("the flash kernels were never launched on the training path")
+    # its forward shapes are timed in phase 7 too
+    for sh, n in counters.shapes["flash_attention"].items():
+        flash_shapes[sh] = flash_shapes.get(sh, 0) + n
+    rec["train_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
+                           for k, v in counters.shapes.items()}
+
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
@@ -4337,6 +4844,30 @@ def main():
         bound_by=sg["bound_by"], library_ms=None, checked=True,
         shape={k: sg[k] for k in ("B", "S", "H", "N", "P", "chunk",
                                    "qk_dtype", "heads_broadcast")}))
+    # the flash backward at the training path's shape (Llama-3.2-3B's
+    # train_4k); every checked shape is in the record and on the lines above
+    fb = next(r for r in fb_rows if (r["B"], r["S"], r["Sk"], r["HQ"],
+                                     r["KH"], r["D"], r["causal"],
+                                     r["dtype"]) == FLASH_BWD_CASES[0])
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/flash_attention/csrc/flash_bwd.cu",
+        replaces="src/repro/kernels/flash_attention/ref.py:18",
+        replaces_what="no TPU kernel: jax.value_and_grad of the reference's "
+                      "attention_ref (src/repro/launch/train.py:46)",
+        kernel="flash_bwd", dtype="bfloat16",
+        launches=tr["llama"]["bwd_launches"],
+        max_abs_err=fb_err["bfloat16"], max_abs_err_f32=fb_err["float32"],
+        ms=fb["ms"], call_ms=fb["call_ms"], plain_ms=fb["plain_ms"],
+        bound_ms=fb["bound_ms"], bound_by=fb["bound_by"],
+        library_ms=fb["library_ms"],
+        library_what="scaled_dot_product_attention's backward alone",
+        checked=True,
+        shape={k: fb[k] for k in ("B", "S", "Sk", "HQ", "KH", "D", "causal",
+                                   "dtype")}))
+    for kern in kernels:
+        if kern["name"] == "flash_attention":
+            kern["train_launches"] = train_launches["flash_attention"]
     rec["profiler_retries"] = PROFILER_RETRIES
     rec["profiler_drops"] = PROFILER_DROPS
     rec["profiler_fallbacks"] = PROFILER_FALLBACKS

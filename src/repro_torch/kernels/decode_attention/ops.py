@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import decode_attention_cuda
 from .ref import KvLen, decode_attention_ref_4d
 
@@ -27,6 +28,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention shapes q {tuple(q.shape)}, "
                          f"caches {tuple(k_cache.shape)}, "
                          f"{tuple(v_cache.shape)}")
+    refuse_grad("decode_attention", (q, k_cache, v_cache))
     dev = q.device
     if k_cache.device != dev or v_cache.device != dev:
         raise ValueError("decode_attention operands on different devices")

@@ -1,7 +1,8 @@
-"""ctypes bindings of the two CUDA flash_attention kernels (the design
-notes are at the top of each source): ``csrc/flash_wgmma.cu`` for
-bfloat16 operands (wgmma and TMA) and ``csrc/flash_tf32x3.cu`` for
-float32 ones (mma.sync in 3xTF32).  :func:`route` picks one by dtype,
+"""ctypes bindings of the CUDA flash_attention kernels (the design notes
+are at the top of each source): ``csrc/flash_wgmma.cu`` for bfloat16
+operands (wgmma and TMA) and ``csrc/flash_tf32x3.cu`` for float32 ones
+(mma.sync in 3xTF32), and the backward of both, ``csrc/flash_bwd.cu``
+(:func:`flash_attention_bwd_cuda`).  :func:`route` picks one by dtype,
 :func:`wgmma_plan` turns the operands' shapes and strides into the
 tensor maps of the bfloat16 kernel and :func:`flash_f32_plan` sizes the
 float32 kernel's tiles; all are plain Python, so the CPU tests reach
@@ -191,3 +192,56 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = (_wgmma if which == "wgmma" else _tf32x3)(q, k, v, out, causal)
     _build.check(err, f"flash_attention ({which})")
     return out
+
+
+#: the head dims the backward kernel is instantiated for (whisper 64,
+#: phi-3-vision 96, every other config 128)
+BWD_D = (64, 96, 128)
+
+
+def _bwd_operand(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous with a 16-byte aligned base (a copy where it is not)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, causal: bool
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """The gradient of flash_attention on the card: q, o (the forward's
+    output) and do (its gradient) (B, S, HQ, D), k and v (B, Sk, KH, D),
+    one dtype, float32 or bfloat16, D 64, 96 or 128 (ValueError else,
+    before any launch).  Launches ``csrc/flash_bwd.cu``'s three kernels
+    (row stats, dk and dv, dq) and returns (dq, dk, dv), contiguous, in
+    the operands' dtype."""
+    if len({t.dtype for t in (q, k, v, o, do)}) != 1 \
+            or q.dtype not in (torch.float32, torch.bfloat16):
+        # the mixed route (a bfloat16 query over float32 K/V) included
+        raise ValueError(f"the flash_attention backward kernel takes q, k, "
+                         f"v, out and grad of one dtype, float32 or "
+                         f"bfloat16, got "
+                         f"{[str(t.dtype) for t in (q, k, v, o, do)]}")
+    if q.shape[-1] not in BWD_D:
+        raise ValueError(f"the flash_attention backward kernel takes D in "
+                         f"{BWD_D}, got {q.shape[-1]}")
+    q, k, v, o, do = (_bwd_operand(t) for t in (q, k, v, o, do))
+    B, S, HQ, D = q.shape
+    _, Sk, KH, _ = k.shape
+    if min(B, S, Sk, HQ) == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    # every element is written by the kernels
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lse = torch.empty(B * HQ * S, dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    fn = _launcher("flash_bwd", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                   + [ctypes.c_float, ctypes.c_void_p])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), B, S, Sk, HQ, KH, D,
+             int(causal), int(q.dtype == torch.float32),
+             float(1.0 / math.sqrt(D)), stream)
+    _build.check(err, "flash_attention backward")
+    return dq, dk, dv

@@ -13,13 +13,23 @@ promotion: on the CPU the plain version computes in float32 anyway; on
 the card the bfloat16 operands are upcast to float32, which is exact, the
 3xTF32 kernel runs, and the result is cast to q's dtype.  K/V are never
 cast down.
+
+The op carries a gradient: when grad mode is on and an operand requires
+grad, it runs inside a ``torch.autograd.Function`` whose forward is the
+dispatch above and whose backward (:func:`flash_attention_bwd`)
+dispatches by device in the same way: a CPU tensor takes the plain
+backward (``ref.attention_bwd_ref``), a CUDA tensor the backward kernel
+(``csrc/flash_bwd.cu``, one dtype, float32 or bfloat16, D 64, 96 or 128;
+anything else raises ValueError before any launch), any other device
+raises.  Otherwise (serving) the Function is not entered and nothing is
+saved.  Backward launches are counted apart from the forward's.
 """
 from __future__ import annotations
 
 import torch
 
-from .kernel import flash_attention_cuda
-from .ref import attention_ref, attention_ref_chunked
+from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .ref import attention_bwd_ref, attention_ref, attention_ref_chunked
 
 # above this many score elements per head the materialized oracle would
 # dominate memory: the plain version switches to the chunked loop
@@ -60,14 +70,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _from_heads(out, B)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B, S, HQ, D); k/v: (B, Sk, KH, D), HQ a multiple of KH.
-    Returns (B, S, HQ, D) in q's dtype; q and k/v may differ in dtype
-    (see the module docstring).  Query head h reads kv head
-    h // (HQ // KH); with ``causal`` the diagonal is aligned bottom-right
-    (row i sees keys j <= i + Sk - S)."""
-    _check(q, k, v)
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool) -> torch.Tensor:
     dev = q.device
     if dev.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
@@ -83,11 +87,78 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               for t in (q, k, v)]
         out = flash_attention_cuda(*up, causal).to(q.dtype)
         dtype = f"{names[0]}/{names[1]}"
-    flash_attention.launches += 1
-    B, S, HQ, D = q.shape
-    key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal), dtype)
-    flash_attention.shapes[key] = flash_attention.shapes.get(key, 0) + 1
+    if q.numel():                   # an empty output launches nothing
+        flash_attention.launches += 1
+        B, S, HQ, D = q.shape
+        key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal), dtype)
+        flash_attention.shapes[key] = flash_attention.shapes.get(key, 0) + 1
     return out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True):
+    """The gradient (dq, dk, dv) of ``o = flash_attention(q, k, v)`` for
+    the output gradient do, in the dtypes of q, k and v.  A CPU tensor
+    takes the plain backward, a CUDA tensor the backward kernel (counted
+    in ``flash_attention.bwd_launches`` and ``.bwd_shapes``), any other
+    device raises ValueError."""
+    _check(q, k, v)
+    if o.shape != q.shape or do.shape != q.shape \
+            or o.device != q.device or do.device != q.device:
+        raise ValueError(f"flash_attention backward: out {tuple(o.shape)} "
+                         f"and grad {tuple(do.shape)} must match q "
+                         f"{tuple(q.shape)} on its device")
+    dev = q.device
+    if dev.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, do,
+                                 group=q.shape[2] // k.shape[2],
+                                 causal=causal)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_attention has no backward kernel for "
+                         f"device {dev}")
+    grads = flash_attention_bwd_cuda(q, k, v, o, do, causal)
+    B, S, HQ, D = q.shape
+    if min(B, S, k.shape[1], HQ):   # an empty operand launches nothing
+        flash_attention.bwd_launches += 1
+        key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal),
+               str(q.dtype).split(".")[-1])
+        flash_attention.bwd_shapes[key] = \
+            flash_attention.bwd_shapes.get(key, 0) + 1
+    return grads
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with its gradient: the forward is the op's
+    dispatch, the backward :func:`flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out = _forward(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, S, HQ, D); k/v: (B, Sk, KH, D), HQ a multiple of KH.
+    Returns (B, S, HQ, D) in q's dtype; q and k/v may differ in dtype
+    (see the module docstring).  Query head h reads kv head
+    h // (HQ // KH); with ``causal`` the diagonal is aligned bottom-right
+    (row i sees keys j <= i + Sk - S).  Differentiable when grad mode is
+    on and an operand requires grad."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q, k, v, causal)
 
 
 #: kernel launches made by this op (plain-version calls do not count)
@@ -95,3 +166,7 @@ flash_attention.launches = 0
 #: (B, S, Sk, HQ, KH, D, causal, dtype) -> launches at that shape; dtype
 #: "bfloat16", "float32", or "<q dtype>/<k/v dtype>" where they differ
 flash_attention.shapes = {}
+#: backward kernel calls (each launches flash_bwd.cu's three kernels), and
+#: the shapes they ran at, keyed as ``shapes`` is
+flash_attention.bwd_launches = 0
+flash_attention.bwd_shapes = {}

@@ -8,6 +8,8 @@ Two forms, as in the reference's ``flash_attention/ref.py``:
     per head instead of (S, Sk).
 And a model of the float32 CUDA kernel's arithmetic (3xTF32 products),
 ``attention_tf32x3_model``, which the CPU tests hold to a float64 oracle.
+The backward, ``attention_bwd_ref``, is written out as FlashAttention-2's
+formulas (no autograd), with a loop over key blocks for long sequences.
 
 The causal diagonal is aligned bottom-right: query row i (of S) sees key
 j (of Sk) when j <= i + (Sk - S), the reference oracles' mask.  Masked
@@ -20,7 +22,7 @@ its chunked one NaN (-inf minus -inf).
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -131,3 +133,86 @@ def attention_tf32x3_model(q: torch.Tensor, k: torch.Tensor,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return (matmul_tf32x3(p, vh.contiguous()) / l).transpose(1, 2)
+
+
+def _row_stats(qg: torch.Tensor, k: torch.Tensor, *, causal: bool, S: int,
+               Sk: int, bk: int, scale: float) -> torch.Tensor:
+    """The log-sum-exp of each query row's scaled scores over the keys it
+    sees, (B, KH, G, S, 1), by a running max and sum over key blocks of
+    bk; +inf for a row that sees no key (its weights are then 0)."""
+    B, _, KH, G, _ = qg.shape
+    m = torch.full((B, KH, G, S, 1), NEG_INF, dtype=qg.dtype,
+                   device=qg.device)
+    l = torch.zeros_like(m)
+    for k0 in range(0, Sk, bk):
+        n = min(bk, Sk - k0)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg,
+                         k[:, k0:k0 + n].to(qg.dtype)) * scale
+        if causal:
+            mask = _causal_mask(S, Sk, qg.device, k0, n)
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        if causal:
+            p = torch.where(mask, p, torch.zeros_like(p))
+        l = l * torch.exp(m - m_new) + p.sum(dim=-1, keepdim=True)
+        m = m_new
+    return torch.where(l > 0, m + torch.log(l),
+                       torch.full_like(l, math.inf))
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, do: torch.Tensor, *, group: int,
+                      causal: bool = True, bk: int = 0,
+                      dtype: torch.dtype = torch.float32,
+                      operands: Optional[torch.dtype] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of attention: q, o (the forward's output) and do (the
+    gradient of o) (B, S, HQ, D); k, v (B, Sk, KH, D); group = HQ // KH.
+    Returns (dq, dk, dv) in the dtypes of q, k and v.
+
+    FlashAttention-2's formulas, computed in `dtype` (float32; float64 for
+    an oracle), not autograd of a forward: P is recomputed from each row's
+    log-sum-exp L (P = exp(S / sqrt(D) - L) over the keys the row sees),
+    Delta = rowsum(dO * O), dV = P^T dO, dP = dO V^T, dS = P * (dP - Delta),
+    dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D).  dK and dV sum over each KV
+    head's `group` query heads.  The causal diagonal is aligned
+    bottom-right, as the forward's; a row that sees no key has zero
+    gradient.  Keys are taken in blocks of bk (default: all of them up to
+    2048^2 scores per head, 1024 above), so memory holds one (S, bk) block
+    of scores per head.  With `operands` (torch.bfloat16), P and dS are
+    rounded to it where they enter a product, as the bf16 kernel rounds
+    its A operands; dS is formed from the unrounded P."""
+    B, S, HQ, D = q.shape
+    _, Sk, KH, _ = k.shape
+    if not bk:
+        bk = Sk if S * Sk <= 2048 * 2048 else 1024
+    bk = max(1, bk)
+    scale = 1.0 / math.sqrt(D)
+    qg = q.to(dtype).reshape(B, S, KH, group, D)
+    dog = do.to(dtype).reshape(B, S, KH, group, D)
+    lse = _row_stats(qg, k, causal=causal, S=S, Sk=Sk, bk=bk, scale=scale)
+    delta = (dog * o.to(dtype).reshape(B, S, KH, group, D)).sum(-1) \
+        .permute(0, 2, 3, 1)[..., None]                 # (B, KH, G, S, 1)
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros((B, Sk, KH, D), dtype=dtype, device=q.device)
+    dv = torch.zeros_like(dk)
+    for k0 in range(0, Sk, bk):
+        n = min(bk, Sk - k0)
+        kj = k[:, k0:k0 + n].to(dtype)
+        vj = v[:, k0:k0 + n].to(dtype)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kj) * scale
+        p = torch.exp(s - lse)                          # (B, KH, G, S, n)
+        if causal:
+            mask = _causal_mask(S, Sk, q.device, k0, n)
+            p = torch.where(mask, p, torch.zeros_like(p))
+        p_op = p if operands is None else p.to(operands).to(dtype)
+        dv[:, k0:k0 + n] = torch.einsum("bhgqk,bqhgd->bkhd", p_op, dog)
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vj)
+        ds = p * (dp - delta)
+        if operands is not None:
+            ds = ds.to(operands).to(dtype)
+        dq += torch.einsum("bhgqk,bkhd->bqhgd", ds, kj) * scale
+        dk[:, k0:k0 + n] = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg) * scale
+    return (dq.reshape(B, S, HQ, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

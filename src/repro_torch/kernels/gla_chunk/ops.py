@@ -11,6 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import MAX_TILE, gla_chunk_cuda
 from .ref import gla_chunk_ref
 
@@ -67,6 +68,9 @@ def gla_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the final state h (B, H, N, P) float32.  On the card q and k are
     float32 or bfloat16 and may be broadcast over heads (stride 0, read in
     place); v, la and h0 are float32."""
+    refuse_grad("gla_chunk", (q, k, v, la, h0),
+                " (the Mamba2 and mLSTM train forms wait for its backward "
+                "kernel, ROADMAP Queue 1 item 5b)")
     Q = _check(q, k, v, la, h0, chunk)
     dev = q.device
     if dev.type == "cpu":

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import EPILOGUES, GROUPS, OUT_DTYPES, lut_gemm_cuda
 from .ref import lut_gemm_ref
 
@@ -26,6 +27,7 @@ def lut_gemm(a: torch.Tensor, w: torch.Tensor, *, bits: int, group: int = 4,
     the dense path is the differential reference.  Weights outside the
     b-bit range are not checked: the kernel reads only their low b bits.
     """
+    refuse_grad("lut_gemm", (a, w))
     if bits not in (1, 2, 4):
         raise ValueError(f"lut_gemm: bits must be 1, 2 or 4, got {bits}")
     if epilogue not in EPILOGUES:

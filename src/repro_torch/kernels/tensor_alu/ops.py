@@ -13,6 +13,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from .._grad import refuse_grad
 from .block_map import BlockMap
 from .kernel import (MAX_OPS, MAX_SRC, MAX_T, OP_CODES, tensor_alu_cuda,
                      tensor_alu_scatter_cuda)
@@ -32,6 +33,7 @@ def tensor_alu(dst: torch.Tensor, src: Optional[torch.Tensor] = None,
                ) -> torch.Tensor:
     """Apply `chain` — (op, imm) steps, imm=None meaning tensor-tensor with
     `src` — element-wise to int32 `dst`; returns a new int32 tensor."""
+    refuse_grad("tensor_alu", (dst, src))
     chain = tuple(chain)
     _check_chain(chain, src is not None)
     if dst.dtype != torch.int32 or (src is not None
@@ -78,6 +80,8 @@ def tensor_alu_scatter(mats: Sequence[Sequence[torch.Tensor]],
     each tile's blocks summed as ``bmap`` says, in int32 wraparound, then
     the chain.  Tiles beyond MAX_T (or MAX_SRC outputs) take more
     launches."""
+    refuse_grad("tensor_alu_scatter",
+                [t for row in mats for t in row] + list(bias or ()))
     chain = tuple(chain)
     _check_chain(chain, bias is not None)
     T, G = len(mats), len(bmap.groups)

@@ -10,6 +10,7 @@ from typing import Optional
 
 import torch
 
+from .._grad import refuse_grad
 from .kernel import (EPILOGUES, OUT_DTYPES, X_DTYPES, quantized_linear_cuda,
                      vta_gemm_cuda)
 from .ref import quantized_linear_ref, vta_gemm_ref
@@ -27,6 +28,7 @@ def vta_gemm(a: torch.Tensor, w: torch.Tensor,
     epilogue: "none" -> int32, "requant" -> clip(acc >> shift) int8,
     "dequant" -> acc * scale float32.  M, N and K may be any sizes.
     """
+    refuse_grad("vta_gemm", (a, w, bias, scale))
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}")
     if epilogue == "requant" and shift < 0:
@@ -95,6 +97,7 @@ def quantized_linear(x: torch.Tensor, w_q: torch.Tensor,
     dequantization in the vta_gemm kernels, one launch (two above 16
     rows), bitwise equal to ``ref.quantized_linear_ref``.
     """
+    refuse_grad("quantized_linear", (x, w_q, w_scale, x_scale))
     if x.dim() < 1 or w_q.dim() != 2 or x.shape[-1] != w_q.shape[0] \
             or w_scale.shape != (w_q.shape[1],):
         raise ValueError(f"quantized_linear shapes {tuple(x.shape)} @ "

@@ -1,1 +1,2 @@
-"""Entry points: the batched LM serving loop (``launch.serve``)."""
+"""Entry points: the batched LM serving loop (``launch.serve``) and the
+single-process trainer (``launch.train``)."""

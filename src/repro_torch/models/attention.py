@@ -1,14 +1,15 @@
 """GQA attention with KV cache: prefill and decode modes, the whisper
 encoder's full-sequence pass and its decoder's cross-attention.
 
-The port of the reference's ``models/attention.py`` for the serve path.
-Prefill, the encoder (``attn_train``) and cross-attention run the
+The port of the reference's ``models/attention.py``.  Training
+(``attn_train``), prefill, the encoder and cross-attention run the
 ``flash_attention`` op and decode the ``decode_attention`` op; each picks
-its kernel or plain version by the device of its tensors.  Caches are
-written in place (the reference returns updated copies): the cache dict
-is returned so the call sites read as the reference's.  ``attn_train`` is
-the forward only: no op here records a gradient (training is ROADMAP
-Queue 1 item 5).
+its kernel or plain version by the device of its tensors.
+``flash_attention`` carries a gradient (its backward is a kernel on the
+card); ``decode_attention`` serves only and raises on the card where an
+operand requires grad.  Caches are written in place (the reference
+returns updated copies): the cache dict is returned so the call sites
+read as the reference's.
 """
 from __future__ import annotations
 
@@ -46,9 +47,10 @@ def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
 
 def attn_train(p: Params, cfg, x: torch.Tensor, *, causal: bool = True,
                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention over the whole sequence x (B, S, d), no cache: the
-    whisper encoder's pass (``causal=False``).  The forward only: its
-    gradient waits for the training slice (ROADMAP Queue 1 item 5)."""
+    """Attention over the whole sequence x (B, S, d), no cache: the train
+    mode of every attention block, and the whisper encoder's pass
+    (``causal=False``).  Differentiable: the gradient of the attention
+    itself is the flash_attention op's backward (a kernel on the card)."""
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, device=x.device).expand(B, S)

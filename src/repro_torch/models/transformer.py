@@ -29,7 +29,18 @@ reads ``cross_kv``.  ``cross_kv`` is ``encoder_seq`` rows long and
 written in place, so frames of another length raise ``ValueError``
 (the reference swaps in whatever length it is given).
 
-Not ported yet: training (``forward_train``, ROADMAP Queue 1 item 5).
+Training (``forward_hidden``, ``chunked_cross_entropy``,
+``forward_train``, the reference's train mode) covers the ``"attn"``
+block (whisper's encoder and cross-attention, phi-3-vision's patch
+prefix included) and the ``"moe"`` block.  The Mamba2 and xLSTM blocks
+raise ValueError: their train forms need a ``gla_chunk`` backward kernel
+(ROADMAP Queue 1 item 5b).  A stacked leaf is unbound into per-layer
+views once per forward (so the backward stacks the layers' gradients
+once), and with ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+reference's ``jax.checkpoint(nothing_saveable)`` scan body; each loss
+chunk is checkpointed, as the reference's, so the vocab-wide float32
+logits of one chunk at a time are live.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.driver import TorchDeviceLike, resolve_torch_device
 
@@ -225,13 +237,18 @@ def _encode(params: Params, cfg: ModelConfig,
     term is added to the frames, as in the reference."""
     enc = params["encoder"]
     x = frames
-    for i in range(cfg.encoder_layers):
-        lp = _index(enc["layers"], i)
-        h = norm_apply(cfg, lp["ln1"], x)
-        x = x + attn.attn_train(lp["attn"], cfg, h, causal=False)
-        h = norm_apply(cfg, lp["ln2"], x)
-        x = x + mlp_apply(lp["mlp"], h, cfg)
+    for lp in _unstack(enc["layers"], cfg.encoder_layers):
+        x = _remat(cfg.remat and _training(enc, x), _encoder_layer, lp,
+                   cfg, x)
     return norm_apply(cfg, enc["norm"], x)
+
+
+def _encoder_layer(lp: Params, cfg: ModelConfig,
+                   x: torch.Tensor) -> torch.Tensor:
+    h = norm_apply(cfg, lp["ln1"], x)
+    x = x + attn.attn_train(lp["attn"], cfg, h, causal=False)
+    h = norm_apply(cfg, lp["ln2"], x)
+    return x + mlp_apply(lp["mlp"], h, cfg)
 
 
 # ----------------------------------------------------------------------
@@ -267,6 +284,152 @@ def logits_fn(params: Params, cfg: ModelConfig,
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# ----------------------------------------------------------------------
+# training: the layer stack without caches, and the chunked loss
+# ----------------------------------------------------------------------
+#: the block types with a train form (the recurrent blocks' wait for a
+#: gla_chunk backward kernel, ROADMAP Queue 1 item 5b)
+TRAIN_BLOCKS = ("attn", "moe")
+
+
+def _unstack(tree: Params, n: int) -> list:
+    """The n layers of a stacked tree, as views (``unbind``: the backward
+    stacks the n gradients of a leaf once, where indexing each layer
+    would add n leaf-sized tensors)."""
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _training(tree: Params, x: torch.Tensor) -> bool:
+    """Grad mode is on and x or a leaf of `tree` requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if x.requires_grad:
+        return True
+    stack = [tree]
+    while stack:
+        node = stack.pop()
+        for v in node.values():
+            if isinstance(v, dict):
+                stack.append(v)
+            elif v.requires_grad:
+                return True
+    return False
+
+
+def _remat(on: bool, fn, *args):
+    """fn(*args), recomputed in the backward instead of saved when `on`."""
+    if on:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ValueError naming the block types without a train form."""
+    bad = sorted(set(cfg.block_pattern()) - set(TRAIN_BLOCKS))
+    if bad:
+        raise ValueError(f"{cfg.name}: no train form for block type(s) "
+                         f"{bad} yet: their backward needs a gla_chunk "
+                         f"backward kernel (ROADMAP Queue 1 item 5b)")
+
+
+def _train_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 enc_out: Optional[torch.Tensor]):
+    """One "attn" or "moe" block in train mode: (x, aux loss)."""
+    h = norm_apply(cfg, p["ln1"], x)
+    x = x + attn.attn_train(p["attn"], cfg, h)
+    if "cross" in p:
+        h = norm_apply(cfg, p["lnx"], x)
+        enc_kv = attn.encode_cross_kv(p["cross"], cfg, enc_out)
+        x = x + attn.cross_attn_apply(p["cross"], cfg, h, enc_kv)
+    h = norm_apply(cfg, p["ln2"], x)
+    if "moe" in p:
+        o, aux = moe_mod.moe_apply(p["moe"], cfg, h)
+        return x + o, aux
+    return x + mlp_apply(p["mlp"], h, cfg), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_hidden(params: Union[LMParams, Params], cfg: ModelConfig,
+                   x: torch.Tensor, enc_out: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer stack in train mode (no caches).  Returns (hidden,
+    aux), aux the sum of the moe layers' aux losses.  Raises ValueError
+    for a block type without a train form."""
+    params = _tree(params)
+    check_trainable(cfg)
+    pattern = cfg.block_pattern()
+    layers = {b: _unstack(params["layers"][b], pattern.count(b))
+              for b in set(pattern)}
+    remat = cfg.remat and _training(params["layers"], x)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    counters = {b: 0 for b in layers}
+    for btype in pattern:
+        lp = layers[btype][counters[btype]]
+        counters[btype] += 1
+        x, aux = _remat(remat, _train_block, lp, cfg, x, enc_out)
+        aux_total = aux_total + aux
+    return x, aux_total
+
+
+def _chunk_loss(params: Params, cfg: ModelConfig, h: torch.Tensor,
+                t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the chunk's token losses, its count of targets)."""
+    logits = logits_fn(params, cfg, h).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t.clamp_min(0)[..., None].long())[..., 0]
+    mask = (t >= 0).to(torch.float32)
+    return torch.sum((lse - gold) * mask), torch.sum(mask)
+
+
+def chunked_cross_entropy(params: Union[LMParams, Params], cfg: ModelConfig,
+                          h: torch.Tensor,
+                          targets: torch.Tensor) -> torch.Tensor:
+    """Mean token loss of h (B, S, d) against targets (B, S) integer (-1:
+    ignored), over ``cfg.chunked_loss_chunks`` sequence chunks (fewer
+    where they do not divide S), each checkpointed when training, so one
+    chunk's float32 logits (B, S / n, V) are live at a time."""
+    params = _tree(params)
+    B, S, _ = h.shape
+    n = cfg.chunked_loss_chunks
+    while S % n:
+        n -= 1
+    c = S // n
+    remat = _training(params, h)
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for j in range(0, S, c):
+        part, m = _remat(remat, _chunk_loss, params, cfg, h[:, j:j + c],
+                         targets[:, j:j + c])
+        tot = tot + part
+        cnt = cnt + m
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def forward_train(params: Union[LMParams, Params], cfg: ModelConfig,
+                  batch: Mapping[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss of a batch {"tokens", "targets"} (B, S) integer,
+    with phi-3-vision's ``patch_emb`` or whisper's ``frames``: returns
+    (loss + 0.01 * aux, {"loss", "aux_loss"}).  The loss is over the text
+    tokens only (the patch rows are dropped before it).  Raises
+    ValueError, before any work, for a block type without a train form or
+    whisper without frames."""
+    params = _tree(params)
+    check_trainable(cfg)
+    if cfg.encoder_layers and "frames" not in batch:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: its training "
+                         f"batch needs frames (B, {cfg.encoder_seq}, "
+                         f"{cfg.d_model})")
+    x, enc_out = embed_inputs(params, cfg, batch)
+    h, aux = forward_hidden(params, cfg, x, enc_out)
+    if cfg.frontend == "vision_stub" and "patch_emb" in batch:
+        h = h[:, batch["patch_emb"].shape[1]:]   # loss over text tokens only
+    loss = chunked_cross_entropy(params, cfg, h, batch["targets"])
+    return loss + 0.01 * aux, {"loss": loss, "aux_loss": aux}
 
 
 # ----------------------------------------------------------------------

@@ -1,0 +1,176 @@
+"""Optimizers over trees of tensors (no external deps).
+
+The port of the reference's ``optim/optimizers.py``: AdamW for everything
+that fits, Adafactor (factored second moment, no first moment) for the
+1T-param kimi-k2 config.  The same float32 arithmetic and casts as the
+reference, op for op, except that the port updates in place where the
+reference returns new trees: parameters, gradients (clipping) and state
+are overwritten, and the trees passed in are returned, so call sites read
+as the reference's.  AdamW and the scaling of clipping take a large leaf
+a slice of its leading dim at a time (at most ``CHUNK`` elements), which
+bounds their float32 temporaries (the stacked MLP leaf of llama3.2-3b is
+705 M elements) and changes no result: their arithmetic is elementwise.
+Reductions take each leaf whole, since slicing one would change the
+order of its float32 sum: the global norm (one float32 copy of a leaf at
+a time, squared in place) and Adafactor's update clipping.  Trees are walked in sorted key
+order (``tree.py``), so the global norm sums leaves in the reference's
+order.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.tree import flatten, map_tree
+
+Params = Any
+
+#: the most elements of a leaf that AdamW and clipping's scaling take at
+#: once
+CHUNK = 1 << 25
+
+
+def _slices(t: torch.Tensor) -> List[torch.Tensor]:
+    """t as views of at most CHUNK elements along its leading dim (t itself
+    when it is small or 0-d)."""
+    if t.dim() == 0 or t.numel() <= CHUNK:
+        return [t]
+    rows = max(1, CHUNK // (t.numel() // t.shape[0]))
+    return list(torch.split(t, rows, dim=0))
+
+
+# ----------------------------------------------------------------------
+# grad clipping
+# ----------------------------------------------------------------------
+@torch.no_grad()
+def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt of the sum over leaves of sum(g^2), in float32, each leaf
+    reduced whole."""
+    total = None
+    for g in flatten(tree).values():
+        sq = torch.sum(g.to(torch.float32, copy=True).square_())
+        total = sq if total is None else total + sq
+    if total is None:
+        return torch.zeros((), dtype=torch.float32)
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads: Params, max_norm: float
+                        ) -> Tuple[Params, torch.Tensor]:
+    """grads scaled by min(1, max_norm / max(norm, 1e-9)) in float32 and
+    cast back, in place; returns (grads, norm)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in flatten(grads).values():
+        for s in _slices(g):
+            s.copy_((s.to(torch.float32) * scale).to(s.dtype))
+    return grads, norm
+
+
+# ----------------------------------------------------------------------
+# AdamW
+# ----------------------------------------------------------------------
+def adamw_init(params: Params) -> Dict[str, Any]:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {"m": map_tree(zeros, params), "v": map_tree(zeros, params),
+            "count": torch.zeros((), dtype=torch.int32)}
+
+
+def _bias_correction(b: float, c: torch.Tensor) -> float:
+    """1 - b^c in float32, as a Python float holding the float32 value."""
+    return float(1.0 - torch.tensor(b, dtype=torch.float32) ** c)
+
+
+@torch.no_grad()
+def adamw_update(grads: Params, state: Dict[str, Any], params: Params, *,
+                 lr, b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+                 weight_decay: float = 0.1) -> Tuple[Params, Dict[str, Any]]:
+    """One AdamW step, in place on params, m and v; lr a float or a 0-d
+    float32 tensor."""
+    count = state["count"] + 1
+    c = count.to(torch.float32)
+    bc1, bc2 = _bias_correction(b1, c), _bias_correction(b2, c)
+    lr = float(lr)
+    flat_p = flatten(params)
+    flat_g, flat_m, flat_v = (flatten(t) for t in (grads, state["m"],
+                                                   state["v"]))
+    for name, p in flat_p.items():
+        for g, m, v, ps in zip(*(_slices(t) for t in (
+                flat_g[name], flat_m[name], flat_v[name], p))):
+            g = g.to(torch.float32)
+            mn = b1 * m + (1 - b1) * g
+            vn = b2 * v + (1 - b2) * g * g
+            step = (mn / bc1) / (torch.sqrt(vn / bc2) + eps)
+            step = step + weight_decay * ps.to(torch.float32)
+            m.copy_(mn)
+            v.copy_(vn)
+            ps.copy_((ps.to(torch.float32) - lr * step).to(ps.dtype))
+    return params, {"m": state["m"], "v": state["v"], "count": count}
+
+
+# ----------------------------------------------------------------------
+# Adafactor (factored second moment; memory ~ O(rows + cols))
+# ----------------------------------------------------------------------
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+
+def adafactor_init(params: Params) -> Dict[str, Any]:
+    def init(p):
+        f32 = dict(dtype=torch.float32, device=p.device)
+        if _factored(p.shape):
+            return {"vr": torch.zeros(p.shape[:-1], **f32),
+                    "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
+        return {"v": torch.zeros(p.shape, **f32)}
+    return {"v": map_tree(init, params),
+            "count": torch.zeros((), dtype=torch.int32)}
+
+
+@torch.no_grad()
+def adafactor_update(grads: Params, state: Dict[str, Any], params: Params,
+                     *, lr, decay: float = 0.99, eps: float = 1e-30,
+                     clip_threshold: float = 1.0, weight_decay: float = 0.0
+                     ) -> Tuple[Params, Dict[str, Any]]:
+    """One Adafactor step, in place on params and the second moments."""
+    count = state["count"] + 1
+    lr = float(lr)
+
+    def upd(g, v, p):
+        g = g.to(torch.float32)
+        g2 = g * g + eps
+        if _factored(g.shape):
+            vr = decay * v["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
+            vc = decay * v["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
+            denom = (vr[..., None] / torch.mean(vr, dim=-1, keepdim=True)
+                     [..., None]) * vc[..., None, :]
+            update = g * torch.rsqrt(denom + eps)
+            v["vr"].copy_(vr)
+            v["vc"].copy_(vc)
+        else:
+            nv = decay * v["v"] + (1 - decay) * g2
+            update = g * torch.rsqrt(nv + eps)
+            v["v"].copy_(nv)
+        # update clipping (RMS)
+        rms = torch.sqrt(torch.mean(torch.square(update)) + eps)
+        update = update / torch.clamp(rms / clip_threshold, min=1.0)
+        if weight_decay:
+            update = update + weight_decay * p.to(torch.float32)
+        p.copy_((p.to(torch.float32) - lr * update).to(p.dtype))
+
+    # at each parameter leaf, the state holds its {"vr", "vc"} or {"v"}
+    map_tree(lambda p, g, v: upd(g, v, p), params, grads, state["v"])
+    return params, {"v": state["v"], "count": count}
+
+
+# ----------------------------------------------------------------------
+# factory
+# ----------------------------------------------------------------------
+def make_optimizer(name: str):
+    if name == "adamw":
+        return adamw_init, adamw_update
+    if name == "adafactor":
+        return adafactor_init, adafactor_update
+    raise ValueError(name)

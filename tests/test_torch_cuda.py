@@ -34,6 +34,19 @@ N 256 k is scaled by 1/sqrt(N), as the mLSTM scales it
 (src/repro/models/xlstm.py): unit-normal k there gives scores of 16
 and a plain float32 version whose own error against float64 exceeds the
 3e-4 limit.
+The ``flash_attention`` backward kernel (``flash_bwd.cu``) against the
+plain backward (``attention_bwd_ref``, float32 math) on the same inputs:
+bfloat16 within 2^-6 * max|want| for each of dq, dk and dv (as the
+forward: the kernel rounds P and dS once to bf16 as operands, and both
+sides round the result once), and row by row against the plain backward
+in float64 on the upcast inputs: each query row of dq and key row of dk
+and dv within 4x that row's error of the plain backward with P and dS
+rounded to bf16 (``operands=torch.bfloat16``), plus 2^-10 of the median
+norm of the rows that are not zero (late causal rows are an order smaller than the first, so a
+limit from max|want| alone would miss them); float32 held to the plain
+backward in
+float64, its error at most 4x the float32 plain backward's, or 1e-6 of
+max|want| where that is larger; two calls bitwise equal (no atomics).
 """
 import numpy as np
 import pytest
@@ -50,7 +63,9 @@ from repro_torch.core.serve import DevicePool
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref_4d)
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
                                                  flash_attention_plain)
 from repro_torch.kernels.gla_chunk import (gla_chunk, gla_chunk_plain,
                                            gla_recurrence)
@@ -1212,3 +1227,211 @@ def test_reduced_moe_served_on_the_card(cuda_dev, arch, quant, tol):
         outs.append({r.rid: r.out_tokens
                      for r in eng.run(make_requests(tcfg, 6, 16))})
     assert outs[0] == outs[1]
+
+
+#: (B, S, Sk, HQ, KH, D, causal): the backward kernel's cases, small
+#: shapes of every served kind (GQA, ragged tiles, Sk != S both ways,
+#: rows that see no key) at each instantiated D
+FLASH_BWD_CASES = [
+    (1, 64, 64, 6, 2, 128, True),        # llama-like GQA
+    (2, 77, 77, 4, 2, 128, True),        # ragged tiles
+    (1, 100, 150, 4, 4, 64, False),      # whisper's cross-attention kind
+    (2, 90, 90, 4, 4, 96, True),         # phi-3-vision's D 96
+    (1, 40, 130, 4, 1, 64, True),        # Sk > S
+    (1, 100, 36, 4, 2, 128, True),       # Sk < S: rows that see no key
+    (1, 2048, 2048, 4, 2, 128, True),    # long causal rows, held by row
+]
+
+
+def _row_norms(x):
+    return x.double().reshape(-1, x.shape[-1]).norm(dim=-1)
+
+
+def _bwd_operands(dev, dtype, B, S, Sk, HQ, KH, D, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)) \
+            .to(dev).to(dtype)
+    q, k, v = t(B, S, HQ, D), t(B, Sk, KH, D), t(B, Sk, KH, D)
+    do = t(B, S, HQ, D)
+    return q, k, v, do
+
+
+def _check_bwd(q, k, v, do, causal):
+    """The kernel's (dq, dk, dv) against the plain backward: returns the
+    errors; asserts the limits of the module docstring."""
+    o = flash_attention(q, k, v, causal=causal)
+    before = flash_attention.bwd_launches
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.bwd_launches == before + 2
+    group = q.shape[2] // k.shape[2]
+    want = attention_bwd_ref(q, k, v, o, do, group=group, causal=causal)
+    if q.dtype == torch.float32:
+        want64 = attention_bwd_ref(q, k, v, o, do, group=group,
+                                   causal=causal, dtype=torch.float64)
+    else:
+        oracle = attention_bwd_ref(*(t.double() for t in (q, k, v, o, do)),
+                                   group=group, causal=causal,
+                                   dtype=torch.float64)
+        floor = attention_bwd_ref(q, k, v, o, do, group=group, causal=causal,
+                                  dtype=torch.float64,
+                                  operands=torch.bfloat16)
+    errs = []
+    for i, (a, a2, w, name) in enumerate(zip(got, again, want,
+                                             ("dq", "dk", "dv"))):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert torch.equal(a, a2), name
+        err = (a.float() - w.float()).abs().max().item()
+        if q.dtype == torch.bfloat16:
+            limit = 2.0 ** -6 * w.float().abs().max().item()
+            assert err <= limit, (name, err, limit)
+            w64 = oracle[i]
+            e_k = _row_norms(a.double() - w64)
+            norms = _row_norms(w64)
+            lim = 4 * _row_norms(floor[i].double() - w64) \
+                + 2.0 ** -10 * norms[norms > 0].median()
+            r = int(torch.argmax(e_k / lim))
+            assert (e_k <= lim).all(), (name, r, e_k[r].item(), lim[r].item())
+        else:
+            w64 = want64[i].double()
+            e64 = (a.double() - w64).abs().max().item()
+            base = (w.double() - w64).abs().max().item()
+            limit = max(4 * base, 1e-6 * w64.abs().max().item())
+            assert e64 <= limit, (name, e64, base, limit)
+        errs.append(err)
+    return errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_bwd_kernel_matches_plain(cuda_dev, case, dtype):
+    B, S, Sk, HQ, KH, D, causal = case
+    q, k, v, do = _bwd_operands(cuda_dev, dtype, B, S, Sk, HQ, KH, D,
+                                S + Sk + D)
+    _check_bwd(q, k, v, do, causal)
+    if S > Sk and causal:
+        # the rows that see no key have zero gradient
+        o = flash_attention(q, k, v, causal=causal)
+        dq = flash_attention_bwd(q, k, v, o, do, causal=causal)[0]
+        assert not dq[:, :S - Sk].float().abs().any()
+
+
+@pytest.mark.cuda
+def test_flash_bwd_f32_long_sums_stay_float32(cuda_dev):
+    """v = 1 + N(0, 1) over 8192 keys: a one-signed error from sums chained
+    on the tensor cores would grow with the keys."""
+    q, k, v, do = _bwd_operands(cuda_dev, torch.float32, 1, 16, 8192, 4, 4,
+                                64, 5)
+    v = v + 1.0
+    _check_bwd(q, k, v, do, False)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_through_autograd(cuda_dev):
+    """A loss through the op on CUDA tensors passes the kernel's gradient
+    to q, k and v: the Function launches the backward once."""
+    q, k, v, do = _bwd_operands(cuda_dev, torch.bfloat16, 2, 128, 128, 8, 2,
+                                128, 11)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    out = flash_attention(q, k, v, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    assert (flash_attention.launches, flash_attention.bwd_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                               out.detach(), do, causal=True)
+    for a, b in zip(grads, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S, Sk", [(0, 16), (16, 0)], ids=["S0", "Sk0"])
+def test_flash_empty_operands_count_no_launch(cuda_dev, S, Sk):
+    """An empty operand launches no kernel and counts none: the forward's
+    output is empty at S 0, the backward's gradients are zeros at S or Sk
+    0 (the forward kernel refuses Sk 0, so o is given there)."""
+    q, _, _, do = _bwd_operands(cuda_dev, torch.bfloat16, 1, S, S, 4, 2,
+                                64, 13)
+    _, k, v, _ = _bwd_operands(cuda_dev, torch.bfloat16, 1, Sk, Sk, 4, 2,
+                               64, 14)
+    before = (flash_attention.launches, flash_attention.bwd_launches)
+    o = flash_attention(q, k, v, causal=False) if S == 0 \
+        else torch.zeros_like(q)
+    grads = flash_attention_bwd(q, k, v, o, do, causal=False)
+    torch.cuda.synchronize()
+    assert not any(g.float().abs().any() for g in grads)
+    assert flash_attention.bwd_launches == before[1]
+    if S == 0:
+        assert flash_attention.launches == before[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["D32", "mixed", "f16"])
+def test_flash_bwd_out_of_range_raises(cuda_dev, what):
+    D = 32 if what == "D32" else 64
+    dt = torch.float16 if what == "f16" else torch.bfloat16
+    q, k, v, do = _bwd_operands(cuda_dev, torch.float32, 1, 16, 16, 2, 2, D,
+                                3)
+    q, do = q.to(dt), do.to(dt)
+    if what != "mixed":
+        k, v = k.to(dt), v.to(dt)
+    before = flash_attention.bwd_launches
+    with pytest.raises(ValueError):
+        flash_attention_bwd(q, k, v, do, do, causal=True)
+    assert flash_attention.bwd_launches == before
+
+
+def _grad_refusal_cases(dev):
+    """(op name, a call whose float operand requires grad) for every op
+    whose kernel has no backward."""
+    f = dict(device=dev, requires_grad=True)
+    i8 = dict(dtype=torch.int8, device=dev)
+    a = torch.ones((4, 32), **i8)
+    w = torch.ones((16, 32), **i8).t()      # (K, N), as the LM stores it
+    scale = torch.ones(16, **f)
+    x = torch.randn((4, 32), **f)
+    q = torch.randn((1, 1, 2, 64), **f)
+    kv = torch.randn((1, 8, 2, 64), device=dev)
+    gq = torch.randn((1, 16, 2, 16), **f)
+    gv = torch.randn((1, 16, 2, 16), device=dev)
+    la = -torch.rand((1, 16, 2), device=dev)
+    fdst = torch.randn((8, 8), **f)
+    return {
+        "vta_gemm": lambda: vta_gemm(a, w, None, scale, epilogue="dequant"),
+        "quantized_linear": lambda: quantized_linear(x, w, scale),
+        # integer operands cannot require grad: a float one is refused
+        "lut_gemm": lambda: lut_gemm(fdst, w, bits=4),
+        "tensor_alu": lambda: tensor_alu(fdst, chain=(("add", 1),)),
+        "decode_attention": lambda: decode_attention(q, kv, kv, 8),
+        "gla_chunk": lambda: gla_chunk(gq, gq.detach(), gv, la),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["vta_gemm", "quantized_linear", "lut_gemm",
+                                "tensor_alu", "decode_attention",
+                                "gla_chunk"])
+def test_kernel_without_backward_refuses_grad(cuda_dev, op):
+    """On the card, an op whose kernel has no backward raises where an
+    operand requires grad (it never returns a result that drops the
+    gradient), launches nothing, and runs as before under no_grad."""
+    call = _grad_refusal_cases(cuda_dev)[op]
+    fn = {"vta_gemm": vta_gemm, "quantized_linear": quantized_linear,
+          "lut_gemm": lut_gemm, "tensor_alu": tensor_alu,
+          "decode_attention": decode_attention, "gla_chunk": gla_chunk}[op]
+    before = getattr(fn, "launches", 0)
+    with pytest.raises(ValueError, match="no backward kernel") as e:
+        call()
+    assert getattr(fn, "launches", 0) == before
+    if op == "gla_chunk":
+        assert "5b" in str(e.value)
+    if op not in ("lut_gemm", "tensor_alu"):
+        with torch.no_grad():
+            call()

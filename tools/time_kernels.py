@@ -2,8 +2,9 @@
 """Time the port's kernels of one checkout.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME] [--big]
-        [--ops lut_gemm,flash_attention,vta_gemm,quantized_linear,
-               decode_attention,gla_chunk,lm_step,c9_request]
+        [--ops lut_gemm,flash_attention,flash_bwd,vta_gemm,
+               quantized_linear,decode_attention,gla_chunk,lm_step,
+               c9_request]
 
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``),
 builds its CUDA kernels, and times each op at the shapes ``chip_smoke.py``
@@ -19,6 +20,11 @@ and at the served 32; gla_chunk at zamba2-1.2b's served 16- and
 512-token prefills and at S 4096 and 32768 (q and k broadcast over 64
 heads) and at xlstm-1.3b's N 256, P 1025, chunk 512 (bf16 q and k per
 head), a shape where a version that raises is recorded as "raises";
+flash_bwd, the flash_attention backward kernel at chip_smoke's
+FLASH_BWD_CASES (Llama-3.2-3B's train_4k B2 S4096 causal bf16, whisper's
+encoder in bf16 and float32, phi-3-vision's D 96, a long-key float32
+case) beside its operation bound, the plain backward and
+scaled_dot_product_attention's backward alone;
 lm_step, whole int8 decode steps of llama3.2-3b
 and zamba2-1.2b at 4 slots: the host-clock step ms of each of 8 steps,
 and of one more under torch.profiler the device busy ms, the idle share
@@ -159,6 +165,8 @@ def main():
                               call_ms=call_ms)), flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+    for shape in cs.FLASH_BWD_CASES * ("flash_bwd" in ops):
+        flash_bwd_row(cs, args.label, card, shape)
     if "vta_gemm" in ops or "quantized_linear" in ops:
         from repro_torch.kernels.vta_gemm import quantized_linear, vta_gemm
     for T, M, N, K, epi in VTA_SHAPES * ("vta_gemm" in ops):
@@ -242,6 +250,46 @@ def main():
 C9_PROFILES = 2
 #: (arch, slots, max_len) of the timed decode steps (chip_smoke's engines)
 LM_STEP_RUNS = [("llama3.2-3b", 4, 256), ("zamba2-1.2b", 4, 1024)]
+
+
+def flash_bwd_row(cs, label, card, shape):
+    """One JSON line of the flash backward at `shape` (chip_smoke's
+    FLASH_BWD_CASES): the kernel's device ms (torch.profiler, its three
+    kernels), the call's CUDA-event ms, the operation bound (5 S Sk D HQ
+    multiply-adds a batch row, 2 flops each, halved when causal, at bf16
+    989 TFLOP/s), the plain backward's ms, and SDPA's backward alone (its
+    forward's graph kept and its time taken apart).  A checkout without
+    the backward is recorded "raises"."""
+    import torch
+    B, S, Sk, HQ, KH, D, causal, dt = shape
+    row = dict(label=label, card=card, op="flash_bwd", B=B, S=S, Sk=Sk,
+               HQ=HQ, KH=KH, D=D, dtype=dt, causal=causal)
+    try:
+        from repro_torch.kernels.flash_attention import (
+            attention_bwd_ref, flash_attention_bwd)
+    except ImportError as e:
+        print(json.dumps(dict(row, ms="raises", error=str(e))), flush=True)
+        return
+    q, k, v, o, do = cs.flash_bwd_inputs(*shape)
+    big = S * Sk >= 4096 * 4096
+    reps = 5 if big else 20
+    call = lambda: flash_attention_bwd(q, k, v, o, do,  # noqa
+                                       causal=causal)
+    call_ms = cs.cuda_time_ms(call, reps=reps, warmup=1)
+    ms = cs.kernel_ms(call, "flash_bwd", call_ms, reps=reps)
+    plain = cs.cuda_time_ms(lambda: attention_bwd_ref(
+        q, k, v, o, do, group=HQ // KH, causal=causal), reps=2, warmup=1)
+    lib_call = cs.sdpa_bwd_call(q, k, v, do, causal) \
+        if not causal or S == Sk else None
+    lib = cs.cuda_time_ms(lib_call, reps=reps, warmup=1) \
+        if lib_call is not None else None
+    bound, by = cs.flash_bwd_bound_ms(B, S, Sk, HQ, KH, D, causal,
+                                      q.element_size())
+    print(json.dumps(dict(row, ms=ms, call_ms=call_ms, plain_ms=plain,
+                          library_ms=lib, bound_ms=bound, bound_by=by)),
+          flush=True)
+    del q, k, v, o, do, lib_call
+    torch.cuda.empty_cache()
 
 
 def lm_steps(cs, arch, slots, max_len, n_steps=8):
