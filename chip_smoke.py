@@ -226,8 +226,27 @@ Phases, in the order they run:
      flash backward kernel (flash_bwd.cu) against the plain backward at
      Llama's, whisper's encoder (bf16 and float32), phi-3-vision's and a
      long-key float32 shape, timed beside its bound, the plain backward
-     and scaled_dot_product_attention's backward.  Its flash forward
-     shapes join phase 7;
+     and scaled_dot_product_attention's backward.  Then the recurrent
+     models (RECURRENT_TRAIN), each with the counts set to 0 just before:
+     zamba2-1.2b (38 Mamba2 layers, the shared attention block 6 times)
+     4 steps of 2 x 4096 tokens, and xlstm-1.3b (42 mLSTM, 6 sLSTM) 3
+     steps of 2 x 2048 (its sLSTM loops cut S), bf16 and AdamW with
+     remat: per-step loss and ms, tokens/s, peak allocated memory, the
+     gla_chunk and flash launches of every step (76 / 38 / 12 / 6 and
+     84 / 42 / 0 / 0, asserted), step 1's gla backward launches of the
+     last and first scan layer held to the float64 plain backward,
+     xlstm's sLSTM-loop share of its third step (its second step alone
+     is its step ms), and one profiled step's idle share; each at one
+     repeating unit (6 and 8 layers, S 512) in float32 against its plain
+     replay, within twice the plain replays' own floor (the loss's, each
+     leaf's) where that exceeds 1e-5 (loss) and 1e-4 (leaves), and
+     through a bitwise checkpoint round trip; then the gla_chunk backward
+     kernel (gla_bwd.cu) against the plain backward in float64 at
+     GLA_BWD_CASES and every shape training launched (each output within
+     4x the float32 plain backward's error), timed beside its bound and
+     the plain backward, and the forward kernel at the long slow-decay
+     case against float64.  Its flash and gla_chunk forward shapes join
+     phase 7;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -1884,10 +1903,11 @@ def gla_by_recurrence(q, k, v, la, h0=None, *, chunk=64, y_dtype=None):
     first measures how far the model carries float rounding alone."""
     import torch
     from repro_torch.kernels.gla_chunk import gla_recurrence
-    B, S, H, N = q.shape
-    P = v.shape[-1]
+    B, S, H, P = v.shape
+    N = q.shape[-1]
     if S % min(chunk, S):
         raise ValueError(f"S = {S} is not a multiple of the chunk")
+    q, k = (t.expand(B, S, H, N) for t in (q, k))   # one row for every head
 
     def to_bh(t):
         return t.transpose(1, 2).reshape(B * H, 1, S, -1)
@@ -3685,6 +3705,24 @@ TRAIN_ARCH = "llama3.2-3b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 4
 #: the float32 replay and the checkpoint round trip: full width, 2 layers
 TRAIN_SMALL_LAYERS, TRAIN_SMALL_SEQ = 2, 512
+#: the recurrent models trained at full width and depth (the same train_4k
+#: shape and batch cut as Llama's): the steps run (the first pays the
+#: warm-up), the layers of the float32 replay and the checkpoint round trip
+#: (one repeating unit: 5 Mamba2 and the shared block's first application;
+#: 7 mLSTM and 1 sLSTM), and the kernel launches of each step (the scans
+#: and zamba2's shared attention twice a layer, the forward and its
+#: recompute under remat; the backwards once)
+RECURRENT_TRAIN = {
+    "zamba2-1.2b": dict(steps=4, seq=TRAIN_SEQ, small_layers=6,
+                        launches=dict(gla_fwd=76, gla_bwd=38, flash_fwd=12,
+                                      flash_bwd=6)),
+    # its sLSTM loops take 67-102 s a step at S 4096 (PERF.md): S cut to
+    # 2048, a multiple of the mLSTM's chunk 512; the second step is timed
+    # clean, the third times the loops (slstm_share_step)
+    "xlstm-1.3b": dict(steps=3, seq=2048, small_layers=8,
+                       launches=dict(gla_fwd=84, gla_bwd=42, flash_fwd=0,
+                                     flash_bwd=0)),
+}
 #: (B, S, Sk, HQ, KH, D, causal, dtype) the backward kernel is held to its
 #: plain version at (and timed), besides any other shape training launched
 FLASH_BWD_CASES = [
@@ -4020,19 +4058,265 @@ def train_llama(out, counters):
     free_device_memory()
 
 
-def train_f32_replay(out, counters):
-    """Full width at TRAIN_SMALL_LAYERS layers in float32: one step's loss
-    and every gradient leaf with the kernels, against a replay with every
-    op's plain version (PlainOps) on the same weights and batch: the loss
-    within 1e-5 relative, each leaf within 1e-4 of its max|grad|.  No
-    kernel may launch in the replay."""
+def profiled_step(tr, out):
+    """One more training step under torch.profiler (device activity
+    only): its wall ms, the device's busy ms (the union of the kernels'
+    and copies' intervals, so that nothing is counted twice) and idle
+    share, and the eight kernels with the most device time.  The events
+    are read from the profiler's raw results: xlstm's step has millions of
+    them, too many for its Python event tree."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = tr.train(1, log_every=10 ** 9)["loss"][0]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans, kernels = [], {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            a, b = e.start_ns(), e.end_ns()
+            spans.append((a, b))
+            kernels[e.name()] = kernels.get(e.name(), 0) + (b - a) / 1e6
+    spans.sort()
+    busy_ns, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_ns += b - a
+            end = b
+        elif b > end:
+            busy_ns += b - end
+            end = b
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    busy_ms = busy_ns / 1e6
+    out["profiled_step"] = dict(loss=loss, wall_ms=wall_ms,
+                                device_busy_ms=busy_ms,
+                                idle_share=1 - busy_ms / wall_ms,
+                                device_operations=len(spans),
+                                top_device_ms=top)
+    log(f"  profiled step {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, "
+        f"idle share {1 - busy_ms / wall_ms:.4f}, {len(spans)} device "
+        f"operations")
+    for k, t in top[:5]:
+        log(f"    {k[:90]}: {t:.2f} ms")
+
+
+def slstm_share_step(tr, out):
+    """One more xlstm training step with the sLSTM layers timed on the
+    host clock, the card synchronized at each edge: their train form's
+    calls (the forward and its recompute under remat) and their backward
+    (from the gradient reaching a layer's output to its input, marked by
+    identity autograd functions).  Records the loop's seconds and its
+    share of that step's wall time."""
+    import torch
+    import repro_torch.models.xlstm as xm
+    real = xm.slstm_train
+    fwd, marks = [], []
+
+    class Mark(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, tag):
+            ctx.tag = tag
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            torch.cuda.synchronize()
+            marks.append((ctx.tag, time.perf_counter()))
+            return g, None
+
+    def timed(p, cfg, x):
+        # the recompute under remat may stop once the block's last saved
+        # tensor is recomputed (non-reentrant checkpoint's early stop):
+        # its time is taken all the same
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return Mark.apply(real(p, cfg, Mark.apply(x, "in")), "out")
+        finally:
+            torch.cuda.synchronize()
+            fwd.append((t0, time.perf_counter()))
+    xm.slstm_train = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        hist = tr.train(1, log_every=10 ** 9)
+        wall = time.perf_counter() - t0
+    finally:
+        xm.slstm_train = real
+    starts = [t for tag, t in marks if tag == "out"]
+    ends = [t for tag, t in marks if tag == "in"]
+    bwd = list(zip(starts, ends))
+    if len(starts) != len(ends) or any(b < a for a, b in bwd):
+        fail(f"the sLSTM backward marks do not pair up: {marks}")
+    # a layer's recompute runs inside its backward span: the union
+    loop, end = 0.0, None
+    for a, b in sorted(fwd + bwd):
+        if end is None or a > end:
+            loop += b - a
+            end = b
+        elif b > end:
+            loop += b - end
+            end = b
+    out["slstm"] = dict(step_s=wall, forward_calls=len(fwd),
+                        forward_s=sum(b - a for a, b in fwd),
+                        backward_s=sum(b - a for a, b in bwd),
+                        loop_s=loop, share=loop / wall)
+    log(f"  sLSTM loops: {len(fwd)} forward calls (the forward and the "
+        f"recompute) {out['slstm']['forward_s']:.2f} s, {len(bwd)} "
+        f"backwards {out['slstm']['backward_s']:.2f} s (the recompute "
+        f"inside them): {loop:.2f} s of the {wall:.2f} s step, share "
+        f"{loop / wall:.4f}")
+    return hist
+
+
+def train_recurrent(out, counters, arch):
+    """`arch` (RECURRENT_TRAIN) at its published width and depth (bf16
+    parameters, AdamW, remat) trains its steps of TRAIN_BATCH x its seq
+    tokens through Trainer, with every kernel's count set to 0 just
+    before: per-step loss and ms, tokens/s, the peak allocated memory, the
+    gla_chunk and flash launches of each step (asserted), the first step's
+    gla backward launches of the last and the first scan layer held to
+    the plain backward (gla_bwd_errors, on the kernel's float32 result);
+    xlstm's last step times its sLSTM loops (slstm_share_step) and is
+    left out of the median step ms; then one profiled step
+    (profiled_step)."""
+    import math
+    import torch
+    import repro_torch.kernels.gla_chunk.ops as gops
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gla_chunk import gla_chunk
+    from repro_torch.kernels.gla_chunk.kernel import gla_chunk_bwd_cuda
+    from repro_torch.launch.train import Trainer
+    from repro_torch.tree import leaves
+    conf = RECURRENT_TRAIN[arch]
+    S = conf["seq"]
+    spec = get_arch(arch)
+    cfg = spec.model.replace(max_seq=max(spec.model.max_seq, S))
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, optimizer=spec.optimizer, seq_len=S,
+                 global_batch=TRAIN_BATCH, seed=0, torch_device=DEVICE)
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - t0
+    out["state_gb"] = torch.cuda.memory_allocated() / 1e9
+    pattern = cfg.block_pattern()
+    out["blocks"] = {b: pattern.count(b) for b in sorted(set(pattern))}
+    out["parameters"] = sum(t.numel() for t in leaves(tr.params))
+    log(f"  {arch}: {cfg.n_layers} layers {out['blocks']}, d "
+        f"{cfg.d_model}, {out['parameters'] / 1e9:.3f} B {cfg.dtype} "
+        f"parameters and AdamW state ({out['state_gb']:.2f} GB) built in "
+        f"{out['build_s']:.1f} s; batch cut from 256 to {TRAIN_BATCH} "
+        f"sequences of {S}")
+    n_scan = conf["launches"]["gla_bwd"]
+    captured, real_bwd = [], gops.gla_chunk_bwd
+
+    def capture(q, k, v, la, h0, dy, dh, *, chunk=64):
+        grads = real_bwd(q, k, v, la, h0, dy, dh, chunk=chunk)
+        n = len(captured)
+        if n in (0, n_scan - 1):  # the backward runs from the last layer
+            captured.append(dict(
+                layer=n_scan - 1 - n, chunk=chunk,
+                inputs=[None if t is None else t.detach().clone()
+                        for t in (q, k, v, la, h0, dy, dh)],
+                grads=[g.clone() for g in grads]))
+        else:
+            captured.append(None)
+        return grads
+
+    def counts():
+        return dict(gla_fwd=gla_chunk.launches,
+                    gla_bwd=gla_chunk.bwd_launches,
+                    flash_fwd=flash_attention.launches,
+                    flash_bwd=flash_attention.bwd_launches)
+    counters.reset()
+    for op in (gla_chunk, flash_attention):
+        op.bwd_launches = 0
+        op.bwd_shapes.clear()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for i in range(conf["steps"]):
+        before = counts()
+        gops.gla_chunk_bwd = capture if i == 0 else real_bwd
+        try:
+            if i == conf["steps"] - 1 and "slstm" in pattern:
+                hist = slstm_share_step(tr, out)
+            else:
+                hist = tr.train(1, log_every=1)
+        finally:
+            gops.gla_chunk_bwd = real_bwd
+        got = {k: v - before[k] for k, v in counts().items()}
+        steps.append(dict(loss=hist["loss"][0],
+                          ms=hist["seconds"][0] * 1e3, **got))
+        log(f"  step {i + 1}: loss {hist['loss'][0]:.4f}, "
+            f"{steps[-1]['ms']:.1f} ms, launches {got}")
+        if got != conf["launches"]:
+            fail(f"{arch} training step {i + 1} launched {got}, not "
+                 f"{conf['launches']}")
+    out["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = counters.read()
+    out["gla_bwd_launches"] = gla_chunk.bwd_launches
+    out["gla_bwd_shapes"] = dict(gla_chunk.bwd_shapes)
+    out["flash_bwd_launches"] = flash_attention.bwd_launches
+    if not all(math.isfinite(st["loss"]) for st in steps):
+        fail(f"{arch} training losses are not finite: "
+             f"{[st['loss'] for st in steps]}")
+    checked = []
+    for c in (c for c in captured if c is not None):
+        args = c["inputs"]
+        raw = gla_chunk_bwd_cuda(*args)
+        if not all(torch.equal(g, r.to(g.dtype))
+                   for g, r in zip(c["grads"], raw)):
+            fail(f"{arch}: the gla backward launch of scan layer "
+                 f"{c['layer']} is not reproduced by the kernel")
+        checks, _ = gla_bwd_errors(raw, args, c["chunk"])
+        checked.append(dict(layer=c["layer"], checks=checks))
+        log(f"  step 1 gla backward launch of scan layer {c['layer']}: "
+            f"{gla_bwd_check_line(checks)}")
+        if not all(ck["ok"] for ck in checks):
+            fail(f"{arch}: the gla backward launch of scan layer "
+                 f"{c['layer']} differs from the plain backward: {checks}")
+        del raw, args
+    del captured
+    # the median of the steps after the first, the instrumented one not
+    timed = steps[1:len(steps) - ("slstm" in pattern)] or steps
+    med = statistics.median(st["ms"] for st in timed)
+    tokens = TRAIN_BATCH * S
+    out.update(steps=steps, step_ms_median=med,
+               tokens_per_s=tokens / (med / 1e3), checked_launches=checked,
+               batch=TRAIN_BATCH, seq_len=S,
+               reduced=["global batch 256 -> 2 sequences (one card)"] + (
+                   [f"sequence length 4096 -> {S} (the sLSTM loops' time)"]
+                   if S != TRAIN_SEQ else []))
+    log(f"  {arch} training: step {med:.1f} ms (median of steps "
+        f"2-{len(timed) + 1}), {tokens / (med / 1e3):.0f} tokens/s, peak "
+        f"allocated {out['peak_allocated_gb']:.2f} GB")
+    profiled_step(tr, out)
+    del tr
+    free_device_memory()
+
+
+def train_f32_replay(out, counters, arch=TRAIN_ARCH,
+                     n_layers=TRAIN_SMALL_LAYERS):
+    """`arch` at full width and `n_layers` layers in float32: one step's
+    loss and every gradient leaf with the kernels, against a replay with
+    every op's plain version (PlainOps) on the same weights and batch: the
+    loss within 1e-5 relative, each leaf within 1e-4 of its max|grad|.
+    Where the model scans, a second plain replay takes the scan by its
+    step recurrence (PlainOps(scan="recurrence"): the same function, its
+    sums in another order), and the two plain replays' gap is the model's
+    own rounding floor, the loss's and each leaf's apart: a limit is then
+    twice its own floor where that is larger (the sLSTM's exponential
+    gates carry a float32 difference in its input far, to every leaf
+    before it).  No kernel may launch in a replay."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels.gla_chunk import gla_chunk
     from repro_torch.models import transformer as T
     from repro_torch.tree import flatten, requires_grad_
-    cfg = get_arch(TRAIN_ARCH).model.replace(
-        n_layers=TRAIN_SMALL_LAYERS, dtype="float32")
+    cfg = get_arch(arch).model.replace(n_layers=n_layers, dtype="float32")
     params = requires_grad_(T.init_params(cfg, 0, DEVICE).tree())
     batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
              SyntheticLMDataset(DataConfig(cfg.vocab_size, TRAIN_SMALL_SEQ,
@@ -4044,43 +4328,89 @@ def train_f32_replay(out, counters):
         g = torch.autograd.grad(loss, list(flat.values()))
         return float(loss.detach()), dict(zip(flat, g))
     from repro_torch.kernels.flash_attention import flash_attention
-    counters.reset()
-    bwd0 = flash_attention.bwd_launches
-    loss_k, g_k = grads()
-    kernel = dict(counters.read(), flash_bwd=flash_attention.bwd_launches
-                  - bwd0)
-    with PlainOps():
+
+    def launched():
+        bwd0 = (flash_attention.bwd_launches, gla_chunk.bwd_launches)
         counters.reset()
-        bwd0 = flash_attention.bwd_launches
-        loss_p, g_p = grads()
-        plain = dict(counters.read(), flash_bwd=flash_attention.bwd_launches
-                     - bwd0)
-    if kernel["flash_attention"] <= 0 or kernel["flash_bwd"] <= 0 \
-            or any(plain.values()):
+        loss, g = grads()
+        return loss, g, dict(
+            counters.read(),
+            flash_bwd=flash_attention.bwd_launches - bwd0[0],
+            gla_bwd=gla_chunk.bwd_launches - bwd0[1])
+
+    def gaps(ga, gb):
+        """Each leaf's max|difference| over gb's max|grad|."""
+        return {k: float((ga[k] - gb[k]).abs().max()
+                         / gb[k].abs().max().clamp_min(1e-30)) for k in gb}
+    loss_k, g_k, kernel = launched()
+    with PlainOps():
+        loss_p, g_p, plain = launched()
+    pattern = cfg.block_pattern()
+    attn_used = any("attn" in b for b in pattern)
+    scans = any(b in ("mamba2", "mamba2_sharedattn", "mlstm")
+                for b in pattern)
+    want = [k for k, used in (("flash_attention", attn_used),
+                              ("flash_bwd", attn_used),
+                              ("gla_chunk", scans), ("gla_bwd", scans))
+            if used]
+    if any(kernel[k] <= 0 for k in want) or any(plain.values()):
         fail(f"float32 replay: kernel run launches {kernel}, replay "
              f"launches {plain}")
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    errs = {k: float((g_k[k] - g_p[k]).abs().max()
-                     / g_p[k].abs().max().clamp_min(1e-30)) for k in g_p}
-    worst = max(errs, key=errs.get)
+    errs = gaps(g_k, g_p)
+    loss_floor, fl = 0.0, dict.fromkeys(errs, 0.0)
+    if scans:
+        with PlainOps(scan="recurrence"):
+            loss_r, g_r, again = launched()
+        if any(again.values()):
+            fail(f"float32 replay by the recurrence launched {again}")
+        loss_floor = abs(loss_r - loss_p) / abs(loss_p)
+        fl = gaps(g_r, g_p)
+        del g_r
+    loss_limit = max(1e-5, 2 * loss_floor)
+    limits = {k: max(1e-4, 2 * fl[k]) for k in errs}
+    # the worst leaf is the one nearest its own limit
+    order = sorted(errs, key=lambda k: errs[k] / limits[k], reverse=True)
+    worst = order[0]
+    # per block type, its leaf nearest its limit
+    by_block = {}
+    for k in order:
+        by_block.setdefault(k.split("/")[1] if k.startswith("layers/")
+                            else k.split("/")[0], k)
     out.update(loss=loss_k, loss_plain=loss_p, loss_rel_err=rel,
                worst_leaf=worst, worst_leaf_rel_err=errs[worst],
-               leaves=len(errs), layers=TRAIN_SMALL_LAYERS,
-               seq_len=TRAIN_SMALL_SEQ)
-    log(f"  float32 replay ({TRAIN_SMALL_LAYERS} layers, S "
+               leaf_floor=fl[worst], leaf_limit=limits[worst],
+               leaves=len(errs), layers=n_layers, seq_len=TRAIN_SMALL_SEQ,
+               launches=kernel, loss_floor=loss_floor, loss_limit=loss_limit,
+               worst_leaves=[(k, errs[k], fl[k], limits[k])
+                             for k in order[:5]],
+               worst_by_block={b: (k, errs[k], fl[k], limits[k])
+                               for b, k in by_block.items()})
+    log(f"  {arch} float32 replay ({n_layers} layers, S "
         f"{TRAIN_SMALL_SEQ}): loss {loss_k:.6f} against the plain "
-        f"version's {loss_p:.6f} (relative {rel:.2e}, limit 1e-5); worst "
-        f"of {len(errs)} gradient leaves {worst} at {errs[worst]:.2e} of "
-        f"its max|grad| (limit 1e-4)")
-    if rel > 1e-5 or errs[worst] > 1e-4:
-        fail("float32 training step differs from its plain replay")
+        f"version's {loss_p:.6f} (relative {rel:.2e}, limit "
+        f"{loss_limit:.2e}"
+        + (f", the plain replays' own gap {loss_floor:.2e}" if scans else "")
+        + f"); of {len(errs)} gradient leaves, each within max(1e-4, twice "
+        f"the plain replays' gap) of its max|grad|, nearest its limit "
+        f"(gap, plain replays' gap, limit): " + ", ".join(
+            f"{k} {errs[k]:.2e} {fl[k]:.2e} {limits[k]:.2e}"
+            for k in order[:5]))
+    log("    per block, the leaf nearest its limit: " + ", ".join(
+        f"{b}: {k} {errs[k]:.2e} {fl[k]:.2e} {limits[k]:.2e}"
+        for b, k in by_block.items()))
+    over = [k for k in errs if errs[k] > limits[k]]
+    if rel > loss_limit or over:
+        fail(f"float32 training step differs from its plain replay: loss "
+             f"{rel:.2e} (limit {loss_limit:.2e}), leaves over their "
+             f"limits {[(k, errs[k], limits[k]) for k in over]}")
     del params, g_k, g_p
     free_device_memory()
 
 
-def train_checkpoint(out):
-    """Full width at TRAIN_SMALL_LAYERS layers (bf16, AdamW): a run saves
-    after step 2 and goes on to step 3; a fresh Trainer restores the
+def train_checkpoint(out, arch=TRAIN_ARCH, n_layers=TRAIN_SMALL_LAYERS):
+    """`arch` at full width and `n_layers` layers (bf16, AdamW): a run
+    saves after step 2 and goes on to step 3; a fresh Trainer restores the
     checkpoint and takes step 3.  Its loss and every parameter and state
     leaf must equal the uninterrupted run's, bitwise."""
     import shutil
@@ -4088,8 +4418,8 @@ def train_checkpoint(out):
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import Trainer
     from repro_torch.tree import leaves
-    spec = get_arch(TRAIN_ARCH)
-    cfg = spec.model.replace(n_layers=TRAIN_SMALL_LAYERS)
+    spec = get_arch(arch)
+    cfg = spec.model.replace(n_layers=n_layers)
     ckpt = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     kw = dict(optimizer=spec.optimizer, seq_len=TRAIN_SMALL_SEQ,
@@ -4118,8 +4448,8 @@ def train_checkpoint(out):
         shutil.rmtree(ckpt, ignore_errors=True)
     out.update(loss=loss_a[0], loss_restored=loss_b[0], bitwise=same,
                checkpoint_gb=nbytes / 1e9, save_and_steps_s=save_s,
-               restore_s=restore_s)
-    log(f"  checkpoint round trip ({TRAIN_SMALL_LAYERS} layers, "
+               restore_s=restore_s, layers=n_layers)
+    log(f"  {arch} checkpoint round trip ({n_layers} layers, "
         f"{nbytes / 1e9:.2f} GB on disk; two steps and the save "
         f"{save_s:.1f} s, restore {restore_s:.1f} s): step 3 loss "
         f"{loss_a[0]:.6f} uninterrupted, {loss_b[0]:.6f} restored, "
@@ -4132,8 +4462,12 @@ def train_checkpoint(out):
 
 def phase_train(rec, counters):
     """Training on the card: train_llama (the main path, counts from 0),
-    then the float32 replay, the checkpoint round trip, and the backward
-    kernel against its plain version (phase_flash_bwd_kernel)."""
+    then the float32 replay, the checkpoint round trip, and the flash
+    backward kernel against its plain version (phase_flash_bwd_kernel);
+    then each of RECURRENT_TRAIN (train_recurrent, counts from 0 before
+    each), its float32 replay and checkpoint round trip at one repeating
+    unit, and the gla_chunk backward kernel against its plain version
+    (phase_gla_bwd_kernel)."""
     t_phase = time.perf_counter()
     out = {"llama": {}, "f32_replay": {}, "checkpoint": {}}
     train_llama(out["llama"], counters)
@@ -4142,10 +4476,25 @@ def phase_train(rec, counters):
     rows, err = phase_flash_bwd_kernel(rec, out["llama"]["bwd_shapes"])
     out["llama"]["bwd_shapes"] = [list(sh) + [n] for sh, n in
                                   out["llama"]["bwd_shapes"].items()]
+    gla_shapes = {}
+    for arch, conf in RECURRENT_TRAIN.items():
+        t0 = time.perf_counter()
+        o = out[arch] = {"f32_replay": {}, "checkpoint": {}}
+        train_recurrent(o, counters, arch)
+        for sh, n in o["gla_bwd_shapes"].items():
+            gla_shapes[sh] = gla_shapes.get(sh, 0) + n
+        o["gla_bwd_shapes"] = [list(sh) + [n] for sh, n in
+                               o["gla_bwd_shapes"].items()]
+        train_f32_replay(o["f32_replay"], counters, arch,
+                         conf["small_layers"])
+        train_checkpoint(o["checkpoint"], arch, conf["small_layers"])
+        o["seconds"] = time.perf_counter() - t0
+        log(f"  {arch} took {o['seconds']:.1f} s")
+    g_rows, g_err = phase_gla_bwd_kernel(rec, gla_shapes)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 14 took {out['seconds']:.1f} s")
     rec["train"] = out
-    return out, rows, err
+    return out, rows, err, g_rows, g_err
 
 
 def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
@@ -4160,6 +4509,187 @@ def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
     t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
+
+
+#: (B, S, H, N, P, chunk, q/k dtype, q/k heads, h0 and dh given) the
+#: gla_chunk backward kernel is held to its plain version at (and timed),
+#: besides any other shape training launched: q/k heads "one" is one row
+#: for every head (Mamba2's C and B), "heads" one per head
+GLA_BWD_CASES = [
+    (2, 4096, 64, 64, 64, 64, "bfloat16", "one", False),      # zamba2-1.2b
+    (2, 4096, 4, 256, 1025, 512, "bfloat16", "heads", False),  # xlstm-1.3b
+    (2, 1024, 8, 64, 48, 64, "float32", "heads", True),       # h0 and dh
+    (2, 160, 4, 32, 40, 32, "float32", "one", True),          # ragged tile
+    (1, 32768, 2, 64, 64, 64, "float32", "heads", True),      # long, slow
+]
+#: the case whose decay is slow (la about -1e-3) and whose v = 1 + N(0, 1):
+#: a one-signed error of a sum chained across the tiles would grow with S
+GLA_BWD_LONG = GLA_BWD_CASES[-1]
+
+
+def gla_bwd_inputs(B, S, H, N, P, chunk, dt, heads, state):
+    """Seed-made q, k (B, S, 1 or H, N; k scaled by 1/sqrt(N) above N 64,
+    as the mLSTM scales it), v, la = -0.3 |normal|, h0 0.1 normal, dy,
+    dh 0.5 normal (h0 and dh None unless `state`); at GLA_BWD_LONG la =
+    -1e-3 (1 + 0.1 |normal|) and v = 1 + N(0, 1)."""
+    import torch
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev).manual_seed(S + H + N + P)
+
+    def t(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+    hq = 1 if heads == "one" else H
+    dtype = getattr(torch, dt)
+    q = t(B, S, hq, N).to(dtype)
+    k = t(B, S, hq, N, scale=N ** -0.5 if N > 64 else 1.0).to(dtype)
+    v = t(B, S, H, P)
+    la = -t(B, S, H).abs() * 0.3
+    if (B, S, H, N, P, chunk, dt, heads, state) == GLA_BWD_LONG:
+        la = -1e-3 * (1 + 0.1 * t(B, S, H).abs())
+        v = v + 1.0
+    h0 = t(B, H, N, P, scale=0.1) if state else None
+    dy = t(B, S, H, P)
+    dh = t(B, H, N, P, scale=0.5) if state else None
+    return q, k, v, la, h0, dy, dh
+
+
+def gla_bwd_errors(got, args, chunk):
+    """The backward kernel's float32 (dq, dk, dv, dla, dh0) against the
+    plain backward in float64 on the same inputs: each output's error at
+    most 4x the float32 plain backward's, or 1e-6 of its max|want| where
+    that is larger (the forward's rule, gla_f64_errors).  Returns a list
+    of dicts (name, err, plain, limit, ok, max_want) and the largest
+    error against the float32 plain backward (the kernels line's
+    max_abs_err)."""
+    import torch
+    from repro_torch.kernels.gla_chunk import gla_chunk_bwd_plain
+    want32 = gla_chunk_bwd_plain(*args, chunk=chunk, dtype=torch.float32)
+    want64 = gla_chunk_bwd_plain(*args, chunk=chunk, dtype=torch.float64)
+    out, worst = [], 0.0
+    for name, a, w, e in zip(("dq", "dk", "dv", "dla", "dh0"), got, want32,
+                             want64):
+        e = e.double()
+        err = float((a.double() - e).abs().max())
+        plain = float((w.double() - e).abs().max())
+        top = float(e.abs().max())
+        limit = max(4 * plain, 1e-6 * top)
+        out.append(dict(name=name, err=err, plain=plain, limit=limit,
+                        ok=err <= limit, max_want=top))
+        worst = max(worst, float((a - w).abs().max()))
+    del want32, want64
+    return out, worst
+
+
+def gla_bwd_check_line(checks):
+    """One log line's text for gla_bwd_errors' checks."""
+    return ", ".join(f"{c['name']} {c['err']:.3e} (plain {c['plain']:.3e}, "
+                     f"limit {c['limit']:.3e}, max|want| "
+                     f"{c['max_want']:.3e})" for c in checks)
+
+
+def gla_bwd_bound_ms(B, S, H, N, P, Q, qk_elt, hq, state):
+    """The larger of the operations at the bf16 dense tensor-core peak
+    and the bytes (q, k, v, la, dy, and h0 and dh where given, read once;
+    dq, dk, dv, dla and dh0 written once) at the memory rate.  The
+    operations are counted per tile of T = min(Q, BWD_TILE) rows and
+    head, T the kernel's own tile (its result does not depend on Q): the
+    states recomputed and their gradients 4TNP, dq dk dv 6TNP, the two
+    score tiles and their three products 2T^2 (3N + 2P); a ragged last
+    tile counts its rows alone."""
+    from repro_torch.kernels.gla_chunk.kernel import BWD_TILE
+    T = min(Q, BWD_TILE)
+    rows = [T] * (S // T) + [S % T] * bool(S % T)
+    ops = B * H * sum(2 * t * t * (3 * N + 2 * P) + 10 * t * N * P
+                      for t in rows)
+    nbytes = 4 * B * S * hq * N * qk_elt + B * S * H * (3 * P + 2) * 4 \
+        + B * H * N * P * 4 * (1 + 2 * bool(state))
+    t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def gla_bwd_row(shape, launches=0):
+    """The backward kernel at one GLA_BWD_CASES shape: bitwise equal over
+    two calls, the op's result the kernel's float32 one in the operands'
+    dtypes, every output held to the plain backward (gla_bwd_errors),
+    timed (kernel ms from torch.profiler, its five kernels; call ms; the
+    float32 plain backward's ms) beside gla_bwd_bound_ms.  At
+    GLA_BWD_LONG the forward kernel is held to float64 on the same inputs
+    as well (gla_f64_errors).  Fails on any miss; returns the row."""
+    import torch
+    from repro_torch.kernels.gla_chunk import (gla_chunk, gla_chunk_bwd,
+                                               gla_chunk_bwd_plain,
+                                               gla_chunk_plain)
+    from repro_torch.kernels.gla_chunk.kernel import gla_chunk_bwd_cuda
+    B, S, H, N, P, Q, dt, heads, state = shape
+    args = gla_bwd_inputs(*shape)
+    got = gla_chunk_bwd(*args, chunk=Q)
+    again = gla_chunk_bwd(*args, chunk=Q)
+    raw = gla_chunk_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"the gla_chunk backward kernel at {shape} is not reproducible")
+    if not all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, raw)):
+        fail(f"the gla_chunk backward op at {shape} is not its kernel's "
+             f"result")
+    del got, again
+    checks, err = gla_bwd_errors(raw, args, Q)
+    log(f"  gla backward {shape}: {gla_bwd_check_line(checks)}")
+    if not all(c["ok"] for c in checks):
+        fail(f"the gla_chunk backward kernel at {shape} differs from the "
+             f"plain backward: {checks}")
+    del raw
+    row = dict(B=B, S=S, H=H, N=N, P=P, chunk=Q, qk_dtype=dt, qk_heads=heads,
+               state=state, launches=launches, checks=checks,
+               max_abs_err=err)
+    if shape == GLA_BWD_LONG:
+        q, k, v, la, h0 = args[:5]
+        kw = dict(chunk=Q, y_dtype=torch.float32)
+        fwd = gla_chunk(q, k, v, la, h0, **kw)
+        f64 = gla_f64_errors(fwd, gla_chunk_plain(q, k, v, la, h0, **kw),
+                             q, k, v, la, h0)
+        row["forward_f64"] = {w: dict(kernel=ek, plain=ep, max=top)
+                              for w, (ek, ep, top) in zip(("y", "h"), f64)}
+        log(f"  gla forward at the long slow-decay case {shape[:6]}: "
+            + ", ".join(f"{w} kernel {ek:.3e} plain {ep:.3e} (max {top:.3e})"
+                        for w, (ek, ep, top) in zip(("y", "h"), f64)))
+        for w, (ek, ep, top) in zip(("y", "h"), f64):
+            if ek > max(4 * ep, 1e-6 * top):
+                fail(f"the gla_chunk forward kernel at {shape[:6]}: {w} "
+                     f"error {ek} against float64, over 4x the plain "
+                     f"version's {ep}")
+        del fwd
+    big = S * H * P >= 4096 * 64 * 64
+    call = lambda: gla_chunk_bwd(*args, chunk=Q)  # noqa: E731
+    call_ms = cuda_time_ms(call, reps=5 if big else 20, warmup=1)
+    ms = kernel_ms(call, "gla_bwd", call_ms, reps=5 if big else 20)
+    plain = cuda_time_ms(lambda: gla_chunk_bwd_plain(*args, chunk=Q),
+                         reps=2, warmup=1)
+    bound, by = gla_bwd_bound_ms(B, S, H, N, P, Q, args[0].element_size(),
+                                 args[0].shape[2], state)
+    row.update(ms=ms, call_ms=call_ms, plain_ms=plain, library_ms=None,
+               bound_ms=bound, bound_by=by)
+    log(f"  gla backward B={B} S={S} H={H} N={N} P={P} chunk={Q} {dt} q/k "
+        f"{heads}{' h0 dh' if state else ''}: kernel {ms:.4f} ms, call "
+        f"{call_ms:.4f} ms (bound {bound:.5f} ms by {by}; plain "
+        f"{plain:.4f} ms; library none)"
+        + (f" x{launches}" if launches else ""))
+    del args
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_gla_bwd_kernel(rec, train_shapes):
+    """The gla_chunk backward kernel (gla_bwd_row) at GLA_BWD_CASES and at
+    every other shape the training runs launched (train_shapes: the op's
+    bwd_shapes keys and counts)."""
+    cases = {c: 0 for c in GLA_BWD_CASES}
+    for (B, S, H, N, P, Q, dt, bc), n in train_shapes.items():
+        key = (B, S, H, N, P, Q, dt, "one" if bc else "heads", False)
+        cases[key] = cases.get(key, 0) + n
+    rows = [gla_bwd_row(sh, n) for sh, n in cases.items()]
+    rec["gla_bwd_shapes"] = rows
+    return rows, max(r["max_abs_err"] for r in rows)
 
 
 #: zamba2-1.2b's prefill scan at long prompts: (B, S, H, N, P, chunk)
@@ -4218,19 +4748,20 @@ def gla_f64_errors(got, want, q, k, v, la, h0):
             for g, w, e in zip(got, want, exact)]
 
 
-def phase_gla_kernel(rec, main_shapes, xlstm_shapes):
+def phase_gla_kernel(rec, main_shapes, xlstm_shapes, train_shapes):
     """gla_chunk against its plain version within 3e-4 absolute plus 3e-4
     relative (the reference's own limit for its kernel against its
     oracle), y in float32 as chunked_gla asks, and bitwise equal over two
     calls; up to S 4096 also against the step recurrence in float64, the
     kernel's error at most 4x the plain version's or 1e-6 of the output's
-    max|.|; timed at every shape the hybrid and xlstm paths launched, at
-    zamba2-1.2b's prefill at S 4096 and 32768 and at xlstm-1.3b's at S
-    4096."""
+    max|.|; timed at every shape the hybrid, xlstm and training paths
+    launched, at zamba2-1.2b's prefill at S 4096 and 32768 and at
+    xlstm-1.3b's at S 4096."""
     import torch
     from repro_torch.kernels.gla_chunk import gla_chunk, gla_chunk_plain
     cases = []
-    for path, shapes in (("hybrid", main_shapes), ("xlstm", xlstm_shapes)):
+    for path, shapes in (("hybrid", main_shapes), ("xlstm", xlstm_shapes),
+                         ("train", train_shapes)):
         for (B, S, H, N, P, Q, dt, bc), n in shapes.items():
             cases.append(((B, S, H, N, P, Q), dt, bc, False, n, path))
     cases += [(sh, "float32", True, False, -1, None)
@@ -4296,7 +4827,8 @@ def phase_gla_kernel(rec, main_shapes, xlstm_shapes):
                                  bc)
         rows.append(dict(shape, launches=max(launches, 0), timed=True,
                          hybrid_path=path == "hybrid",
-                         xlstm_path=path == "xlstm", ms=ms, call_ms=call_ms,
+                         xlstm_path=path == "xlstm",
+                         train_path=path == "train", ms=ms, call_ms=call_ms,
                          plain_ms=plain, library_ms=None, bound_ms=bound,
                          bound_by=by, max_abs_err=err))
         log(f"  gla_chunk B={B} S={S} H={H} N={N} P={P} chunk={Q} {dt}"
@@ -4653,19 +5185,26 @@ def main():
                             for k, v in counters.shapes.items()}
 
     # ---- phase 14: training (counts from 0 before the run) --------------
-    log("phase 14: training (llama3.2-3b at full width and depth, bf16 and "
-        f"AdamW, B{TRAIN_BATCH} S{TRAIN_SEQ}, Trainer), a float32 replay, a "
-        "checkpoint round trip, and the flash backward kernel")
+    log("phase 14: training (llama3.2-3b, zamba2-1.2b and xlstm-1.3b at "
+        f"full width and depth, bf16 and AdamW, B{TRAIN_BATCH} "
+        f"S{TRAIN_SEQ}, Trainer), float32 replays, checkpoint round trips, "
+        "and the flash and gla_chunk backward kernels")
     free_device_memory()
     counters.clear_shapes()
-    tr, fb_rows, fb_err = phase_train(rec, counters)
+    tr, fb_rows, fb_err, gb_rows, gb_err = phase_train(rec, counters)
     train_launches = tr["llama"]["launches"]
     if train_launches["flash_attention"] <= 0 \
             or tr["llama"]["bwd_launches"] <= 0:
         fail("the flash kernels were never launched on the training path")
+    for arch in RECURRENT_TRAIN:
+        if tr[arch]["launches"]["gla_chunk"] <= 0 \
+                or tr[arch]["gla_bwd_launches"] <= 0:
+            fail(f"the gla_chunk kernels were never launched training "
+                 f"{arch}")
     # its forward shapes are timed in phase 7 too
     for sh, n in counters.shapes["flash_attention"].items():
         flash_shapes[sh] = flash_shapes.get(sh, 0) + n
+    train_gla_shapes = dict(counters.shapes["gla_chunk"])
     rec["train_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                            for k, v in counters.shapes.items()}
 
@@ -4680,7 +5219,8 @@ def main():
     l_rows, l_err = phase_lut_kernel(rec, lut_shapes)
     d_rows, d_err = phase_attn_kernel(rec, attn_shapes)
     f_rows, f_err = phase_flash_kernel(rec, flash_shapes)
-    s_rows, s_err = phase_gla_kernel(rec, gla_shapes, xlstm_gla_shapes)
+    s_rows, s_err = phase_gla_kernel(rec, gla_shapes, xlstm_gla_shapes,
+                                     train_gla_shapes)
 
     # ---- phase 3: engines against each other ----------------------------
     log("phase 3: the engines against each other")
@@ -4839,6 +5379,8 @@ def main():
         xlstm_serve_launches=xl_launches["gla_chunk"],
         xlstm_launches_by_run={k: v["gla_chunk"]
                                for k, v in xl_runs.items()},
+        train_launches={a: tr[a]["launches"]["gla_chunk"]
+                        for a in RECURRENT_TRAIN},
         max_abs_err=s_err, ms=sg["ms"], call_ms=sg["call_ms"],
         plain_ms=sg["plain_ms"], bound_ms=sg["bound_ms"],
         bound_by=sg["bound_by"], library_ms=None, checked=True,
@@ -4865,9 +5407,34 @@ def main():
         checked=True,
         shape={k: fb[k] for k in ("B", "S", "Sk", "HQ", "KH", "D", "causal",
                                    "dtype")}))
+    # the gla_chunk backward at zamba2-1.2b's training shape; every checked
+    # shape is in the record and on the lines above
+    gb = next(r for r in gb_rows if (
+        r["B"], r["S"], r["H"], r["N"], r["P"], r["chunk"], r["qk_dtype"],
+        r["qk_heads"], r["state"]) == GLA_BWD_CASES[0])
+    kernels.append(dict(
+        name="gla_chunk_bwd", route="cuda",
+        source="src/repro_torch/kernels/gla_chunk/csrc/gla_bwd.cu",
+        replaces="src/repro/models/ssm.py:31",
+        replaces_what="no TPU kernel: jax.value_and_grad of the reference's "
+                      "chunked_gla (src/repro/launch/train.py:46); the "
+                      "forward's TPU kernel is "
+                      "src/repro/kernels/gla_chunk/kernel.py:73",
+        kernel="gla_bwd", launches=tr["zamba2-1.2b"]["gla_bwd_launches"],
+        xlstm_train_launches=tr["xlstm-1.3b"]["gla_bwd_launches"],
+        max_abs_err=gb_err, ms=gb["ms"], call_ms=gb["call_ms"],
+        plain_ms=gb["plain_ms"], bound_ms=gb["bound_ms"],
+        bound_by=gb["bound_by"], library_ms=None, checked=True,
+        shape={k: gb[k] for k in ("B", "S", "H", "N", "P", "chunk",
+                                   "qk_dtype", "qk_heads")}))
     for kern in kernels:
         if kern["name"] == "flash_attention":
             kern["train_launches"] = train_launches["flash_attention"]
+            kern["zamba2_train_launches"] = \
+                tr["zamba2-1.2b"]["launches"]["flash_attention"]
+        if kern["name"] == "flash_attention_bwd":
+            kern["zamba2_train_launches"] = \
+                tr["zamba2-1.2b"]["flash_bwd_launches"]
     rec["profiler_retries"] = PROFILER_RETRIES
     rec["profiler_drops"] = PROFILER_DROPS
     rec["profiler_fallbacks"] = PROFILER_FALLBACKS

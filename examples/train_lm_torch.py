@@ -5,10 +5,13 @@ The counterpart of ``examples/train_lm.py`` on
 optimizer): a reduced config by default, so it runs on the CPU in
 minutes with ``--device cpu``; ``--full`` takes the published widths
 (for the card).  Loss must drop well below ln(vocab) on the synthetic
-motif dataset.  Without ``--device`` it runs on the card.
+motif dataset.  Without ``--device`` it runs on the card.  Every config
+trains, the hybrid zamba2-1.2b and xlstm-1.3b among them.
 
 Run:  PYTHONPATH=src python examples/train_lm_torch.py --arch olmo-1b \\
           --steps 300 --device cpu
+      PYTHONPATH=src python examples/train_lm_torch.py --arch xlstm-1.3b \\
+          --steps 100 --device cpu
 """
 import argparse
 

@@ -5,7 +5,8 @@ autograd does not see: on the card such an op would return a result that
 silently drops the gradient of its operands.  So on a CUDA tensor each of
 them raises instead, when grad mode is on and an operand requires grad.
 On the CPU the plain versions run and carry gradients as PyTorch does.
-(``flash_attention`` has a backward kernel and is differentiable.)
+Two ops have a backward kernel and are differentiable on the card as
+well, and do not call this: ``flash_attention`` and ``gla_chunk``.
 """
 from __future__ import annotations
 

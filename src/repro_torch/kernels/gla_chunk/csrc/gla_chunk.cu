@@ -74,9 +74,10 @@
 // itself in order.  Each column of y and h depends only on the same column
 // of v and h, so cutting P across blocks is exact.  The block's slice of
 // the state lives in float32 registers, transposed (hᵀ: PB x NP, in runs
-// of 16 x 8 tiles over the warps) as the accumulator of the state update
-// hᵀ ← exp(L_tot) hᵀ + vᵀ (k ⊙ exp(L_tot − L)), and is copied to shared
-// memory after each tile for the next tile's q h.  The next tiles' q, k, v
+// of 16 x 8 tiles over the warps); each tile's vᵀ (k ⊙ exp(L_tot − L)) is
+// summed in fresh accumulators and added on the CUDA cores, hᵀ ←
+// exp(L_tot) hᵀ + that, and hᵀ is copied to shared memory after each tile
+// for the next tile's q h.  The next tiles' q, k, v
 // and la arrive through a ring of cp.async stages (gla_plan picks one to
 // three, and T, to fit 227 KB) while the current tile computes.  Per tile:
 // q h (it needs only the last state) while warp 0 scans la (a fixed-order
@@ -501,16 +502,20 @@ gla_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
       }
     }
 
-    // hᵀ <- exp(Ltot) hᵀ + vᵀ (k exp(Ltot - L)), depth the tile's rows
+    // hᵀ <- exp(Ltot) hᵀ + vᵀ (k exp(Ltot - L)), depth the tile's rows:
+    // the tile's product in fresh accumulators, added to the carried
+    // state on the CUDA cores (a float32 sum chained across the tiles
+    // on the tensor cores truncates one-signed, as the float32 flash
+    // kernel's did: over 32768 slowly decaying steps y's error was 7x the
+    // plain version's, PERF.md)
     if (hr.cnt > 0) {
       const float et = eTot[0];
-      float s1[HU][4], s2[HU][4];
+      float big[HU][4], s1[HU][4], s2[HU][4];
 #pragma unroll
       for (int j = 0; j < HU; ++j) {
+        zero(big[j]);
         zero(s1[j]);
         zero(s2[j]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) hacc[j][e] *= et;
       }
       const float* pa = Vs + t * vs + 16 * hr.m + g;
       const TQ* pbk = Ks + t * qs + 8 * hr.n0 + g;
@@ -530,13 +535,14 @@ gla_kernel(const TQ* __restrict__ q, const TQ* __restrict__ k,
           z[j][0] *= e0;
           z[j][1] *= e1;
           split<false>(z[j], fb[j]);
-          mma3<false, false>(j < hr.cnt, hacc[j], s1[j], s2[j], fa, fb[j]);
+          mma3<false, false>(j < hr.cnt, big[j], s1[j], s2[j], fa, fb[j]);
         }
       }
 #pragma unroll
       for (int j = 0; j < HU; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) hacc[j][e] += s1[j][e] + s2[j][e];
+        for (int e = 0; e < 4; ++e)
+          hacc[j][e] = et * hacc[j][e] + (big[j][e] + (s1[j][e] + s2[j][e]));
     }
     __syncthreads();  // W is in
 

@@ -1,6 +1,8 @@
-"""ctypes binding of the CUDA gla_chunk kernel (``csrc/gla_chunk.cu``; the
-design note is at the top of that file) and its launch plan.  Built at
-first call by :mod:`repro_torch.kernels._build`, never at import."""
+"""ctypes bindings of the CUDA gla_chunk kernel (``csrc/gla_chunk.cu``)
+and its launch plan, and of its backward (``csrc/gla_bwd.cu``,
+:func:`gla_chunk_bwd_cuda`); the design notes are at the top of those
+files.  Built at first call by :mod:`repro_torch.kernels._build`, never at
+import."""
 from __future__ import annotations
 
 import ctypes
@@ -190,3 +192,89 @@ def gla_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       stream)
     _build.check(err, "gla_chunk")
     return y, h
+
+
+#: rows of a tile of the backward kernel (``csrc/gla_bwd.cu``: T)
+BWD_TILE = 64
+
+
+def _bwd_launcher():
+    fn = _build.load("gla_bwd").gla_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def gla_chunk_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       la: torch.Tensor, h0: Optional[torch.Tensor],
+                       dy: torch.Tensor, dh: Optional[torch.Tensor]
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of the scan (``csrc/gla_bwd.cu``) on one CUDA device:
+    q, k (B, S, Hq, N) float32 or bfloat16 of one dtype, N from 1 to 256,
+    Hq = H or 1 (one row for every head), any strides; v (B, S, H, P), la
+    (B, S, H), dy (B, S, H, P), h0 and dh (B, H, N, P) or None, float32.
+    Returns (dq, dk, dv, dla, dh0), contiguous float32: dq and dk (B, S,
+    Hq, N), summed over the heads where Hq = 1 < H; dv (B, S, H, P); dla
+    (B, S, H); dh0 (B, H, N, P).  Anything else raises ValueError before
+    any launch.  Scratch: the states entering and the gradients leaving
+    each 64-row tile, 2 B H ceil(S / 64) N P float32."""
+    B, S, Hq, N = q.shape
+    H, P = v.shape[2], v.shape[3]
+    if q.dtype not in DTYPES or k.dtype != q.dtype:
+        raise ValueError(f"the gla_chunk backward takes float32 or bfloat16 "
+                         f"q and k of one dtype, got {q.dtype}, {k.dtype}")
+    f32 = [t for t in (v, la, h0, dy, dh) if t is not None]
+    if any(t.dtype != torch.float32 for t in f32):
+        raise ValueError(f"the gla_chunk backward takes float32 v, la, h0, "
+                         f"dy and dh, got {[t.dtype for t in f32]}")
+    if not 1 <= N <= MAX_N:
+        raise ValueError(f"the gla_chunk backward takes N from 1 to "
+                         f"{MAX_N}, got {N}")
+    if k.shape != q.shape or Hq not in (1, H) or v.shape[:2] != (B, S) \
+            or la.shape != (B, S, H) or dy.shape != v.shape \
+            or any(t is not None and t.shape != (B, H, N, P)
+                   for t in (h0, dh)):
+        raise ValueError(f"gla_chunk backward shapes q {tuple(q.shape)}, v "
+                         f"{tuple(v.shape)}, la {tuple(la.shape)}, dy "
+                         f"{tuple(dy.shape)}")
+    if any(t.device != q.device for t in [k] + f32):
+        raise ValueError("gla_chunk backward operands on different devices")
+    if S == 0 or B * H * P == 0:
+        raise ValueError(f"the gla_chunk backward takes nonempty operands, "
+                         f"got B {B}, S {S}, H {H}, P {P}")
+    dev = q.device
+    f = dict(dtype=torch.float32, device=dev)
+    nt = -(-S // BWD_TILE)
+    hs = torch.empty((B * H, nt, N, P), **f)
+    gs = torch.empty((B * H, nt, N, P), **f)
+    hfin = torch.empty((B * H, N, P), **f)
+    dlam = torch.empty((B * H, S), dtype=torch.float64, device=dev)
+    dq, dk = torch.empty((B, S, H, N), **f), torch.empty((B, S, H, N), **f)
+    dv, dla = torch.empty((B, S, H, P), **f), torch.empty((B, S, H), **f)
+    dh0 = torch.empty((B, H, N, P), **f)
+    summed = Hq == 1 and H > 1
+    dq_sum = torch.empty((B, S, 1, N), **f) if summed else None
+    dk_sum = torch.empty((B, S, 1, N), **f) if summed else None
+
+    def heads(t: torch.Tensor) -> tuple:
+        s = t.stride()
+        return (s[0], s[1], 0 if t.shape[2] == 1 else s[2], s[3])
+    zeros4 = (0, 0, 0, 0)
+    strides = (ctypes.c_longlong * 27)(
+        *heads(q), *heads(k), *v.stride(), *la.stride(),
+        *(h0.stride() if h0 is not None else zeros4), *dy.stride(),
+        *(dh.stride() if dh is not None else zeros4))
+
+    def ptr(t: Optional[torch.Tensor]) -> int:
+        return 0 if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd_launcher()(
+        ptr(q), ptr(k), ptr(v), ptr(la), ptr(h0), ptr(dy), ptr(dh), ptr(hs),
+        ptr(gs), ptr(hfin), ptr(dlam), ptr(dq), ptr(dk), ptr(dv), ptr(dla),
+        ptr(dh0), ptr(dq_sum), ptr(dk_sum), DTYPES[q.dtype], B, H, S, N, P,
+        ctypes.cast(strides, ctypes.c_void_p), stream)
+    _build.check(err, "gla_chunk backward")
+    if summed:
+        dq, dk = dq_sum, dk_sum
+    return dq, dk, dv, dla, dh0

@@ -5,14 +5,19 @@ registry -> parameters -> data pipeline -> train step (forward_train,
 backward, clipping at 1.0, the cosine schedule, the optimizer) -> async
 checkpointing -> straggler watchdog -> restore.  The backward is
 PyTorch's autograd; the attention's gradient is the flash_attention op's
-backward, a hand-written kernel on the card.  Parameters and optimizer
-state are updated in place.  Trainer's mesh and FSDP arguments (the
-reference's multi-device path) raise ValueError until they are ported
-(ROADMAP Queue 1 item 6); the CLI has no flags for them yet.
+backward and the Mamba2 and mLSTM scans' the gla_chunk op's, each a
+hand-written kernel on the card.  Every config trains.  Parameters and
+optimizer state are updated in place.  Trainer's mesh and FSDP arguments
+(the reference's multi-device path) raise ValueError until they are
+ported (ROADMAP Queue 1 item 6); the CLI has no flags for them yet.
 
 Usage:
   python -m repro_torch.launch.train --arch llama3.2-3b --steps 4 \\
       --seq-len 4096 --batch 2
+  python -m repro_torch.launch.train --arch zamba2-1.2b --steps 4 \\
+      --seq-len 4096 --batch 2
+  python -m repro_torch.launch.train --arch xlstm-1.3b --reduced \\
+      --device cpu --steps 20
   python -m repro_torch.launch.train --arch olmo-1b --reduced \\
       --device cpu --steps 20 --ckpt-dir /tmp/ckpt
 
@@ -78,7 +83,6 @@ class Trainer:
             raise ValueError("the mesh and FSDP are not ported yet (ROADMAP "
                              "Queue 1 item 6): the trainer runs on one "
                              "device")
-        T.check_trainable(cfg)
         self.cfg = cfg
         self.device = resolve_torch_device(torch_device)
         self.watchdog = StepWatchdog()

@@ -1,20 +1,21 @@
-"""Mamba2 (state-space duality) blocks and the chunked GLA core: the serve
-half of the reference's ``models/ssm.py``.
+"""Mamba2 (state-space duality) blocks and the chunked GLA core: the port
+of the reference's ``models/ssm.py``.
 
 The SSD recurrence  h_t = a_t h_{t-1} + k_t v_tᵀ,  y_t = q_t · h_t  (a
 per-head scalar decay a_t) covers Mamba2 (q = C, k = B, v = dt x,
-a = exp(dt A)).  Prefill runs it chunk by chunk through the ``gla_chunk``
-op (its CUDA kernel on the card, its plain version on the CPU); decode
-takes one step of it per token (``gla_step``, plain PyTorch: two small
-products, no kernel in the reference either).
+a = exp(dt A)).  Training and prefill run it chunk by chunk through the
+``gla_chunk`` op (its CUDA kernel on the card, its plain version on the
+CPU; in training its gradient is the op's backward, a kernel of its own
+on the card); decode takes one step of it per token (``gla_step``, plain
+PyTorch: two small products, no kernel in the reference either).
 
 The math keeps the reference's dtypes: the conv state has the cache's
 dtype, and concatenating it with a bfloat16 input promotes to float32 as
 ``jnp.concatenate`` does; softplus, the decay and v are float32; y comes
 back from the scan in float32.  Caches are updated in place (the
 reference returns updated copies); each function returns the cache dict
-so the call sites read as the reference's.  ``mamba2_train`` is not
-ported yet.
+so the call sites read as the reference's.  ``mamba2_train`` runs with
+no cache, from zero conv and SSM states.
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def chunked_gla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_a: torch.Tensor, chunk: int = 128,
                 h0: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k: (B, S, H, N); v: (B, S, H, P); log_a: (B, S, H) (<= 0 decay).
+    """q, k: (B, S, H, N), or (B, S, 1, N) for every head; v: (B, S, H,
+    P); log_a: (B, S, H) (<= 0 decay).
     Returns y (B, S, H, P) and the final state h (B, H, N, P), both
     float32.  min(chunk, S) must divide S, as in the reference.
 
@@ -123,9 +125,10 @@ def _ssm_inner(cfg, p: Params, zxbcdt: torch.Tensor,
     A = -torch.exp(p["A_log"])                                    # (H,)
     log_a = dt * A[None, None, :]
     v = x.to(torch.float32) * dt[..., None]
-    # broadcast over heads: stride-0 views, read in place by the kernel
-    q = Cmat[:, :, None, :].expand(B_, S, H, N)
-    k = Bmat[:, :, None, :].expand(B_, S, H, N)
+    # one row for every head: the op broadcasts them (stride-0 views, read
+    # in place by the kernel) and sums their gradient over the heads
+    q = Cmat[:, :, None, :]
+    k = Bmat[:, :, None, :]
     if chunked:
         # chunk ~ state dim N: larger chunks make the intra-chunk
         # quadratic dominate FLOPs; smaller waste the scan
@@ -133,12 +136,20 @@ def _ssm_inner(cfg, p: Params, zxbcdt: torch.Tensor,
                                    h0=ssm_state)
     else:
         a = torch.exp(log_a[:, 0])                                # (B,H)
-        ssm_state, y = gla_step(ssm_state, q[:, 0], k[:, 0], v[:, 0], a)
+        ssm_state, y = gla_step(ssm_state, q[:, 0].expand(B_, H, N),
+                                k[:, 0].expand(B_, H, N), v[:, 0], a)
         y = y[:, None]
     y = y + x.to(torch.float32) * p["D"][None, None, :, None]
     y = y.reshape(B_, S, di).to(z.dtype)
     y = norm_apply(cfg, p["norm"], y * silu(z))
     return y, conv_state, ssm_state
+
+
+def mamba2_train(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d); the chunked scan from zero states, no cache."""
+    zxbcdt = linear_apply(p["in_proj"], x)
+    y, _, _ = _ssm_inner(cfg, p, zxbcdt, None, None, chunked=True)
+    return linear_apply(p["out_proj"], y)
 
 
 def init_ssm_cache(cfg, batch: int, dtype: torch.dtype,

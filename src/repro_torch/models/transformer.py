@@ -30,17 +30,22 @@ written in place, so frames of another length raise ``ValueError``
 (the reference swaps in whatever length it is given).
 
 Training (``forward_hidden``, ``chunked_cross_entropy``,
-``forward_train``, the reference's train mode) covers the ``"attn"``
-block (whisper's encoder and cross-attention, phi-3-vision's patch
-prefix included) and the ``"moe"`` block.  The Mamba2 and xLSTM blocks
-raise ValueError: their train forms need a ``gla_chunk`` backward kernel
-(ROADMAP Queue 1 item 5b).  A stacked leaf is unbound into per-layer
+``forward_train``, the reference's train mode) covers every block type:
+``"attn"`` (whisper's encoder and cross-attention, phi-3-vision's patch
+prefix included), ``"moe"``, ``"mamba2"`` and ``"mamba2_sharedattn"``
+(zamba2's globally shared attention block applied after the Mamba2, its
+gradients adding up over the applications), ``"mlstm"`` and
+``"slstm"``.  The scans' gradient is the ``gla_chunk`` op's backward
+(a kernel on the card), the attention's the flash op's, the sLSTM's
+autograd's through its loop.  A stacked leaf is unbound into per-layer
 views once per forward (so the backward stacks the layers' gradients
 once), and with ``cfg.remat`` each layer runs under
 ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
-reference's ``jax.checkpoint(nothing_saveable)`` scan body; each loss
-chunk is checkpointed, as the reference's, so the vocab-wide float32
-logits of one chunk at a time are live.
+reference's ``jax.checkpoint(nothing_saveable)`` scan body (the
+reference checkpoints a hybrid stack's repeating unit, 5 Mamba2 and the
+shared block or 7 mLSTM and an sLSTM: the same values, more held); each
+loss chunk is checkpointed, as the reference's, so the vocab-wide
+float32 logits of one chunk at a time are live.
 """
 from __future__ import annotations
 
@@ -289,11 +294,6 @@ def logits_fn(params: Params, cfg: ModelConfig,
 # ----------------------------------------------------------------------
 # training: the layer stack without caches, and the chunked loss
 # ----------------------------------------------------------------------
-#: the block types with a train form (the recurrent blocks' wait for a
-#: gla_chunk backward kernel, ROADMAP Queue 1 item 5b)
-TRAIN_BLOCKS = ("attn", "moe")
-
-
 def _unstack(tree: Params, n: int) -> list:
     """The n layers of a stacked tree, as views (``unbind``: the backward
     stacks the n gradients of a leaf once, where indexing each layer
@@ -327,19 +327,25 @@ def _remat(on: bool, fn, *args):
     return fn(*args)
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ValueError naming the block types without a train form."""
-    bad = sorted(set(cfg.block_pattern()) - set(TRAIN_BLOCKS))
-    if bad:
-        raise ValueError(f"{cfg.name}: no train form for block type(s) "
-                         f"{bad} yet: their backward needs a gla_chunk "
-                         f"backward kernel (ROADMAP Queue 1 item 5b)")
-
-
-def _train_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                 enc_out: Optional[torch.Tensor]):
-    """One "attn" or "moe" block in train mode: (x, aux loss)."""
+def _train_block(p: Params, cfg: ModelConfig, btype: str, x: torch.Tensor,
+                 enc_out: Optional[torch.Tensor],
+                 shared_p: Optional[Params]):
+    """One block of type `btype` in train mode: (x, aux loss).
+    `shared_p` is zamba2's shared attention block, `enc_out` whisper's
+    encoder output."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     h = norm_apply(cfg, p["ln1"], x)
+    if btype in ("mlstm", "slstm"):
+        fn = getattr(xlstm_mod, f"{btype}_train")
+        return x + fn(p[btype], cfg, h), zero
+    if btype in ("mamba2", "mamba2_sharedattn"):
+        x = x + ssm_mod.mamba2_train(p["mamba"], cfg, h)
+        if btype == "mamba2_sharedattn" and shared_p is not None:
+            h = norm_apply(cfg, shared_p["ln1"], x)
+            x = x + attn.attn_train(shared_p["attn"], cfg, h)
+            h = norm_apply(cfg, shared_p["ln2"], x)
+            x = x + mlp_apply(shared_p["mlp"], h, cfg)
+        return x, zero
     x = x + attn.attn_train(p["attn"], cfg, h)
     if "cross" in p:
         h = norm_apply(cfg, p["lnx"], x)
@@ -349,28 +355,28 @@ def _train_block(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if "moe" in p:
         o, aux = moe_mod.moe_apply(p["moe"], cfg, h)
         return x + o, aux
-    return x + mlp_apply(p["mlp"], h, cfg), \
-        torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + mlp_apply(p["mlp"], h, cfg), zero
 
 
 def forward_hidden(params: Union[LMParams, Params], cfg: ModelConfig,
                    x: torch.Tensor, enc_out: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the layer stack in train mode (no caches).  Returns (hidden,
-    aux), aux the sum of the moe layers' aux losses.  Raises ValueError
-    for a block type without a train form."""
+    aux), aux the sum of the moe layers' aux losses."""
     params = _tree(params)
-    check_trainable(cfg)
     pattern = cfg.block_pattern()
     layers = {b: _unstack(params["layers"][b], pattern.count(b))
               for b in set(pattern)}
-    remat = cfg.remat and _training(params["layers"], x)
+    shared_p = params.get("shared_attn")
+    remat = cfg.remat and (_training(params["layers"], x) or (
+        shared_p is not None and _training(shared_p, x)))
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     counters = {b: 0 for b in layers}
     for btype in pattern:
         lp = layers[btype][counters[btype]]
         counters[btype] += 1
-        x, aux = _remat(remat, _train_block, lp, cfg, x, enc_out)
+        x, aux = _remat(remat, _train_block, lp, cfg, btype, x, enc_out,
+                        shared_p)
         aux_total = aux_total + aux
     return x, aux_total
 
@@ -416,10 +422,8 @@ def forward_train(params: Union[LMParams, Params], cfg: ModelConfig,
     with phi-3-vision's ``patch_emb`` or whisper's ``frames``: returns
     (loss + 0.01 * aux, {"loss", "aux_loss"}).  The loss is over the text
     tokens only (the patch rows are dropped before it).  Raises
-    ValueError, before any work, for a block type without a train form or
-    whisper without frames."""
+    ValueError, before any work, for whisper without frames."""
     params = _tree(params)
-    check_trainable(cfg)
     if cfg.encoder_layers and "frames" not in batch:
         raise ValueError(f"{cfg.name} is an encoder-decoder: its training "
                          f"batch needs frames (B, {cfg.encoder_seq}, "

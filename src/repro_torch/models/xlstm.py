@@ -1,19 +1,21 @@
 """xLSTM blocks: mLSTM (matrix memory, parallelizable — lowered onto the
 chunked GLA core with a denominator channel) and sLSTM (scalar memory,
-strictly recurrent — a loop over time): the serve half of the
-reference's ``models/xlstm.py``.
+strictly recurrent — a loop over time): the port of the reference's
+``models/xlstm.py``.
 
 mLSTM recurrence (per head):
     C_t = f_t C_{t-1} + i_t v_t k_tᵀ          (matrix memory)
     n_t = f_t n_{t-1} + i_t k_t                (normalizer)
     h_t = (C_t q_t) / max(|n_t · q_t|, 1)
 Implemented by appending a constant-1 channel to v so that the GLA state
-carries (C | n) jointly — one scan, exact semantics.  The prefill runs
-``ssm.chunked_gla`` at chunk 512 (the ``gla_chunk`` op: its CUDA kernel
-on the card, its plain version on the CPU); the decode takes one
+carries (C | n) jointly — one scan, exact semantics.  Training and the
+prefill run ``ssm.chunked_gla`` at chunk 512 (the ``gla_chunk`` op: its
+CUDA kernel on the card, its plain version on the CPU; in training its
+gradient is the op's backward kernel); the decode takes one
 ``ssm.gla_step`` (plain PyTorch, as in the reference).  The sLSTM has no
 kernel in the reference either: a Python loop over time, a handful of
-PyTorch operations a step.
+PyTorch operations a step, whose gradient in training is autograd's
+through that loop.
 
 The math keeps the reference's dtypes: ``v * i`` is float32 (a bf16 v
 times the float32 gate promotes), the denominator channel is ``i``
@@ -21,7 +23,8 @@ rounded to v's dtype first, and both caches are float32 whatever dtype
 the model has.  The sLSTM normalizer state ``n`` starts at ones.  Caches
 are updated in place; each function returns the cache dict so the call
 sites read as the reference's.  The train forms (``mlstm_train``,
-``slstm_train``) are not ported yet.
+``slstm_train``) take no cache: the mLSTM scans from a zero state, the
+sLSTM runs from ``init_slstm_cache``'s state.
 
 The 7:1 mLSTM:sLSTM interleave of xlstm-1.3b is expressed through
 ModelConfig.block_pattern (slstm_every=8).
@@ -105,6 +108,19 @@ def _mlstm_out(p: Params, cfg, y: torch.Tensor, den: torch.Tensor,
     y = y.reshape(B, S, 2 * cfg.d_model).to(z.dtype)
     y = norm_apply(cfg, p["norm"], y) * silu(z)
     return linear_apply(p["down"], y)
+
+
+def mlstm_train(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d); the chunked scan at chunk 512 from a zero state (S up
+    to 512, or a multiple of it), no cache."""
+    B, S, _ = x.shape
+    xu = linear_apply(p["up_x"], x)
+    z = linear_apply(p["up_z"], x)
+    q, k, v, i_gate, log_f = _mlstm_qkvg(p, cfg, xu)
+    y_all, _ = chunked_gla(q, k, _with_denominator(v, i_gate), log_f,
+                           chunk=MLSTM_CHUNK)
+    y, den = y_all[..., :-1], y_all[..., -1:]
+    return _mlstm_out(p, cfg, y, den, z, B, S)
 
 
 def init_mlstm_cache(cfg, batch: int, device: torch.device,
@@ -221,6 +237,20 @@ def slstm_prefill(p: Params, cfg, x: torch.Tensor,
     y = torch.stack(hs, dim=1).to(x.dtype)                 # (B, S, d)
     y = norm_apply(cfg, p["norm"], y)
     return linear_apply(p["down"], y), cache
+
+
+def slstm_train(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, d); the cell once per step from ``init_slstm_cache``'s
+    state, no cache (its gradient is autograd's through the loop)."""
+    pre = linear_apply(p["w_in"], x)                       # (B, S, 4d)
+    state = init_slstm_cache(cfg, x.shape[0], x.device)
+    hs = []
+    for t in range(x.shape[1]):
+        state = _slstm_cell(cfg, p["r"], pre[:, t], state)
+        hs.append(state["h"])
+    y = torch.stack(hs, dim=1).to(x.dtype)                 # (B, S, d)
+    y = norm_apply(cfg, p["norm"], y)
+    return linear_apply(p["down"], y)
 
 
 def slstm_decode(p: Params, cfg, x: torch.Tensor,

@@ -47,6 +47,11 @@ limit from max|want| alone would miss them); float32 held to the plain
 backward in
 float64, its error at most 4x the float32 plain backward's, or 1e-6 of
 max|want| where that is larger; two calls bitwise equal (no atomics).
+The ``gla_chunk`` backward kernel (``gla_bwd.cu``, its float32 outputs)
+against the plain backward in float64 on the same inputs: each of dq,
+dk, dv, dla and dh0 within 4x the float32 plain backward's error, or
+1e-6 of its max|want| where that is larger; the op's bfloat16 dq and dk
+those outputs rounded; two calls bitwise equal (no atomics).
 """
 import numpy as np
 import pytest
@@ -67,8 +72,10 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_plain)
-from repro_torch.kernels.gla_chunk import (gla_chunk, gla_chunk_plain,
-                                           gla_recurrence)
+from repro_torch.kernels.gla_chunk import (gla_chunk, gla_chunk_bwd,
+                                           gla_chunk_bwd_plain,
+                                           gla_chunk_plain, gla_recurrence)
+from repro_torch.kernels.gla_chunk.kernel import gla_chunk_bwd_cuda
 from repro_torch.kernels.lut_gemm import lut_gemm, lut_gemm_ref
 from repro_torch.kernels.tensor_alu import (BlockMap, tensor_alu,
                                             tensor_alu_ref,
@@ -1055,6 +1062,112 @@ def test_gla_chunk_bf16_q_k_and_broadcast_heads(cuda_dev, broadcast,
         _gla_check(got, want)
 
 
+#: (B, S, H, N, P, chunk, q/k dtype, q/k heads, h0 and dh given): per
+#: head, one row for every head (Mamba2) and a stride-0 view over the
+#: heads; a ragged last 64-row tile (S 96); N 256 (the mLSTM's) and N 1
+GLA_BWD_CASES = [
+    (2, 128, 3, 16, 17, 32, torch.float32, "heads", False),
+    (1, 96, 4, 64, 65, 32, torch.float32, "one", True),
+    (2, 192, 8, 64, 64, 64, torch.bfloat16, "one", False),
+    (1, 128, 2, 256, 33, 128, torch.bfloat16, "heads", True),
+    (1, 64, 2, 1, 5, 64, torch.float32, "stride0", True),
+]
+
+
+def _gla_bwd_inputs(dev, B, S, H, N, P, dt, heads, state, seed):
+    """q, k, v, la, h0, dy, dh (unit normal; la -0.3 |normal|; k scaled by
+    1/sqrt(N) above N 64, as the mLSTM scales it)."""
+    q, k, v, la, h0 = _gla_inputs(dev, B, S, H, N, P, seed, dt,
+                                  heads != "heads",
+                                  N ** -0.5 if N > 64 else 1.0)
+    if heads == "one":
+        q, k = q[:, :, :1], k[:, :, :1]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dy = torch.randn((B, S, H, P), generator=g, device=dev)
+    dh = torch.randn((B, H, N, P), generator=g, device=dev) * 0.5
+    return (q, k, v, la, h0 if state else None, dy, dh if state else None)
+
+
+def _gla_bwd_check(got, args, chunk):
+    """The kernel's float32 gradients against the plain backward's."""
+    want32 = gla_chunk_bwd_plain(*args, chunk=chunk, dtype=torch.float32)
+    want64 = gla_chunk_bwd_plain(*args, chunk=chunk, dtype=torch.float64)
+    for name, g, w, e in zip(("dq", "dk", "dv", "dla", "dh0"), got, want32,
+                             want64):
+        assert g.shape == e.shape and g.dtype == torch.float32, name
+        err = float((g.double() - e.double()).abs().max())
+        plain = float((w.double() - e.double()).abs().max())
+        assert err <= max(4 * plain, 1e-6 * float(e.abs().max())), \
+            (name, err, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GLA_BWD_CASES, ids=lambda c: "-".join(
+    str(x).replace("torch.", "") for x in c))
+def test_gla_chunk_bwd_kernel_matches_plain(cuda_dev, case):
+    B, S, H, N, P, chunk, dt, heads, state = case
+    args = _gla_bwd_inputs(cuda_dev, B, S, H, N, P, dt, heads, state,
+                           S + N + P)
+    before = gla_chunk.bwd_launches
+    got = gla_chunk_bwd(*args, chunk=chunk)
+    again = gla_chunk_bwd(*args, chunk=chunk)
+    raw = gla_chunk_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    assert gla_chunk.bwd_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].dtype == dt and got[0].shape == args[0].shape
+    assert all(torch.equal(a, b.to(a.dtype)) for a, b in zip(got, raw))
+    _gla_bwd_check(raw, args, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", ["one", "heads"])
+def test_gla_chunk_carries_its_gradient_on_the_card(cuda_dev, heads):
+    """gla_chunk on CUDA tensors that require grad: one forward launch and
+    one backward launch, and the gradients are gla_chunk_bwd's bitwise."""
+    args = _gla_bwd_inputs(cuda_dev, 2, 128, 4, 16, 24, torch.float32,
+                           heads, True, 8)
+    ops = [t.clone().requires_grad_() for t in args[:5]]
+    dy, dh = args[5], args[6]
+    f0, b0 = gla_chunk.launches, gla_chunk.bwd_launches
+    y, h = gla_chunk(*ops, chunk=32)
+    loss = (y * dy).sum() + (h * dh).sum()
+    got = torch.autograd.grad(loss, ops)
+    torch.cuda.synchronize()
+    assert (gla_chunk.launches, gla_chunk.bwd_launches) == (f0 + 1, b0 + 1)
+    want = gla_chunk_bwd(*args, chunk=32)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_gla_chunk_bwd_refuses_what_it_has_no_instance_for(cuda_dev):
+    args = _gla_bwd_inputs(cuda_dev, 1, 64, 2, 264, 16, torch.float32,
+                           "heads", True, 6)
+    with pytest.raises(ValueError, match="N from 1 to 256"):
+        gla_chunk_bwd_cuda(*args)
+    args = _gla_bwd_inputs(cuda_dev, 1, 64, 2, 16, 16, torch.float32,
+                           "heads", True, 7)
+    with pytest.raises(ValueError, match="float32 v"):
+        gla_chunk_bwd_cuda(args[0], args[1], args[2].bfloat16(), *args[3:])
+
+
+@pytest.mark.cuda
+def test_gla_chunk_carries_the_state_over_a_long_slow_decay(cuda_dev):
+    """32768 steps of la about -1e-3 and v = 1 + N(0, 1): a state sum
+    chained across the tiles on the tensor cores would truncate
+    one-signed and grow with S; each tile's update is added on the CUDA
+    cores, so y and h stay within 4x the plain version's float64 error."""
+    q, k, v, la, h = _gla_inputs(cuda_dev, 1, 32768, 2, 64, 64, 12)
+    g = torch.Generator(device=cuda_dev).manual_seed(12)
+    la = -1e-3 * (1 + 0.1 * torch.randn(la.shape, generator=g,
+                                        device=cuda_dev).abs())
+    v = v + 1.0
+    got = gla_chunk(q, k, v, la, h, chunk=64)
+    want = gla_chunk_plain(q, k, v, la, h, chunk=64)
+    torch.cuda.synchronize()
+    _gla_f64_check(got, want, q, k, v, la, h)
+
+
 @pytest.mark.cuda
 def test_gla_chunk_refuses_what_it_has_no_instance_for(cuda_dev):
     q, k, v, la, h = _gla_inputs(cuda_dev, 1, 64, 2, 264, 16, 6)
@@ -1399,9 +1512,6 @@ def _grad_refusal_cases(dev):
     x = torch.randn((4, 32), **f)
     q = torch.randn((1, 1, 2, 64), **f)
     kv = torch.randn((1, 8, 2, 64), device=dev)
-    gq = torch.randn((1, 16, 2, 16), **f)
-    gv = torch.randn((1, 16, 2, 16), device=dev)
-    la = -torch.rand((1, 16, 2), device=dev)
     fdst = torch.randn((8, 8), **f)
     return {
         "vta_gemm": lambda: vta_gemm(a, w, None, scale, epilogue="dequant"),
@@ -1410,14 +1520,12 @@ def _grad_refusal_cases(dev):
         "lut_gemm": lambda: lut_gemm(fdst, w, bits=4),
         "tensor_alu": lambda: tensor_alu(fdst, chain=(("add", 1),)),
         "decode_attention": lambda: decode_attention(q, kv, kv, 8),
-        "gla_chunk": lambda: gla_chunk(gq, gq.detach(), gv, la),
     }
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["vta_gemm", "quantized_linear", "lut_gemm",
-                                "tensor_alu", "decode_attention",
-                                "gla_chunk"])
+                                "tensor_alu", "decode_attention"])
 def test_kernel_without_backward_refuses_grad(cuda_dev, op):
     """On the card, an op whose kernel has no backward raises where an
     operand requires grad (it never returns a result that drops the
@@ -1425,13 +1533,11 @@ def test_kernel_without_backward_refuses_grad(cuda_dev, op):
     call = _grad_refusal_cases(cuda_dev)[op]
     fn = {"vta_gemm": vta_gemm, "quantized_linear": quantized_linear,
           "lut_gemm": lut_gemm, "tensor_alu": tensor_alu,
-          "decode_attention": decode_attention, "gla_chunk": gla_chunk}[op]
+          "decode_attention": decode_attention}[op]
     before = getattr(fn, "launches", 0)
-    with pytest.raises(ValueError, match="no backward kernel") as e:
+    with pytest.raises(ValueError, match="no backward kernel"):
         call()
     assert getattr(fn, "launches", 0) == before
-    if op == "gla_chunk":
-        assert "5b" in str(e.value)
     if op not in ("lut_gemm", "tensor_alu"):
         with torch.no_grad():
             call()

@@ -1,8 +1,9 @@
 """The port stands alone and never runs on the CPU unless asked.
 
 * No module of ``src/repro_torch``, not ``chip_smoke.py``,
-  ``tools/autotune_torch.py`` nor ``examples/train_lm_torch.py`` imports
-  JAX or the reference package (AST scan).
+  ``tools/autotune_torch.py``, ``tools/time_kernels.py`` nor
+  ``examples/train_lm_torch.py`` imports JAX or the reference package
+  (AST scan).
 * Making a device, a runtime or a compiled program without
   ``torch_device`` asks for the card; where there is none, that raises.
 * Building the CUDA kernels without ``nvcc`` raises.
@@ -28,6 +29,7 @@ from repro_torch.kernels import _build
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "autotune_torch.py",
+       ROOT / "tools" / "time_kernels.py",
        ROOT / "examples" / "train_lm_torch.py"]
 
 

@@ -20,9 +20,12 @@ of the loss, and of any leaf's gradient relative to its max|grad| (a
 single scalar's gap is as small as luck makes it; seen: loss gaps 8e-5
 to 3e-4, gradient gaps 0.010-0.013).
 
-The recurrent block types (zamba2's Mamba2, xlstm's mLSTM and sLSTM)
-raise ValueError before any work: their backward waits for a gla_chunk
-backward kernel.
+The recurrent block types train too: zamba2-1.2b (Mamba2 and the
+globally shared attention block, whose gradients add up over its
+applications) and xlstm-1.3b (mLSTM and sLSTM), reduced, are held to the
+reference in float32 as above and in bfloat16 as the llama case is
+(their scans' gradient is the gla_chunk op's plain backward here, the
+sLSTM's autograd's through its loop).
 """
 import dataclasses
 
@@ -38,7 +41,7 @@ from repro_torch import convert, tree
 from repro_torch.models import transformer as TT
 
 ARCHS = ["llama3.2-3b", "olmo-1b", "phi-3-vision-4.2b", "whisper-large-v3",
-         "phi3.5-moe-42b-a6.6b"]
+         "phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "xlstm-1.3b"]
 B, S = 2, 16
 #: the batches over which the reference's own bf16-against-float32 gap is
 #: taken (its largest)
@@ -66,11 +69,12 @@ def make_batch(cfg, seed):
     return batch
 
 
-def reference(rcfg, rp, batch):
-    fn = jax.jit(jax.value_and_grad(
-        lambda p, b: RT.forward_train(p, rcfg, b), has_aux=True))
-    (total, metrics), grads = fn(rp, {k: jnp.asarray(v)
-                                      for k, v in batch.items()})
+def reference(rcfg, rp, batch, eager=False):
+    fn = jax.value_and_grad(lambda p, b: RT.forward_train(p, rcfg, b),
+                            has_aux=True)
+    with jax.disable_jit(eager):
+        (total, metrics), grads = (fn if eager else jax.jit(fn))(
+            rp, {k: jnp.asarray(v) for k, v in batch.items()})
     return (float(total), {k: float(v) for k, v in metrics.items()},
             tree.flatten(jax.tree.map(
                 lambda g: np.asarray(g.astype(jnp.float32)), grads)))
@@ -97,9 +101,10 @@ def leaf_errors(got, want):
             for k in want}
 
 
-#: remat is checked on one decoder and on the encoder
+#: remat is checked on one decoder, the encoder and the recurrent stacks
 @pytest.mark.parametrize("arch,remat", [(a, False) for a in ARCHS] + [
-    ("llama3.2-3b", True), ("whisper-large-v3", True)],
+    ("llama3.2-3b", True), ("whisper-large-v3", True),
+    ("zamba2-1.2b", True), ("xlstm-1.3b", True)],
     ids=lambda x: x if isinstance(x, str) else ("remat" if x else "plain"))
 def test_forward_train_matches_reference(arch, remat):
     rcfg, cfg = configs(arch, remat=remat)
@@ -118,20 +123,35 @@ def test_forward_train_matches_reference(arch, remat):
 
 
 def test_bf16_llama_within_the_reference_own_bf16_gap():
-    rcfg32, _ = configs("llama3.2-3b")
-    rcfg16, cfg16 = configs("llama3.2-3b", dtype="bfloat16")
+    bf16_within_the_reference_own_gap("llama3.2-3b")
+
+
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
+def test_bf16_recurrent_within_the_reference_own_bf16_gap(arch):
+    """The reference's bf16 run is eager here: jitted, XLA rounds some of
+    the recurrent stacks' bfloat16 intermediates elsewhere, and its jitted
+    gradients differ from its own eager ones by up to 0.10 of a leaf's
+    max|grad| (xlstm's sLSTM r and w_in, which carry a difference far
+    back in time); the port follows the eager run's rounding."""
+    bf16_within_the_reference_own_gap(arch, eager=True)
+
+
+def bf16_within_the_reference_own_gap(arch, eager=False):
+    rcfg32, _ = configs(arch)
+    rcfg16, cfg16 = configs(arch, dtype="bfloat16")
     rp32 = RT.init_params(jax.random.PRNGKey(1), rcfg32)
-    # the bf16 model's weights: the float32 ones rounded (norm scales stay
-    # float32 as the reference's init keeps them)
-    rp16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16)
-                        if a.ndim >= 2 else a, rp32)
+    # the bf16 model's weights: the float32 ones rounded where the
+    # reference's bf16 init makes a leaf bf16 (norm scales, the Mamba2
+    # decay and skip, the sLSTM's recurrent r stay float32)
+    like = RT.init_params(jax.random.PRNGKey(1), rcfg16)
+    rp16 = jax.tree.map(lambda a, b: a.astype(b.dtype), rp32, like)
     # the same (rounded) weights in a float32 model
     rp16_32 = jax.tree.map(lambda a: a.astype(jnp.float32), rp16)
     runs = []
     for seed in BF16_SEEDS:
         batch = make_batch(cfg16, seed)
         runs.append((reference(rcfg32, rp16_32, batch),
-                     reference(rcfg16, rp16, batch),
+                     reference(rcfg16, rp16, batch, eager),
                      port(cfg16, rp16, batch)))
     loss_gap = max(abs(r16[0] - r32[0]) for r32, r16, _ in runs)
     grad_gap = max(max(leaf_errors(r16[2], r32[2]).values())
@@ -141,17 +161,6 @@ def test_bf16_llama_within_the_reference_own_bf16_gap():
         errs = leaf_errors(t16[2], r16[2])
         worst = max(errs, key=errs.get)
         assert errs[worst] <= 2 * grad_gap, (worst, errs[worst], grad_gap)
-
-
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "xlstm-1.3b"])
-def test_recurrent_blocks_raise(arch):
-    _, cfg = configs(arch)
-    params = TT.init_params(cfg, 0, "cpu")
-    batch = {k: torch.from_numpy(v) for k, v in make_batch(cfg, 1).items()}
-    with pytest.raises(ValueError, match="5b"):
-        TT.forward_train(params, cfg, batch)
-    with pytest.raises(ValueError, match="gla_chunk"):
-        TT.forward_hidden(params, cfg, torch.zeros(B, S, cfg.d_model))
 
 
 def test_whisper_needs_frames():

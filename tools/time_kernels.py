@@ -2,7 +2,7 @@
 """Time the port's kernels of one checkout.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME] [--big]
-        [--ops lut_gemm,flash_attention,flash_bwd,vta_gemm,
+        [--ops lut_gemm,flash_attention,flash_bwd,gla_bwd,vta_gemm,
                quantized_linear,decode_attention,gla_chunk,lm_step,
                c9_request]
 
@@ -19,12 +19,18 @@ decode_attention at the decoder's and the LM steps' shapes, at kv_len S
 and at the served 32; gla_chunk at zamba2-1.2b's served 16- and
 512-token prefills and at S 4096 and 32768 (q and k broadcast over 64
 heads) and at xlstm-1.3b's N 256, P 1025, chunk 512 (bf16 q and k per
-head), a shape where a version that raises is recorded as "raises";
+head), a shape where a version that raises is recorded as "raises", and
+at both models' training shapes (B2, bf16 q and k);
 flash_bwd, the flash_attention backward kernel at chip_smoke's
 FLASH_BWD_CASES (Llama-3.2-3B's train_4k B2 S4096 causal bf16, whisper's
 encoder in bf16 and float32, phi-3-vision's D 96, a long-key float32
 case) beside its operation bound, the plain backward and
-scaled_dot_product_attention's backward alone;
+scaled_dot_product_attention's backward alone; gla_bwd, the gla_chunk
+backward kernel at chip_smoke's GLA_BWD_CASES (zamba2-1.2b's and
+xlstm-1.3b's train_4k scans, h0 and dh given, a ragged last tile, a long
+slow-decay scan) beside its operation and byte bound and the plain
+backward (no single PyTorch call computes this function: no library
+time);
 lm_step, whole int8 decode steps of llama3.2-3b
 and zamba2-1.2b at 4 slots: the host-clock step ms of each of 8 steps,
 and of one more under torch.profiler the device busy ms, the idle share
@@ -97,12 +103,16 @@ QLINEAR_SHAPES = [(4, 3072, 8192, "bfloat16"), (4, 8192, 3072, "bfloat16"),
     (512, n, k, "bfloat16") for n, k in ZAMBA2_PREFILL] + [
     (m, n, k, "bfloat16") for m in (512, 4096) for n, k in LLAMA_PREFILL]
 #: (B, S, H, N, P, chunk, q/k dtype, heads broadcast): zamba2-1.2b's
-#: served prefills (16 and 512 tokens), its long prefills, xlstm-1.3b's
+#: served prefills (16 and 512 tokens), its long prefills, xlstm-1.3b's;
+#: then the training forwards of chip_smoke's phase 14 (zamba2-1.2b B2
+#: S4096, xlstm-1.3b B2 S2048)
 GLA_SHAPES = [(1, 16, 64, 64, 64, 16, "float32", True),
               (1, 512, 64, 64, 64, 64, "float32", True),
               (1, 4096, 64, 64, 64, 64, "float32", True),
               (1, 32768, 64, 64, 64, 64, "float32", True),
-              (1, 4096, 4, 256, 1025, 512, "bfloat16", False)]
+              (1, 4096, 4, 256, 1025, 512, "bfloat16", False),
+              (2, 4096, 64, 64, 64, 64, "bfloat16", True),
+              (2, 2048, 4, 256, 1025, 512, "bfloat16", False)]
 #: (B, S, HQ, KH, D, q dtype, cache dtype, kv_len)
 DECODE_SHAPES = [(1, 96, 2, 2, 32, "float32", "float32", 96),
                  (4, 256, 24, 8, 128, "bfloat16", "float32", 256),
@@ -167,6 +177,8 @@ def main():
         torch.cuda.empty_cache()
     for shape in cs.FLASH_BWD_CASES * ("flash_bwd" in ops):
         flash_bwd_row(cs, args.label, card, shape)
+    for shape in cs.GLA_BWD_CASES * ("gla_bwd" in ops):
+        gla_bwd_row(cs, args.label, card, shape)
     if "vta_gemm" in ops or "quantized_linear" in ops:
         from repro_torch.kernels.vta_gemm import quantized_linear, vta_gemm
     for T, M, N, K, epi in VTA_SHAPES * ("vta_gemm" in ops):
@@ -289,6 +301,39 @@ def flash_bwd_row(cs, label, card, shape):
                           library_ms=lib, bound_ms=bound, bound_by=by)),
           flush=True)
     del q, k, v, o, do, lib_call
+    torch.cuda.empty_cache()
+
+
+def gla_bwd_row(cs, label, card, shape):
+    """One JSON line of the gla_chunk backward at `shape` (chip_smoke's
+    GLA_BWD_CASES): its device ms (torch.profiler, its five kernels), the
+    call's CUDA-event ms, the plain backward's ms and the bound
+    (chip_smoke.gla_bwd_bound_ms); no library call computes it.  A
+    checkout without the backward is recorded "raises"."""
+    import torch
+    B, S, H, N, P, Q, dt, heads, state = shape
+    row = dict(label=label, card=card, op="gla_bwd", B=B, S=S, H=H, N=N,
+               P=P, chunk=Q, qk_dtype=dt, qk_heads=heads, state=state)
+    try:
+        from repro_torch.kernels.gla_chunk import (gla_chunk_bwd,
+                                                   gla_chunk_bwd_plain)
+    except ImportError as e:
+        print(json.dumps(dict(row, ms="raises", error=str(e))), flush=True)
+        return
+    args = cs.gla_bwd_inputs(*shape)
+    reps = 5 if S * H * P >= 4096 * 64 * 64 else 20
+    call = lambda: gla_chunk_bwd(*args, chunk=Q)  # noqa: E731
+    call_ms = cs.cuda_time_ms(call, reps=reps, warmup=1)
+    ms = cs.kernel_ms(call, "gla_bwd", call_ms, reps=reps)
+    plain = cs.cuda_time_ms(lambda: gla_chunk_bwd_plain(*args, chunk=Q),
+                            reps=2, warmup=1)
+    bound, by = cs.gla_bwd_bound_ms(B, S, H, N, P, Q,
+                                    args[0].element_size(),
+                                    args[0].shape[2], state)
+    print(json.dumps(dict(row, ms=ms, call_ms=call_ms, plain_ms=plain,
+                          library_ms=None, bound_ms=bound, bound_by=by)),
+          flush=True)
+    del args
     torch.cuda.empty_cache()
 
 
