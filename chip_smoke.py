@@ -247,6 +247,29 @@ Phases, in the order they run:
      the plain backward, and the forward kernel at the long slow-decay
      case against float64.  Its flash and gla_chunk forward shapes join
      phase 7;
+ 15. the port's examples and the data-parallel mesh path, with the
+     counts set to 0 just before each run and read just after: the main()
+     of examples/quickstart_torch.py (steps 1-15 of the reference's
+     quickstart on the CUDA engine, every assertion of the reference's),
+     resnet18_offload_torch.py at C12 and at its default C9 (the
+     simulator study, the channel-scaled chain on both engines, and the
+     anchor layer unscaled on the CUDA engine alone, timed) and
+     serve_lm_torch.py (2 dialogues x 6 steps on 2 slots, and 4 x 24),
+     each with --device cuda at tests/test_examples.py's arguments, their
+     own assertions the check, their launches by kernel recorded
+     (vta_gemm, tensor_alu_scatter and lut_gemm asserted launched; every
+     shape they launched joins phases 1 and 7, checked); then, on a
+     one-rank nccl process group, llama3.2-3b and zamba2-1.2b at phase
+     14's shapes through Trainer(mesh=make_mesh((1, 1), ("data",
+     "model")), fsdp=True) for 3 steps and the meshless Trainer for 3
+     from the same seed: losses, gradient norms and the parameters after
+     step 3 bitwise equal, the flash and gla_chunk launches of phase 14
+     (forward and backward) every step, each run's step ms, peak
+     allocated memory and one profiled step's idle share; and
+     compressed_mean_local on CUDA tensors at llama's largest parameter
+     leaf, two steps with the error carried, bitwise against its plain
+     computation on CPU tensors, the payload crossing the all-reduce as
+     int32;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -4861,6 +4884,284 @@ def gla_f64_note(row):
         for w, e in f.items())
 
 
+# ----------------------------------------------------------------------
+# phase 15: the port's examples and the data-parallel mesh path
+# ----------------------------------------------------------------------
+#: (example, arguments): tests/test_examples.py's, each run on the card
+EXAMPLE_RUNS = [
+    ("quickstart_torch", []),
+    ("resnet18_offload_torch", ["C12"]),
+    ("resnet18_offload_torch", []),                  # its default, C9
+    ("serve_lm_torch", ["--sessions", "2", "--steps", "6", "--pool", "2"]),
+    ("serve_lm_torch", ["--sessions", "4", "--steps", "24"]),
+]
+#: the kernels the examples' path launches (decode_attention is not on it:
+#: the quantized decoder's attention is numpy by default)
+EXAMPLE_KERNELS = ("vta_gemm", "tensor_alu_scatter", "lut_gemm")
+#: lines of the examples' output the log repeats (all of it is recorded)
+EXAMPLE_MARKERS = ("cross-backend check ok", "served 16 calls",
+                   "pool-served", "decoded 8 steps", "continuous-batched",
+                   "const ", "self-healed", "autotuned", "exact on VTA",
+                   ": exact end-to-end", "unscaled", "served ",
+                   "reproduce the eager")
+MESH_TRAIN_STEPS = 3
+#: the models trained on the one-rank mesh at phase 14's shape, with the
+#: kernel launches of each step (as phase 14 asserts them)
+MESH_TRAIN = {
+    TRAIN_ARCH: dict(seq=TRAIN_SEQ, launches=dict(
+        flash_fwd=56, flash_bwd=28, gla_fwd=0, gla_bwd=0)),
+    "zamba2-1.2b": dict(seq=TRAIN_SEQ, launches=RECURRENT_TRAIN[
+        "zamba2-1.2b"]["launches"]),
+}
+
+
+def load_example(name):
+    """examples/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_examples(out, counters):
+    """Each of EXAMPLE_RUNS through its main() with --device cuda; their
+    own assertions are the check.  The global tuning cache is restored
+    after (quickstart's step 15 writes records into it)."""
+    import io
+    from repro_torch.core import autotune
+    gc = autotune.global_cache()
+    snap = (dict(gc.entries), gc.hits, gc.misses)
+    runs = []
+    try:
+        for name, argv in EXAMPLE_RUNS:
+            mod = load_example(name)
+            buf = io.StringIO()
+            counters.reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                ret = mod.main(argv + ["--device", DEVICE])
+            secs = time.perf_counter() - t0
+            launches = counters.read()
+            text = buf.getvalue()
+            runs.append(dict(example=f"examples/{name}.py", argv=argv,
+                             seconds=secs, launches=launches, stdout=text,
+                             **({"anchor_ms": ret} if ret is not None
+                                else {})))
+            log(f"  examples/{name}.py {' '.join(argv)}: {secs:.1f} s, "
+                f"launches {launches}")
+            for line in text.splitlines():
+                if any(m in line for m in EXAMPLE_MARKERS):
+                    log(f"    {line.strip()[:150]}")
+            free_device_memory()
+    finally:
+        gc.entries, gc.hits, gc.misses = snap
+    total = {k: sum(r["launches"][k] for r in runs) for k in counters.ops}
+    for k in EXAMPLE_KERNELS:
+        if total[k] <= 0:
+            fail(f"{k} was never launched by the examples")
+    out["examples"] = runs
+    out["example_launches"] = total
+    log(f"  examples' launches: {total}")
+
+
+def mesh_train(out, counters, arch):
+    """`arch` (MESH_TRAIN) at its published width and depth, at phase
+    14's shape (bf16, AdamW, remat, B2 and its S), trains MESH_TRAIN_STEPS
+    steps through Trainer(mesh=make_mesh((1, 1), ("data", "model")),
+    fsdp=True) on the one-rank nccl group, then as many through the
+    meshless Trainer from the same seed: every step's loss and gradient
+    norm, and every parameter after the last step, bitwise equal (a
+    one-rank mean is the identity); the flash and gla_chunk launches
+    (forward and backward) of each run asserted; each run's step ms, peak
+    allocated memory, and one more step under the profiler for the idle
+    share."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.gla_chunk import gla_chunk
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import Trainer
+    conf = MESH_TRAIN[arch]
+    S = conf["seq"]
+    spec = get_arch(arch)
+    cfg = spec.model.replace(max_seq=max(spec.model.max_seq, S))
+    want = {k: n * MESH_TRAIN_STEPS for k, n in conf["launches"].items()}
+    runs, final = {}, {}
+    for name in ("mesh_fsdp", "meshless"):
+        free_device_memory()
+        torch.cuda.reset_peak_memory_stats()
+        kw = dict(mesh=make_mesh((1, 1), ("data", "model"), device=DEVICE),
+                  fsdp=True) if name == "mesh_fsdp" else {}
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, optimizer=spec.optimizer, seq_len=S,
+                     global_batch=TRAIN_BATCH, seed=0, torch_device=DEVICE,
+                     **kw)
+        torch.cuda.synchronize()
+        r = dict(build_s=time.perf_counter() - t0,
+                 state_gb=torch.cuda.memory_allocated() / 1e9)
+        if name == "mesh_fsdp":
+            leaves = tree.flatten(tr.params)
+            if not all(isinstance(v, DTensor) for v in leaves.values()):
+                fail(f"{arch}: the mesh Trainer's parameters are not "
+                     f"DTensors")
+            r["sharded_leaves"] = sum(
+                isinstance(v.placements[0], Shard) for v in leaves.values())
+            r["leaves"] = len(leaves)
+            del leaves
+        counters.reset()
+        for op in (gla_chunk, flash_attention):
+            op.bwd_launches = 0
+            op.bwd_shapes.clear()
+        hist = tr.train(MESH_TRAIN_STEPS, log_every=1)
+        launches = counters.read()
+        got = dict(flash_fwd=launches["flash_attention"],
+                   flash_bwd=flash_attention.bwd_launches,
+                   gla_fwd=launches["gla_chunk"],
+                   gla_bwd=gla_chunk.bwd_launches)
+        r.update(loss=hist["loss"], grad_norm=hist["grad_norm"],
+                 ms=[s * 1e3 for s in hist["seconds"]], launches=launches,
+                 train_launches=got,
+                 peak_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if got != want:
+            fail(f"{arch} {name}: {MESH_TRAIN_STEPS} steps launched {got}, "
+                 f"not {want}")
+        with torch.no_grad():
+            final[name] = {
+                k: (v.full_tensor() if isinstance(v, DTensor) else v)
+                .detach().to("cpu", copy=True)
+                for k, v in tree.flatten(tr.params).items()}
+        r["step_ms_median"] = statistics.median(r["ms"][1:])
+        r["tokens_per_s"] = TRAIN_BATCH * S / (r["step_ms_median"] / 1e3)
+        profiled_step(tr, r)
+        runs[name] = r
+        log(f"  {arch} {name}: losses {r['loss']}, gradient norms "
+            f"{r['grad_norm']}; step {r['step_ms_median']:.1f} ms (median "
+            f"of steps 2-{MESH_TRAIN_STEPS}), peak allocated "
+            f"{r['peak_allocated_gb']:.2f} GB, idle share "
+            f"{r['profiled_step']['idle_share']:.4f}; launches {got}")
+        del tr
+    a, b = runs["mesh_fsdp"], runs["meshless"]
+    for key in ("loss", "grad_norm"):
+        if a[key] != b[key]:
+            fail(f"{arch}: the one-rank mesh run's {key} differs from the "
+                 f"meshless run's: {a[key]} vs {b[key]}")
+    if a["profiled_step"]["loss"] != b["profiled_step"]["loss"]:
+        fail(f"{arch}: the profiled step's loss differs between the runs")
+    diff = [k for k in final["meshless"]
+            if not torch.equal(final["mesh_fsdp"][k], final["meshless"][k])]
+    if diff:
+        fail(f"{arch}: parameters differ after {MESH_TRAIN_STEPS} steps: "
+             f"{diff[:5]}")
+    log(f"  {arch}: the one-rank nccl mesh (fsdp) and meshless runs bitwise "
+        f"equal: {MESH_TRAIN_STEPS + 1} losses, {MESH_TRAIN_STEPS} gradient "
+        f"norms, {len(final['meshless'])} parameter leaves")
+    del final
+    out[arch] = runs
+    free_device_memory()
+
+
+def compressed_mean_plain(g, err):
+    """compressed_mean_local's arithmetic over one rank, without the
+    collectives (the all-reduces of one rank are the identity)."""
+    import torch
+    gi = g.to(torch.float32) + err
+    amax = torch.max(torch.abs(gi))
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(gi / scale), -128, 127).to(torch.int8)
+    mean = q.to(torch.int32).to(torch.float32) * scale / 1
+    new_err = gi - q.to(torch.float32) * scale
+    return mean.to(g.dtype), new_err
+
+
+def mesh_compression(out):
+    """compressed_mean_local on CUDA tensors over the one-rank nccl group,
+    at llama3.2-3b's largest parameter leaf (its dtype), two steps with
+    the error carried, bitwise against its plain computation on CPU
+    tensors; the all-reduces' dtypes recorded (the payload int32)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import compression
+    from repro_torch.models import transformer as T
+    cfg = get_arch(TRAIN_ARCH).model
+    leaves = tree.flatten(T.init_params(cfg, 0, "meta").tree())
+    name, leaf = max(leaves.items(), key=lambda kv: kv[1].numel())
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    calls, real = [], dist.all_reduce
+
+    def spy(t, op=dist.ReduceOp.SUM, group=None, async_op=False):
+        calls.append([str(t.dtype), t.numel(), str(op)])
+        return real(t, op=op, group=group, async_op=async_op)
+
+    err = torch.zeros(leaf.shape, dtype=torch.float32, device=DEVICE)
+    err_cpu = err.cpu()
+    ms = []
+    dist.all_reduce = spy
+    try:
+        for step in range(2):
+            g = torch.randn(leaf.shape, generator=gen, device=DEVICE,
+                            dtype=torch.float32).to(leaf.dtype)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            mean, err = compression.compressed_mean_local(g, err)
+            e.record()
+            torch.cuda.synchronize()
+            ms.append(s.elapsed_time(e))
+            want, err_cpu = compressed_mean_plain(g.cpu(), err_cpu)
+            if not (torch.equal(mean.cpu(), want)
+                    and torch.equal(err.cpu(), err_cpu)):
+                fail(f"compressed_mean_local on the card differs from its "
+                     f"plain computation at step {step + 1}")
+            del g, mean, want
+    finally:
+        dist.all_reduce = real
+    big = [c for c in calls if c[1] > 1]
+    if not big or any(c[0] != "torch.int32" for c in big):
+        fail(f"the compressed payload crossed the all-reduce as {big}")
+    out["compression"] = dict(leaf=name, shape=list(leaf.shape),
+                              dtype=str(leaf.dtype), ms=ms,
+                              all_reduce_calls=calls)
+    log(f"  compressed_mean_local at {name} {tuple(leaf.shape)} "
+        f"{leaf.dtype}: bitwise equal to its plain computation over 2 steps "
+        f"(error carried); {ms[0]:.1f} / {ms[1]:.1f} ms a call; all-reduces "
+        f"{calls}")
+    del err, err_cpu
+    free_device_memory()
+
+
+def phase_mesh(rec, counters):
+    """Phase 15: the examples, then the mesh path on a one-rank nccl
+    group (made here, destroyed after)."""
+    import socket
+    import torch
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    out = {}
+    run_examples(out, counters)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1)
+    try:
+        for arch in MESH_TRAIN:
+            mesh_train(out, counters, arch)
+        mesh_compression(out)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    rec["mesh"] = out
+    log(f"  phase 15 took {out['seconds']:.1f} s")
+    return out
+
+
 def ptxas_report(text):
     """Per kernel instance in one nvcc -Xptxas -v log: its demangled-ish
     name (the template arguments kept), registers, spill bytes and static
@@ -5208,6 +5509,33 @@ def main():
     rec["train_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                            for k, v in counters.shapes.items()}
 
+    # ---- phase 15: the examples and the mesh path (counts from 0 before
+    # each run) --------------------------------------------------------
+    log("phase 15: the port's examples on the card (quickstart, "
+        "resnet18_offload C12 and C9, serve_lm), then llama3.2-3b and "
+        "zamba2-1.2b trained through Trainer(mesh=(1, 1) data x model, "
+        "fsdp=True) on a one-rank nccl group against the meshless Trainer, "
+        "and compressed_mean_local")
+    free_device_memory()
+    counters.clear_shapes()
+    mesh = phase_mesh(rec, counters)
+    ex_launches = mesh["example_launches"]
+    mesh_runs = {arch: mesh[arch]["mesh_fsdp"] for arch in MESH_TRAIN}
+    # every shape the examples launched is held to the plain version in
+    # phases 1 and 7 as well (count 0: checked, not timed)
+    for main_set, k in ((gemm_shapes, "vta_gemm"), (alu_shapes, "tensor_alu"),
+                        (scatter_shapes, "tensor_alu_scatter"),
+                        (lut_shapes, "lut_gemm"),
+                        (attn_shapes, "decode_attention")):
+        for sh in counters.shapes[k]:
+            main_set.setdefault(sh, 0)
+    for sh, n in counters.shapes["flash_attention"].items():
+        flash_shapes[sh] = flash_shapes.get(sh, 0) + n
+    for sh, n in counters.shapes["gla_chunk"].items():
+        train_gla_shapes[sh] = train_gla_shapes.get(sh, 0) + n
+    rec["mesh_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
+                          for k, v in counters.shapes.items()}
+
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
@@ -5432,9 +5760,21 @@ def main():
             kern["train_launches"] = train_launches["flash_attention"]
             kern["zamba2_train_launches"] = \
                 tr["zamba2-1.2b"]["launches"]["flash_attention"]
+            kern["mesh_train_launches"] = {
+                a: r["train_launches"]["flash_fwd"]
+                for a, r in mesh_runs.items()}
         if kern["name"] == "flash_attention_bwd":
             kern["zamba2_train_launches"] = \
                 tr["zamba2-1.2b"]["flash_bwd_launches"]
+            kern["mesh_train_launches"] = {
+                a: r["train_launches"]["flash_bwd"]
+                for a, r in mesh_runs.items()}
+        if kern["name"] in ("gla_chunk", "gla_chunk_bwd"):
+            key = "gla_fwd" if kern["name"] == "gla_chunk" else "gla_bwd"
+            kern["mesh_train_launches"] = {
+                a: r["train_launches"][key] for a, r in mesh_runs.items()}
+        if kern["name"] in ex_launches:
+            kern["examples_launches"] = ex_launches[kern["name"]]
     rec["profiler_retries"] = PROFILER_RETRIES
     rec["profiler_drops"] = PROFILER_DROPS
     rec["profiler_fallbacks"] = PROFILER_FALLBACKS

@@ -1,2 +1,3 @@
-"""Entry points: the batched LM serving loop (``launch.serve``) and the
-single-process trainer (``launch.train``)."""
+"""Entry points: the batched LM serving loop (``launch.serve``), the
+trainer (``launch.train``: one device, or a data-parallel mesh) and mesh
+construction (``launch.mesh``)."""

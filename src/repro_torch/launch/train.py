@@ -1,15 +1,27 @@
-"""Single-process training driver.
+"""Production training driver.
 
-The port of the reference's ``launch/train.py`` for one device: config
-registry -> parameters -> data pipeline -> train step (forward_train,
-backward, clipping at 1.0, the cosine schedule, the optimizer) -> async
+The port of the reference's ``launch/train.py``: config registry ->
+parameters -> data pipeline -> train step (forward_train, backward,
+clipping at 1.0, the cosine schedule, the optimizer) -> async
 checkpointing -> straggler watchdog -> restore.  The backward is
 PyTorch's autograd; the attention's gradient is the flash_attention op's
 backward and the Mamba2 and mLSTM scans' the gla_chunk op's, each a
 hand-written kernel on the card.  Every config trains.  Parameters and
-optimizer state are updated in place.  Trainer's mesh and FSDP arguments
-(the reference's multi-device path) raise ValueError until they are
-ported (ROADMAP Queue 1 item 6); the CLI has no flags for them yet.
+optimizer state are updated in place.
+
+``Trainer(mesh=, fsdp=)`` is the data-parallel mesh path: one process a
+rank (the caller makes the process group: ``nccl`` on the card, ``gloo``
+on the CPU) over a ``DeviceMesh`` whose "model" axis, if any, has size 1
+(tensor and expert parallelism are ROADMAP Queue 1 item 6b).  Parameters
+and the AdamW moments live as DTensors under ``param_specs`` /
+``opt_state_specs``: replicated on the data axes, or sharded on them
+with ``fsdp=True`` (ZeRO-3).  A step (:func:`build_mesh_train_step`)
+takes this rank's rows of the global batch (``batch_specs``), gathers
+each parameter whole into a plain tensor (the model and the kernels see
+plain tensors only), takes the gradient, reduces it over the data axes
+to each leaf's placement as a mean (leaf by leaf, in path order),
+clips by the global norm of the whole reduced gradient, and updates each
+rank's shard in place.  The CLI has no mesh flag, as the reference's.
 
 Usage:
   python -m repro_torch.launch.train --arch llama3.2-3b --steps 4 \\
@@ -26,23 +38,28 @@ Without ``--device`` it runs on the card.
 from __future__ import annotations
 
 import argparse
+import math
 import time
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (AsyncCheckpointer, latest_step,
                                     restore_checkpoint)
 from repro_torch.configs import get_arch, reduced as reduce_cfg
 from repro_torch.core.driver import TorchDeviceLike, resolve_torch_device
 from repro_torch.data import DataConfig, SyntheticLMDataset
+from repro_torch.distributed import meshctx
 from repro_torch.distributed.fault_tolerance import StepWatchdog
+from repro_torch.distributed.sharding import (batch_specs, named_shardings,
+                                              opt_state_specs, param_specs)
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import (clip_by_global_norm, cosine_schedule,
                                make_optimizer)
-from repro_torch.tree import flatten, requires_grad_, unflatten
+from repro_torch.tree import flatten, map_tree, requires_grad_, unflatten
 
 
 def build_train_step(cfg: ModelConfig, optimizer: str, peak_lr: float = 3e-4,
@@ -67,35 +84,259 @@ def build_train_step(cfg: ModelConfig, optimizer: str, peak_lr: float = 3e-4,
     return opt_init, train_step
 
 
+# ----------------------------------------------------------------------
+# the mesh path
+# ----------------------------------------------------------------------
+def _split_mesh_dims(mesh, spec) -> Tuple[int, ...]:
+    """The mesh dims that `spec`'s dim-0 entry (a batch spec) splits."""
+    entry = spec[0] if spec else None
+    names = () if entry is None else (
+        entry if isinstance(entry, tuple) else (entry,))
+    return tuple(mesh.mesh_dim_names.index(a) for a in names)
+
+
+def _rows(t: torch.Tensor, mesh, dims: Tuple[int, ...]) -> torch.Tensor:
+    """This rank's rows of `t` split over mesh `dims` (major to minor)."""
+    coord = mesh.get_coordinate()
+    for i in dims:
+        t = t.chunk(mesh.size(i), dim=0)[coord[i]]
+    return t
+
+
+def _from_local(local: torch.Tensor, sharding):
+    """A DTensor of `sharding` from this rank's shard (no communication:
+    the global shape follows from the placements)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = sharding.mesh
+    shape = list(local.shape)
+    for i, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard):
+            shape[pl.dim] *= mesh.size(i)
+    stride = torch.empty(shape, device="meta").stride()
+    return DTensor.from_local(local, mesh, sharding.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=stride)
+
+
+def _distribute(full: torch.Tensor, sharding):
+    """`full` (the same on every rank) as a DTensor of `sharding`: each
+    rank keeps its shard (a copy, so the whole tensor can be freed)."""
+    from torch.distributed.tensor import Shard
+    mesh = sharding.mesh
+    coord = mesh.get_coordinate()
+    local = full
+    for i, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard) and mesh.size(i) > 1:
+            local = local.chunk(mesh.size(i), dim=pl.dim)[coord[i]]
+    if local is not full:
+        local = local.clone(memory_format=torch.contiguous_format)
+    return _from_local(local, sharding)
+
+
+def _reduce_grad(g: torch.Tensor, sharding, split: Tuple[int, ...],
+                 n: int) -> torch.Tensor:
+    """This rank's shard of the mean gradient: `g` (the whole leaf's
+    gradient over this rank's rows) summed over the mesh dims in `split`
+    (all-reduce, or reduce-scatter onto a Shard placement), cut to its
+    shard on the other sharded dims, divided by `n`."""
+    from torch.distributed.tensor import Shard
+    mesh = sharding.mesh
+    coord = mesh.get_coordinate()
+    for i, pl in enumerate(sharding.placements):
+        size = mesh.size(i)
+        if isinstance(pl, Shard):
+            if i in split:
+                x = g.movedim(pl.dim, 0).contiguous()
+                out = torch.empty((x.shape[0] // size,) + x.shape[1:],
+                                  dtype=x.dtype, device=x.device)
+                dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
+                                           group=mesh.get_group(i))
+                g = out.movedim(0, pl.dim)
+            elif size > 1:
+                g = g.chunk(size, dim=pl.dim)[coord[i]]
+        elif i in split:
+            g = g.contiguous()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=mesh.get_group(i))
+    g = g.contiguous()
+    return g.div_(n) if n > 1 else g
+
+
+def _sharded_sq_reducer(shardings: Dict[str, Any]):
+    """reduce_sq for clip_by_global_norm on a mesh: each leaf's sum of
+    squares summed over the mesh dims it is sharded on (one all-reduce
+    per mesh dim of the leaves sharded the same way)."""
+    from torch.distributed.tensor import Shard
+
+    def reduce_sq(sq: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        groups: Dict[Tuple[int, ...], List[str]] = {}
+        for k, sh in shardings.items():
+            dims = tuple(i for i, pl in enumerate(sh.placements)
+                         if isinstance(pl, Shard))
+            if dims:
+                groups.setdefault(dims, []).append(k)
+        out = dict(sq)
+        for dims, keys in sorted(groups.items()):
+            mesh = shardings[keys[0]].mesh
+            vec = torch.stack([sq[k] for k in keys])
+            for i in dims:
+                dist.all_reduce(vec, op=dist.ReduceOp.SUM,
+                                group=mesh.get_group(i))
+            out.update(zip(keys, vec.unbind(0)))
+        return out
+
+    return reduce_sq
+
+
+def build_mesh_train_step(cfg: ModelConfig, optimizer: str, mesh,
+                          p_shard: Any, peak_lr: float = 3e-4,
+                          warmup: int = 100, total_steps: int = 10_000):
+    """train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics) on `mesh`: params a tree of DTensors under `p_shard` (a tree
+    of NamedSharding), the optimizer's moments DTensors of the same
+    placements (its count a host scalar), batch the global batch (the
+    same on every rank).  Updated in place, as build_train_step's."""
+    _, opt_update = make_optimizer(optimizer)
+    flat_sh = flatten(p_shard)
+    reduce_sq = _sharded_sq_reducer(flat_sh)
+
+    def train_step(params, opt_state, batch, step):
+        specs = batch_specs(batch, cfg, mesh)
+        split = _split_mesh_dims(mesh, specs["targets"])
+        n = 1
+        for i in split:
+            n *= mesh.size(i)
+        local = {k: _rows(v, mesh, _split_mesh_dims(mesh, specs[k]))
+                 for k, v in batch.items()}
+        # each rank's loss is the mean over its rows' counted targets:
+        # weighted by its share of the global count, the ranks' mean is
+        # the global batch's mean (weight 1 where the shares are equal)
+        counted = int((batch["targets"] >= 0).sum())
+        weight = int((local["targets"] >= 0).sum()) * n / max(counted, 1)
+
+        flat_p = flatten(params)
+        with torch.no_grad():
+            full = {k: v.full_tensor().detach() for k, v in flat_p.items()}
+        for t in full.values():
+            t.requires_grad_(True)
+        loss, metrics = T.forward_train(unflatten(params, full), cfg, local)
+        obj = loss if weight == 1.0 else loss * weight
+        names = list(full)
+        gl = list(torch.autograd.grad(obj, [full[k] for k in names]))
+        del full, obj, loss
+        grads = {}
+        for j, k in enumerate(names):
+            grads[k] = _reduce_grad(gl[j], flat_sh[k], split, n)
+            gl[j] = None
+        grads = unflatten(params, grads)
+        grads, gnorm = clip_by_global_norm(grads, 1.0, reduce_sq)
+        lr = cosine_schedule(step, warmup, total_steps, peak_lr)
+        with torch.no_grad():
+            local_p = map_tree(lambda v: v.to_local(), params)
+            state = {k: map_tree(lambda v: v.to_local(), v)
+                     if k != "count" else v for k, v in opt_state.items()}
+        _, state = opt_update(grads, state, local_p, lr=lr)
+        opt_state = dict(opt_state, count=state["count"])
+        out = {}
+        for k, v in metrics.items():
+            v = v.detach().to(torch.float32).clone()
+            if weight != 1.0:
+                v = v * weight
+            for i in split:
+                dist.all_reduce(v, op=dist.ReduceOp.SUM,
+                                group=mesh.get_group(i))
+            out[k] = v / n if n > 1 else v
+        return params, opt_state, dict(out, grad_norm=gnorm, lr=lr)
+
+    return train_step
+
+
 class Trainer:
-    """Single-process trainer on `torch_device` (default the card).  The
-    parameters are drawn from `seed` (``transformer.init_params``: the
-    reference's distributions, not its numbers); ``maybe_restore`` takes
-    them, and the optimizer state, from the latest checkpoint, the
-    reference's included."""
+    """Trainer on `torch_device` (default the card).  The parameters are
+    drawn from `seed` (``transformer.init_params``: the reference's
+    distributions, not its numbers; the same on every rank);
+    ``maybe_restore`` takes them, and the optimizer state, from the
+    latest checkpoint, the reference's included.
+
+    `mesh` (a ``DeviceMesh`` from ``launch.mesh.make_mesh``, on
+    `torch_device`'s type) takes the data-parallel mesh path (module
+    docstring); `fsdp` shards parameters and moments over its data axes.
+    Without a mesh `fsdp` is ignored, as the reference ignores it.
+    Raises ValueError for a "model" axis larger than 1, for the moe
+    layer or Adafactor's factored moments where the data axes split the
+    batch or shard the leaves (ROADMAP Queue 1 item 6b)."""
 
     def __init__(self, cfg: ModelConfig, optimizer: str = "adamw",
                  seq_len: int = 128, global_batch: int = 8,
                  ckpt_dir: Optional[str] = None, seed: int = 0,
                  mesh=None, fsdp: bool = False, peak_lr: float = 3e-4,
                  torch_device: TorchDeviceLike = None):
-        if mesh is not None or fsdp:
-            raise ValueError("the mesh and FSDP are not ported yet (ROADMAP "
-                             "Queue 1 item 6): the trainer runs on one "
-                             "device")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_torch_device(torch_device)
         self.watchdog = StepWatchdog()
         self.ckpt = AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
         self.data = SyntheticLMDataset(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=seq_len,
             global_batch=global_batch, seed=seed))
-        opt_init, self.step_fn = build_train_step(cfg, optimizer,
-                                                  peak_lr=peak_lr)
-        self.params = requires_grad_(
-            T.init_params(cfg, seed, self.device).tree())
-        self.opt_state = opt_init(self.params)
+        self.p_shard = self.o_shard = None
+        if mesh is not None:
+            self._init_mesh(optimizer, seed, fsdp, peak_lr,
+                            (global_batch, seq_len))
+        else:
+            opt_init, self.step_fn = build_train_step(cfg, optimizer,
+                                                      peak_lr=peak_lr)
+            self.params = requires_grad_(
+                T.init_params(cfg, seed, self.device).tree())
+            self.opt_state = opt_init(self.params)
         self.step = 0
+
+    def _init_mesh(self, optimizer: str, seed: int, fsdp: bool,
+                   peak_lr: float, batch_shape: Tuple[int, int]) -> None:
+        from torch.distributed.tensor import Shard
+        cfg, mesh = self.cfg, self.mesh
+        sizes = meshctx.axis_sizes(mesh)
+        model_axis = cfg.sharding.model_axis
+        if sizes.get(model_axis, 1) > 1:
+            raise ValueError(
+                f"a {model_axis!r} axis of {sizes[model_axis]}: tensor "
+                f"parallelism is not ported (ROADMAP Queue 1 item 6b); the "
+                f"mesh path is data-parallel, its {model_axis!r} axis 1")
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh is on {mesh.device_type}, the "
+                             f"trainer on {self.device}")
+        spec = batch_specs({"targets": batch_shape}, cfg, mesh)["targets"]
+        split = _split_mesh_dims(mesh, spec)
+        if math.prod(mesh.size(i) for i in split) > 1 \
+                and "moe" in cfg.block_pattern():
+            raise ValueError("the moe layer routes and drops over the whole "
+                             "batch: its data-parallel form comes with "
+                             "expert parallelism (ROADMAP Queue 1 item 6b)")
+        meshctx.set_mesh(mesh)
+        opt_init, _ = make_optimizer(optimizer)
+        full = T.init_params(cfg, seed, self.device).tree()
+        p_specs = param_specs(full, cfg, mesh, fsdp=fsdp)
+        self.p_shard = named_shardings(p_specs, mesh)
+        if optimizer == "adafactor" and any(
+                mesh.size(i) > 1 and isinstance(pl, Shard)
+                for sh in flatten(self.p_shard).values()
+                for i, pl in enumerate(sh.placements)):
+            raise ValueError("Adafactor's factored moments and update "
+                             "clipping reduce over whole leaves: its "
+                             "sharded form waits for ROADMAP Queue 1 item "
+                             "6b (use fsdp=False)")
+        self.params = map_tree(_distribute, full, self.p_shard)
+        del full
+        with torch.no_grad():
+            local = opt_init(map_tree(lambda v: v.to_local(), self.params))
+        o_specs = opt_state_specs(local, p_specs, self.params)
+        # the step count stays a host scalar, as on one device
+        self.o_shard = dict(named_shardings(o_specs, mesh), count=None)
+        self.opt_state = {
+            k: v if k == "count" else map_tree(_from_local, v,
+                                               self.o_shard[k])
+            for k, v in local.items()}
+        self.step_fn = build_mesh_train_step(cfg, optimizer, mesh,
+                                             self.p_shard, peak_lr=peak_lr)
 
     # ------------------------------------------------------------------
     def maybe_restore(self) -> bool:
@@ -105,8 +346,12 @@ class Trainer:
         if s is None:
             return False
         tree = {"params": self.params, "opt_state": self.opt_state}
-        restored, extra = restore_checkpoint(self.ckpt.ckpt_dir, s, tree)
-        self.params = requires_grad_(restored["params"])
+        shard = ({"params": self.p_shard, "opt_state": self.o_shard}
+                 if self.p_shard is not None else None)
+        restored, extra = restore_checkpoint(self.ckpt.ckpt_dir, s, tree,
+                                             shardings=shard)
+        self.params = restored["params"] if shard is not None \
+            else requires_grad_(restored["params"])
         self.opt_state = restored["opt_state"]
         self.step = int(extra.get("step", s))
         return True
@@ -119,9 +364,10 @@ class Trainer:
     def train(self, steps: int, log_every: int = 10,
               ckpt_every: int = 200) -> Dict[str, List]:
         """`steps` steps from ``self.step``; returns the history of
-        losses, steps and step seconds (host clock, ending in the host's
-        read of the loss)."""
-        history: Dict[str, List] = {"loss": [], "step": [], "seconds": []}
+        losses, gradient norms (before clipping), steps and step seconds
+        (host clock, ending in the host's read of the loss)."""
+        history: Dict[str, List] = {"loss": [], "grad_norm": [], "step": [],
+                                    "seconds": []}
         for _ in range(steps):
             batch = self.batch(self.step)
             self.watchdog.start_step()
@@ -136,6 +382,7 @@ class Trainer:
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {float(metrics['grad_norm']):.3f}", flush=True)
             history["loss"].append(loss)
+            history["grad_norm"].append(float(metrics["grad_norm"]))
             history["step"].append(self.step)
             self.step += 1
             if self.ckpt and self.step % ckpt_every == 0:
@@ -148,6 +395,8 @@ class Trainer:
                                        "opt_state": self.opt_state},
                            extra={"step": self.step})
             self.ckpt.wait()
+            if self.mesh is not None:
+                dist.barrier()      # rank 0 has published the checkpoint
         return history
 
 

@@ -34,8 +34,11 @@ def _uniform_stack(gen: torch.Generator, shape: Tuple[int, ...],
     """U(-bound, bound) of `shape`, drawn in float32 one trailing (rows,
     cols) matrix at a time and stored in `dtype`: only one matrix's float32
     temporaries ever exist (a whole (L, E, d, f) stack in float32 would
-    not fit beside the model on the card)."""
+    not fit beside the model on the card).  On the meta device: the
+    shape alone."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for m in out.view(-1, *shape[-2:]):
         w = torch.rand(shape[-2:], generator=gen, device=device,
                        dtype=torch.float32)

@@ -203,10 +203,14 @@ def init_params(cfg: ModelConfig, generator: Union[int, torch.Generator] = 0,
                 torch_device: TorchDeviceLike = None) -> LMParams:
     """Random weights with the reference's distributions, drawn from
     `generator` (a seeded ``torch.Generator`` on `torch_device`, or a
-    seed), on `torch_device` (default the card)."""
+    seed), on `torch_device` (default the card).  On the meta device the
+    leaves are shapes alone, drawn from no generator (the sharding rules
+    read them)."""
     dev = resolve_torch_device(torch_device)
     gen = generator
-    if not isinstance(gen, torch.Generator):
+    if dev.type == "meta":
+        gen = None
+    elif not isinstance(gen, torch.Generator):
         gen = torch.Generator(device=dev).manual_seed(int(generator))
     p: Params = {"embed": embed_init(gen, cfg, dev),
                  "final_norm": norm_init(cfg, cfg.d_model, dev)}

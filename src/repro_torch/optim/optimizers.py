@@ -18,7 +18,7 @@ order.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -44,24 +44,34 @@ def _slices(t: torch.Tensor) -> List[torch.Tensor]:
 # grad clipping
 # ----------------------------------------------------------------------
 @torch.no_grad()
-def global_norm(tree: Params) -> torch.Tensor:
+def global_norm(tree: Params,
+                reduce_sq: Optional[Callable[[Dict[str, torch.Tensor]],
+                                             Dict[str, torch.Tensor]]] = None
+                ) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(g^2), in float32, each leaf
-    reduced whole."""
+    reduced whole, the leaves summed in order.  `reduce_sq` maps {path:
+    the leaf's sum of squares} to the whole leaf's where each process
+    holds a shard of it (the trainer's mesh path)."""
+    sq = {k: torch.sum(g.to(torch.float32, copy=True).square_())
+          for k, g in flatten(tree).items()}
+    if reduce_sq is not None:
+        sq = reduce_sq(sq)
     total = None
-    for g in flatten(tree).values():
-        sq = torch.sum(g.to(torch.float32, copy=True).square_())
-        total = sq if total is None else total + sq
+    for s in sq.values():
+        total = s if total is None else total + s
     if total is None:
         return torch.zeros((), dtype=torch.float32)
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        reduce_sq: Optional[Callable] = None
                         ) -> Tuple[Params, torch.Tensor]:
     """grads scaled by min(1, max_norm / max(norm, 1e-9)) in float32 and
-    cast back, in place; returns (grads, norm)."""
-    norm = global_norm(grads)
+    cast back, in place; returns (grads, norm).  `reduce_sq` as in
+    :func:`global_norm`."""
+    norm = global_norm(grads, reduce_sq)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in flatten(grads).values():
         for s in _slices(g):

@@ -1,9 +1,10 @@
 """The port stands alone and never runs on the CPU unless asked.
 
-* No module of ``src/repro_torch``, not ``chip_smoke.py``,
-  ``tools/autotune_torch.py``, ``tools/time_kernels.py`` nor
-  ``examples/train_lm_torch.py`` imports JAX or the reference package
-  (AST scan).
+* No module of ``src/repro_torch`` (the mesh, sharding, compression and
+  elastic-restart modules among them), not ``chip_smoke.py``,
+  ``tools/autotune_torch.py``, ``tools/time_kernels.py`` nor the port's
+  examples (``examples/*_torch.py``) imports JAX or the reference
+  package (AST scan).
 * Making a device, a runtime or a compiled program without
   ``torch_device`` asks for the card; where there is none, that raises.
 * Building the CUDA kernels without ``nvcc`` raises.
@@ -29,8 +30,8 @@ from repro_torch.kernels import _build
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "autotune_torch.py",
-       ROOT / "tools" / "time_kernels.py",
-       ROOT / "examples" / "train_lm_torch.py"]
+       ROOT / "tools" / "time_kernels.py"] \
+    + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _forbidden_imports(path):

@@ -17,7 +17,8 @@
     across through ``convert.lm_params_from_numpy``), bfloat16 leaves
     included, in the reference's file format;
   * the CLI and ``examples/train_lm_torch.py``, two steps on the CPU;
-    Trainer's mesh and FSDP arguments raise;
+    Trainer refuses a mesh with a "model" axis of 2, and without a mesh
+    ignores ``fsdp``;
   * the recurrent models, reduced zamba2-1.2b and xlstm-1.3b (float32):
     three steps against the reference's ``Trainer`` under the same
     limits, a reference checkpoint of xlstm restored into the port byte
@@ -47,6 +48,7 @@ from repro_torch.data import DataConfig, SyntheticLMDataset, \
     make_train_iterator
 from repro_torch.launch.train import Trainer
 from repro_torch.optim import cosine_schedule
+from torch_cases import spawn_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -244,12 +246,35 @@ def test_cli_trains_the_recurrent_models(tmp_path, arch):
     assert latest_step(str(tmp_path)) == 2
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(fsdp=True)],
-                         ids=["mesh", "fsdp"])
-def test_trainer_refuses_mesh_and_fsdp(kw):
+@pytest.mark.parametrize("case", ["mesh", "fsdp"])
+def test_trainer_refuses_mesh_and_fsdp(case):
+    """mesh: a mesh whose "model" axis is 2 (two gloo ranks) raises
+    ValueError citing item 6b (tensor parallelism is not ported); fsdp:
+    fsdp=True without a mesh is ignored, as the reference ignores it, and
+    trains bit for bit as the meshless Trainer."""
+    if case == "mesh":
+        outs = spawn_ranks("""
+            from repro_torch.configs import get_arch, reduced
+            from repro_torch.launch.mesh import make_mesh
+            from repro_torch.launch.train import Trainer
+            mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
+            cfg = reduced(get_arch("llama3.2-3b").model)
+            try:
+                Trainer(cfg, seq_len=32, global_batch=2, mesh=mesh,
+                        torch_device="cpu")
+            except ValueError as e:
+                assert "item 6b" in str(e), e
+                print("REFUSED")
+        """, world=2, timeout=120)
+        assert all("REFUSED" in o for o in outs)
+        return
     cfg = reduced(get_arch("llama3.2-3b").model)
-    with pytest.raises(ValueError, match="item 6"):
-        Trainer(cfg, seq_len=32, global_batch=2, torch_device="cpu", **kw)
+    runs = [Trainer(cfg, seq_len=32, global_batch=2, torch_device="cpu",
+                    fsdp=fsdp) for fsdp in (False, True)]
+    hists = [tr.train(2, log_every=1000) for tr in runs]
+    assert hists[0]["loss"] == hists[1]["loss"]
+    a, b = (tree.flatten(tr.params) for tr in runs)
+    assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_example_on_the_cpu():

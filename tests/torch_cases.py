@@ -1,8 +1,20 @@
 """Seeded kernel inputs shared by the port's kernel tests (CPU parity in
 test_torch_kernels.py, kernel against plain version in test_torch_cuda.py),
-and the int8 activation check the LM tests share.  Imports neither JAX nor
-the reference package."""
+the int8 activation check the LM tests share, and the launcher of the
+mesh tests' ``gloo`` ranks.  Imports neither JAX nor the reference
+package."""
+import os
+import socket
+import subprocess
+import sys
+import tempfile
+import textwrap
+import time
+from pathlib import Path
+
 import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
 
 INT_MIN = -(1 << 31)
 INT_MAX = (1 << 31) - 1
@@ -250,3 +262,90 @@ def assert_int8_activations_match(got, want, ulps=4):
             f"{q_want[off][:4].tolist()})")
         flips += int((diff != 0).sum())
     return flips
+
+
+# ----------------------------------------------------------------------
+# gloo ranks on the CPU
+# ----------------------------------------------------------------------
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_cfg(arch):
+    """The reduced config the mesh tests train (llama3.2-3b with remat)."""
+    from repro_torch.configs import get_arch, reduced
+    cfg = reduced(get_arch(arch).model).replace(max_seq=128)
+    return cfg.replace(remat=True) if arch == "llama3.2-3b" else cfg
+
+
+def mask_targets(tr):
+    """Unequal counted targets across a 2-rank split of `tr`'s batches:
+    the first 10 targets of row 0 ignored (-1) in every batch."""
+    real = tr.data.batch
+
+    def batch(step):
+        b = real(step)
+        b["targets"][0, :10] = -1
+        return b
+    tr.data.batch = batch
+
+
+def spawn_ranks(body: str, world: int, timeout: float = 240.0):
+    """Run the Python source `body` in `world` processes joined by a
+    ``gloo`` process group (``RANK`` and ``WORLD`` are defined for it,
+    ``dist`` is ``torch.distributed``), with the repository's ``src`` and
+    ``tests`` on the path.  Returns each rank's stdout.  A rank that exits non-zero
+    fails the call with its stderr; every process still running at
+    `timeout` seconds is killed and the call fails."""
+    pre = textwrap.dedent(f"""
+        import os
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(2)
+        RANK, WORLD = int(os.environ["RANK"]), int(os.environ["WORLD"])
+        dist.init_process_group(
+            "gloo", init_method="tcp://127.0.0.1:{_free_port()}",
+            rank=RANK, world_size=WORLD)
+    """)
+    code = pre + textwrap.dedent(body) + "\ndist.destroy_process_group()\n"
+    procs, files = [], []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD=str(world),
+                   PYTHONPATH=os.pathsep.join(
+                       [str(ROOT / "src"), str(ROOT / "tests")]),
+                   OMP_NUM_THREADS="2")
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        files.append((out, err))
+        procs.append(subprocess.Popen([sys.executable, "-c", code], env=env,
+                                      cwd=str(ROOT), stdout=out, stderr=err,
+                                      text=True))
+
+    def read(f):
+        f.seek(0)
+        return f.read()
+
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if bad:     # the others may wait on it in a collective
+                raise AssertionError(
+                    f"rank {bad[0]} exited {codes[bad[0]]}:\n"
+                    f"{read(files[bad[0]][1])[-4000:]}")
+            if all(c == 0 for c in codes):
+                return [read(out) for out, _ in files]
+            if time.monotonic() > deadline:
+                raise AssertionError(f"ranks still running after {timeout} "
+                                     f"s:\n{read(files[0][1])[-2000:]}")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for out, err in files:
+            out.close()
+            err.close()
