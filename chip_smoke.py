@@ -3881,9 +3881,10 @@ def sdpa_bwd_call(q, k, v, do, causal):
 
 def flash_bwd_inputs(B, S, Sk, HQ, KH, D, causal, dt):
     """Seed-made q, k, v, do (unit normal; v = 1 + N(0, 1) at
-    FLASH_BWD_LONG) and the forward kernel's o."""
+    FLASH_BWD_LONG), the forward kernel's o and its log-sum-exp L (None
+    from a version of the port whose forward writes none)."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import flash_attention as fa
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev).manual_seed(S + Sk + HQ + D)
     dtype = getattr(torch, dt)
@@ -3895,16 +3896,20 @@ def flash_bwd_inputs(B, S, Sk, HQ, KH, D, causal, dt):
     if (B, S, Sk, HQ, KH, D, causal, dt) == FLASH_BWD_LONG:
         v = v + 1.0
     with torch.no_grad():
-        o = flash_attention(q, k, v, causal=causal)
-    return q, k, v, o, do
+        if hasattr(fa, "flash_attention_fwd"):
+            o, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        else:
+            o, lse = fa.flash_attention(q, k, v, causal=causal), None
+    return q, k, v, o, do, lse
 
 
 def phase_flash_bwd_kernel(rec, train_shapes):
-    """The backward kernel against the plain backward (flash_bwd_errors),
-    bitwise equal over two calls, at FLASH_BWD_CASES and every other shape
-    the training run launched; timed at each: kernel ms (torch.profiler,
-    the three kernels of a call), call ms (CUDA events), the plain
-    backward's ms, the bound, and SDPA's backward alone."""
+    """The backward kernel, from the forward kernel's L, against the plain
+    backward (flash_bwd_errors), bitwise equal over two calls, at
+    FLASH_BWD_CASES and every other shape the training run launched;
+    timed at each: kernel ms (torch.profiler, the three kernels of a
+    call), call ms (CUDA events), the plain backward's ms, the bound, and
+    SDPA's backward alone."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      flash_attention_bwd)
@@ -3913,9 +3918,9 @@ def phase_flash_bwd_kernel(rec, train_shapes):
     rows, max_err = [], {"bfloat16": 0.0, "float32": 0.0}
     for B, S, Sk, HQ, KH, D, causal, dt in cases:
         shape = (B, S, Sk, HQ, KH, D, causal, dt)
-        q, k, v, o, do = flash_bwd_inputs(*shape)
-        got = flash_attention_bwd(q, k, v, o, do, causal=causal)
-        again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+        q, k, v, o, do, lse = flash_bwd_inputs(*shape)
+        got = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+        again = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             fail(f"the flash backward kernel at {shape} is not "
@@ -3930,7 +3935,7 @@ def phase_flash_bwd_kernel(rec, train_shapes):
         del got, again
         big = S * Sk >= 4096 * 4096
         call = lambda: flash_attention_bwd(q, k, v, o, do,  # noqa
-                                           causal=causal)
+                                           causal=causal, lse=lse)
         call_ms = cuda_time_ms(call, reps=5 if big else 20, warmup=1)
         ms = kernel_ms(call, "flash_bwd", call_ms, reps=5 if big else 20)
         group = HQ // KH
@@ -3954,7 +3959,7 @@ def phase_flash_bwd_kernel(rec, train_shapes):
             f"{plain:.4f} ms; sdpa backward "
             f"{'n/a' if lib is None else f'{lib:.4f} ms'})"
             + (f" x{row['launches']}" if row["launches"] else ""))
-        del q, k, v, o, do, lib_call
+        del q, k, v, o, do, lse, lib_call
         torch.cuda.empty_cache()
     rec["flash_bwd_shapes"] = rows
     return rows, max_err
@@ -3992,8 +3997,8 @@ def train_llama(out, counters):
         f"sequences of {TRAIN_SEQ}")
     captured, real_bwd = [], fops.flash_attention_bwd
 
-    def capture(q, k, v, o, do, *, causal=True):
-        grads = real_bwd(q, k, v, o, do, causal=causal)
+    def capture(q, k, v, o, do, *, causal=True, lse=None):
+        grads = real_bwd(q, k, v, o, do, causal=causal, lse=lse)
         n = len(captured)
         if n in (0, L - 1):       # the backward runs from the last layer
             captured.append(dict(layer=L - 1 - n, causal=causal,
@@ -4523,12 +4528,21 @@ def phase_train(rec, counters):
 def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
     """The larger of the bytes (q and k once, counted once where they are
     broadcast over heads; v, la and h0 read; y and h written) at the
-    memory rate and the operations (2Q^2 N + 2Q^2 P + 4QNP per chunk and
-    head) at the bf16 dense tensor-core peak."""
+    memory rate and the operations at the bf16 dense tensor-core peak.
+    The operations are 2T^2 N + 2T^2 P + 4TNP per tile of T rows and head,
+    T the forward kernel's own tile (gla_plan's, at most min(Q, 64): the
+    scan's result does not depend on it), as gla_bwd_bound_ms counts the
+    backward's; a ragged last tile counts its rows alone."""
+    import torch
+    from repro_torch.kernels.gla_chunk.kernel import MAX_TILE, gla_plan
     qk = 2 * B * S * N * (1 if broadcast else H) * qk_elt
     nbytes = qk + B * S * H * (P + 1) * 4 + B * S * H * P * y_elt \
         + B * H * N * P * 4 * (1 + bool(h0))
-    ops = B * H * (S // Q) * (2 * Q * Q * N + 2 * Q * Q * P + 4 * Q * N * P)
+    T = gla_plan(B, H, N, P, min(Q, MAX_TILE),
+                 torch.bfloat16 if qk_elt == 2 else torch.float32).tile
+    rows = [T] * (S // T) + [S % T] * bool(S % T)
+    ops = B * H * sum(2 * t * t * N + 2 * t * t * P + 4 * t * N * P
+                      for t in rows)
     t_ops, t_bytes = ops / BF16_TENSOR_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -4540,6 +4554,7 @@ def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
 #: for every head (Mamba2's C and B), "heads" one per head
 GLA_BWD_CASES = [
     (2, 4096, 64, 64, 64, 64, "bfloat16", "one", False),      # zamba2-1.2b
+    (2, 2048, 4, 256, 1025, 512, "bfloat16", "heads", False),  # xlstm train
     (2, 4096, 4, 256, 1025, 512, "bfloat16", "heads", False),  # xlstm-1.3b
     (2, 1024, 8, 64, 48, 64, "float32", "heads", True),       # h0 and dh
     (2, 160, 4, 32, 40, 32, "float32", "one", True),          # ragged tile

@@ -18,8 +18,12 @@
 // oracles' mask; at S = Sk it is the TPU kernel's q_pos >= k_pos).  q is
 // scaled before the product, as the TPU kernel does; m, l and the output
 // are kept per query row in float32; l is clamped at 1e-30 before the
-// division, so a row that sees no key gives zeros.  Query head h reads kv
-// head h / group in place: no KV copy.
+// division, so a row that sees no key gives zeros.  Given a log-sum-exp
+// buffer (the training forward, for the backward flash_bwd.cu), each row's
+// L = m + ln l of its scaled scores is written there too, float32 (B, HQ,
+// S), +inf for a row that sees no key; the output does not depend on
+// whether it is written.  Query head h reads kv head h / group in place:
+// no KV copy.
 //
 // Operands: q and out are (B, S, HQ, D) and k, v are (B, Sk, KH, D), each
 // read through its own strides with a contiguous last dim (zamba2's q, k
@@ -132,8 +136,8 @@ template <int DPI, int BK>
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, float* __restrict__ out,
-                    int HQ, int KH, int S, int Sk, int D, int causal,
-                    float scale, Layout L, Strides st) {
+                    float* __restrict__ lse, int HQ, int KH, int S, int Sk,
+                    int D, int causal, float scale, Layout L, Strides st) {
   constexpr int NT = BK / 8;    // 8-key tiles of a key tile
   constexpr int OT = DPI / 8;   // 8-column tiles of the output, at most
   extern __shared__ __align__(16) unsigned char smem[];
@@ -338,6 +342,11 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int r = half ? r1 : r0;
     if (r >= S) continue;
     const float dn = half ? d1 : d0;
+    if (lse != nullptr && t == 0) {
+      const float l = half ? l1 : l0;
+      lse[(long long)blockIdx.y * S + r] =
+          l > 0.f ? (half ? m1 : m0) + logf(l) : INFINITY;
+    }
     float* orow = out + b * st.o[0] + (long long)r * st.o[1] + h * st.o[2];
 #pragma unroll
     for (int jn = 0; jn < OT; ++jn) {
@@ -350,16 +359,17 @@ flash_tf32x3_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DPI, int BK>
-int launch(const float* q, const float* k, const float* v, float* out, int B,
-           int HQ, int KH, int S, int Sk, int D, int causal, float scale,
-           const Layout& L, const Strides& st, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* out,
+           float* lse, int B, int HQ, int KH, int S, int Sk, int D, int causal,
+           float scale, const Layout& L, const Strides& st,
+           cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
       flash_tf32x3_kernel<DPI, BK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + L.bq - 1) / L.bq, B * HQ);
   flash_tf32x3_kernel<DPI, BK><<<grid, L.bq * 2, L.total, stream>>>(
-      q, k, v, out, HQ, KH, S, Sk, D, causal, scale, L, st);
+      q, k, v, out, lse, HQ, KH, S, Sk, D, causal, scale, L, st);
   return (int)cudaGetLastError();
 }
 
@@ -372,12 +382,13 @@ int launch(const float* q, const float* k, const float* v, float* out, int B,
 // `smem` that is not this plan's shared-memory byte count
 // (kernel.py:flash_f32_plan) or is over 232,448.  `strides` holds 12
 // element strides: q (b, s, h), k (b, s, h), v (b, s, h), out (b, s, h);
-// the last dim of each is contiguous.  The wrapper checks shapes, strides
-// and alignment, allocates `out`, and never calls this with B, S or HQ
-// equal to 0.
+// the last dim of each is contiguous.  lse is null, or (B, HQ, S) float32
+// for each row's L.  The wrapper checks shapes, strides and alignment,
+// allocates `out`, and never calls this with B, S or HQ equal to 0.
 extern "C" int flash_tf32x3_launch(const void* q, const void* k,
-                                   const void* v, void* out, int B, int HQ,
-                                   int KH, int S, int Sk, int D,
+                                   const void* v, void* out, float* lse,
+                                   int B, int HQ, int KH, int S, int Sk,
+                                   int D,
                                    const long long* strides, int causal,
                                    float scale, int bq, int bk, int stages,
                                    int smem, void* stream) {
@@ -402,8 +413,8 @@ extern "C" int flash_tf32x3_launch(const void* q, const void* k,
   const float* vf = static_cast<const float*>(v);
   float* of = static_cast<float*>(out);
   if (dp <= 64)
-    return launch<64, 64>(qf, kf, vf, of, B, HQ, KH, S, Sk, D, causal, scale,
-                          L, st, cs);
-  return launch<128, 32>(qf, kf, vf, of, B, HQ, KH, S, Sk, D, causal, scale,
-                         L, st, cs);
+    return launch<64, 64>(qf, kf, vf, of, lse, B, HQ, KH, S, Sk, D, causal,
+                          scale, L, st, cs);
+  return launch<128, 32>(qf, kf, vf, of, lse, B, HQ, KH, S, Sk, D, causal,
+                         scale, L, st, cs);
 }

@@ -20,6 +20,10 @@
 // float32, so only the order of summation differs from the plain version.
 // m, l and the output accumulator are float32 per query row; l is clamped
 // at 1e-30 before the division, so a row that sees no key gives zeros.
+// Given a log-sum-exp buffer (the training forward, for the backward
+// flash_bwd.cu), each row's L = m scale + ln l is written there too,
+// float32 (B, HQ, S), +inf for a row that sees no key; the output does not
+// depend on whether it is written.
 // The weights P go into the second product as two bf16 halves, hi =
 // bf16(p) and lo = bf16(p - hi), about 16 bits of p, in two products: the
 // plain version keeps P in float32.  P rounded once to bf16 (FlashAttention-
@@ -114,71 +118,6 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
-// D += A B: A (64 x 16) bf16 in registers, B (16 x 64) MN-major in shared
-// memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n64_tb(float (&d)[32],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D += A B: A (64 x 16) bf16 in registers, B (16 x 128) MN-major in shared
-// memory (the transpose bit set)
-__device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
-                                                const uint32_t (&a)[4],
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
 template <int DP>
 struct Smem {
   static constexpr int ATOMS = DP / 64;
@@ -196,8 +135,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, int HQ, int KH, int S,
-                   int Sk, int D, int causal, float scale_log2) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int HQ, int KH, int S, int Sk, int D, int causal,
+                   float scale_log2) {
   using L = Smem<DP>;
   constexpr int ATOMS = L::ATOMS;
   extern __shared__ uint8_t smem_raw[];
@@ -392,6 +332,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       const int r = half ? r1 : r0;
       if (r >= S) continue;
       const float dn = half ? d1 : d0;
+      if (lse != nullptr && lane % 4 == 0) {
+        const float l = half ? l1 : l0, m = half ? m1 : m0;
+        lse[((size_t)b * HQ + h) * S + r] =
+            l > 0.f ? (m * scale_log2 + log2f(l)) * 0.69314718055994531f
+                    : INFINITY;
+      }
       __nv_bfloat16* orow =
           out + (((size_t)b * S + r) * HQ + h) * (size_t)D;
 #pragma unroll
@@ -420,8 +366,8 @@ int make_map(CUtensorMap* map, const void* base,
 
 template <int DP>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
-           void* out, int B, int HQ, int KH, int S, int Sk, int D, int causal,
-           float scale_log2, cudaStream_t stream) {
+           void* out, float* lse, int B, int HQ, int KH, int S, int Sk, int D,
+           int causal, float scale_log2, cudaStream_t stream) {
   const int smem = Smem<DP>::ALLOC;
   cudaError_t e = cudaFuncSetAttribute(
       flash_wgmma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -429,8 +375,8 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, B * HQ);
   flash_wgmma_kernel<DP><<<grid, THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), HQ, KH, S, Sk, D, causal,
-      scale_log2);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, HQ, KH, S, Sk, D,
+      causal, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -440,11 +386,13 @@ int launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
 // k and v (12 values) and `strides` their byte strides of dims 1-3 (9
 // values), both from the wrapper's plan (kernel.py:wgmma_plan), which
 // checks dtype, shapes, strides and alignment; out is contiguous (B, S,
-// HQ, D) bf16.  Returns 0, a CUDA runtime error, cudaErrorInvalidValue for
+// HQ, D) bf16; lse is null, or (B, HQ, S) float32 for each row's L.
+// Returns 0, a CUDA runtime error, cudaErrorInvalidValue for
 // D > 128, ERR_NO_ENCODE or ERR_ENCODE_BASE + a CUresult.  Never called
 // with B, S or HQ equal to 0.
 extern "C" int flash_wgmma_launch(const void* q, const void* k, const void* v,
-                                  void* out, int B, int HQ, int KH, int S,
+                                  void* out, float* lse, int B, int HQ,
+                                  int KH, int S,
                                   int Sk, int D,
                                   const unsigned long long* dims,
                                   const unsigned long long* strides,
@@ -458,8 +406,8 @@ extern "C" int flash_wgmma_launch(const void* q, const void* k, const void* v,
   if (err) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D <= 64)
-    return launch<64>(tq, tk, tv, out, B, HQ, KH, S, Sk, D, causal,
+    return launch<64>(tq, tk, tv, out, lse, B, HQ, KH, S, Sk, D, causal,
                       scale_log2, st);
-  return launch<128>(tq, tk, tv, out, B, HQ, KH, S, Sk, D, causal,
+  return launch<128>(tq, tk, tv, out, lse, B, HQ, KH, S, Sk, D, causal,
                      scale_log2, st);
 }

@@ -4,10 +4,10 @@ operands (wgmma and TMA) and ``csrc/flash_tf32x3.cu`` for float32 ones
 (mma.sync in 3xTF32), and the backward of both, ``csrc/flash_bwd.cu``
 (:func:`flash_attention_bwd_cuda`).  :func:`route` picks one by dtype,
 :func:`wgmma_plan` turns the operands' shapes and strides into the
-tensor maps of the bfloat16 kernel and :func:`flash_f32_plan` sizes the
-float32 kernel's tiles; all are plain Python, so the CPU tests reach
-them.  Built at first call by :mod:`repro_torch.kernels._build`, never at
-import."""
+tensor maps of the bfloat16 kernel, :func:`flash_f32_plan` sizes the
+float32 kernel's tiles and :func:`flash_bwd_plan` checks and pads the
+backward's D; all are plain Python, so the CPU tests reach them.  Built
+at first call by :mod:`repro_torch.kernels._build`, never at import."""
 from __future__ import annotations
 
 import ctypes
@@ -129,7 +129,7 @@ def _launcher(name, argtypes):
     return fn
 
 
-def _tf32x3(q, k, v, out, causal):
+def _tf32x3(q, k, v, out, lse, causal):
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
     plan = flash_f32_plan(B, S, Sk, HQ, KH, D, bool(causal))
@@ -143,41 +143,50 @@ def _tf32x3(q, k, v, out, causal):
                              f"elements")
     strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                        *v.stride()[:3], *out.stride()[:3])
-    fn = _launcher("flash_tf32x3", [ctypes.c_void_p] * 4
+    fn = _launcher("flash_tf32x3", [ctypes.c_void_p] * 5
                    + [ctypes.c_int] * 6
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
                    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-              HQ, KH, S, Sk, D, ctypes.cast(strides, ctypes.c_void_p),
-              int(causal), float(1.0 / math.sqrt(D)), plan.bq, plan.bk,
-              plan.stages, plan.smem, stream)
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              _ptr(lse), B, HQ, KH, S, Sk, D,
+              ctypes.cast(strides, ctypes.c_void_p), int(causal),
+              float(1.0 / math.sqrt(D)), plan.bq, plan.bk, plan.stages,
+              plan.smem, stream)
 
 
-def _wgmma(q, k, v, out, causal):
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _wgmma(q, k, v, out, lse, causal):
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
     dims, strides = wgmma_plan(q, k, v)
     c_dims = (ctypes.c_ulonglong * 12)(*dims)
     c_strides = (ctypes.c_ulonglong * 9)(*strides)
-    fn = _launcher("flash_wgmma", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    fn = _launcher("flash_wgmma", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * 2
                    + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-              HQ, KH, S, Sk, D, ctypes.cast(c_dims, ctypes.c_void_p),
+    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+              _ptr(lse), B, HQ, KH, S, Sk, D,
+              ctypes.cast(c_dims, ctypes.c_void_p),
               ctypes.cast(c_strides, ctypes.c_void_p), int(causal),
               float(LOG2E / math.sqrt(D)), stream)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool) -> torch.Tensor:
+                         causal: bool, with_lse: bool = False):
     """q (B, S, HQ, D), k and v (B, Sk, KH, D) on one CUDA device, of one
     dtype.  bfloat16 launches the wgmma kernel (D a multiple of 16,
     strides and base multiples of 16 bytes), float32 the 3xTF32 kernel (D
     a multiple of 4, strides multiples of 4 elements); both read strided
     operands in place and raise ValueError for what they cannot read.
-    Returns (B, S, HQ, D) in q's dtype, contiguous."""
+    Returns out (B, S, HQ, D) in q's dtype, contiguous; with `with_lse`,
+    (out, L): the kernel also writes each query row's log-sum-exp of its
+    scaled scores, L (B, HQ, S) float32, +inf for a row that sees no key
+    (the output is bitwise the same either way)."""
     B, S, HQ, D = q.shape
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes q, k and v of one dtype, "
@@ -187,16 +196,42 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention kernels take D up to {MAX_D}, "
                          f"got {D}")
     out = torch.empty((B, S, HQ, D), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    err = (_wgmma if which == "wgmma" else _tf32x3)(q, k, v, out, causal)
-    _build.check(err, f"flash_attention ({which})")
-    return out
+    lse = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if out.numel():
+        err = (_wgmma if which == "wgmma" else _tf32x3)(q, k, v, out, lse,
+                                                        causal)
+        _build.check(err, f"flash_attention ({which})")
+    return (out, lse) if with_lse else out
 
 
-#: the head dims the backward kernel is instantiated for (whisper 64,
-#: phi-3-vision 96, every other config 128)
-BWD_D = (64, 96, 128)
+#: the backward's rows of (L, Delta) are padded to a multiple of this
+#: (``csrc/flash_bwd.cu``: ROW_PAD), so that its kernels copy a tile whole
+ROW_PAD = 128
+
+
+class FlashBwdPlan(NamedTuple):
+    """The backward's instance: "wgmma" (bfloat16: dk dv and dq on wgmma,
+    D padded in shared memory to dp 64 or 128) or "tf32x3" (float32:
+    mma.sync in 3xTF32, D padded to dp 32, 64, 96 or 128)."""
+    route: str
+    dp: int
+
+
+def flash_bwd_plan(D: int, dtype: torch.dtype) -> FlashBwdPlan:
+    """The backward kernel's instance for head dim D: it takes every D the
+    forward takes (bfloat16 a multiple of 16 up to 128, float32 a multiple
+    of 4 up to 128) and raises ValueError for any other."""
+    which = route(dtype)
+    if which == "wgmma":
+        if D % 16 or not 16 <= D <= MAX_D:
+            raise ValueError(f"the bf16 flash_attention backward takes D a "
+                             f"multiple of 16 up to {MAX_D}, got {D}")
+        return FlashBwdPlan(which, 64 if D <= 64 else 128)
+    if D % 4 or not 4 <= D <= MAX_D:
+        raise ValueError(f"the float32 flash_attention backward takes D a "
+                         f"multiple of 4 up to {MAX_D}, got {D}")
+    return FlashBwdPlan(which, -(-D // 32) * 32)
 
 
 def _bwd_operand(t: torch.Tensor) -> torch.Tensor:
@@ -207,15 +242,18 @@ def _bwd_operand(t: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
-                             do: torch.Tensor, causal: bool
+                             do: torch.Tensor, lse: torch.Tensor,
+                             causal: bool
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The gradient of flash_attention on the card: q, o (the forward's
     output) and do (its gradient) (B, S, HQ, D), k and v (B, Sk, KH, D),
-    one dtype, float32 or bfloat16, D 64, 96 or 128 (ValueError else,
-    before any launch).  Launches ``csrc/flash_bwd.cu``'s three kernels
-    (row stats, dk and dv, dq) and returns (dq, dk, dv), contiguous, in
-    the operands' dtype."""
+    one dtype, float32 or bfloat16, D as :func:`flash_bwd_plan` takes it
+    (ValueError else, before any launch); lse the forward's L (B, HQ, S)
+    float32.  Launches ``csrc/flash_bwd.cu``'s three kernels (Delta, dk
+    and dv, dq) and returns (dq, dk, dv), contiguous, in the operands'
+    dtype.  Scratch: each row's (L, Delta), 2 B HQ S float32 (S rounded up
+    to a multiple of ROW_PAD)."""
     if len({t.dtype for t in (q, k, v, o, do)}) != 1 \
             or q.dtype not in (torch.float32, torch.bfloat16):
         # the mixed route (a bfloat16 query over float32 K/V) included
@@ -223,25 +261,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                          f"v, out and grad of one dtype, float32 or "
                          f"bfloat16, got "
                          f"{[str(t.dtype) for t in (q, k, v, o, do)]}")
-    if q.shape[-1] not in BWD_D:
-        raise ValueError(f"the flash_attention backward kernel takes D in "
-                         f"{BWD_D}, got {q.shape[-1]}")
-    q, k, v, o, do = (_bwd_operand(t) for t in (q, k, v, o, do))
+    plan = flash_bwd_plan(q.shape[-1], q.dtype)
+    q, k, v, o, do, lse = (_bwd_operand(t) for t in (q, k, v, o, do, lse))
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
     if min(B, S, Sk, HQ) == 0:
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     # every element is written by the kernels
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lse = torch.empty(B * HQ * S, dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
-    fn = _launcher("flash_bwd", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    # each row's (L, Delta), the rows padded to a multiple of ROW_PAD
+    ld = torch.empty((B * HQ, -(-S // ROW_PAD) * ROW_PAD, 2),
+                     dtype=torch.float32, device=q.device)
+    fn = _launcher("flash_bwd", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), B, S, Sk, HQ, KH, D,
-             int(causal), int(q.dtype == torch.float32),
+             lse.data_ptr(), ld.data_ptr(), B, S, Sk, HQ, KH, D,
+             int(causal), int(plan.route == "tf32x3"), plan.dp,
              float(1.0 / math.sqrt(D)), stream)
-    _build.check(err, "flash_attention backward")
+    _build.check(err, f"flash_attention backward ({plan.route})")
     return dq, dk, dv

@@ -16,20 +16,27 @@ cast down.
 
 The op carries a gradient: when grad mode is on and an operand requires
 grad, it runs inside a ``torch.autograd.Function`` whose forward is the
-dispatch above and whose backward (:func:`flash_attention_bwd`)
-dispatches by device in the same way: a CPU tensor takes the plain
-backward (``ref.attention_bwd_ref``), a CUDA tensor the backward kernel
-(``csrc/flash_bwd.cu``, one dtype, float32 or bfloat16, D 64, 96 or 128;
-anything else raises ValueError before any launch), any other device
-raises.  Otherwise (serving) the Function is not entered and nothing is
-saved.  Backward launches are counted apart from the forward's.
+dispatch above, asked also for each query row's log-sum-exp L
+(:func:`flash_attention_fwd`: the kernels write it beside the output,
+the plain version takes it from ``ref.attention_lse_ref``), and whose
+backward (:func:`flash_attention_bwd`) takes L and dispatches by device
+in the same way: a CPU tensor takes the plain backward
+(``ref.attention_bwd_ref``), a CUDA tensor the backward kernel
+(``csrc/flash_bwd.cu``, one dtype, float32 or bfloat16, every D the
+forward takes; anything else raises ValueError before any launch), any
+other device raises.  The Function saves q, k, v, the output and L.
+Otherwise (serving) the Function is not entered, nothing is saved and no
+L is written.  Backward launches are counted apart from the forward's.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
-from .ref import attention_bwd_ref, attention_ref, attention_ref_chunked
+from .ref import (attention_bwd_ref, attention_lse_ref, attention_ref,
+                  attention_ref_chunked)
 
 # above this many score elements per head the materialized oracle would
 # dominate memory: the plain version switches to the chunked loop
@@ -71,21 +78,27 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool) -> torch.Tensor:
+             causal: bool, with_lse: bool = False):
+    """The output, or (output, L (B, HQ, S) float32) with `with_lse`."""
     dev = q.device
     if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal)
+        out = flash_attention_plain(q, k, v, causal=causal)
+        if not with_lse:
+            return out
+        return out, attention_lse_ref(q, k, group=q.shape[2] // k.shape[2],
+                                      causal=causal)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for device {dev}")
     names = [str(t.dtype).split(".")[-1] for t in (q, k, v)]
     if len(set(names)) == 1:
-        out = flash_attention_cuda(q, k, v, causal)
+        out = flash_attention_cuda(q, k, v, causal, with_lse)
         dtype = names[0]
     else:
         # the reference's promotion: bfloat16 is exact in float32
         up = [t.float() if t.dtype == torch.bfloat16 else t
               for t in (q, k, v)]
-        out = flash_attention_cuda(*up, causal).to(q.dtype)
+        out = flash_attention_cuda(*up, causal, with_lse)
+        out = (out[0].to(q.dtype), out[1]) if with_lse else out.to(q.dtype)
         dtype = f"{names[0]}/{names[1]}"
     if q.numel():                   # an empty output launches nothing
         flash_attention.launches += 1
@@ -95,30 +108,52 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True):
+    """(out, L): :func:`flash_attention`'s output and each query row's
+    log-sum-exp L of its scaled scores, (B, HQ, S) float32, +inf for a row
+    that sees no key; what the backward takes.  On the card the forward
+    kernel writes L beside the output (one launch, counted as the op's),
+    and the output is bitwise the one it writes without L."""
+    _check(q, k, v)
+    return _forward(q, k, v, causal, True)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True):
+                        causal: bool = True,
+                        lse: Optional[torch.Tensor] = None):
     """The gradient (dq, dk, dv) of ``o = flash_attention(q, k, v)`` for
-    the output gradient do, in the dtypes of q, k and v.  A CPU tensor
-    takes the plain backward, a CUDA tensor the backward kernel (counted
-    in ``flash_attention.bwd_launches`` and ``.bwd_shapes``), any other
-    device raises ValueError."""
+    the output gradient do, in the dtypes of q, k and v, from the
+    forward's L (``lse``, as :func:`flash_attention_fwd` returns it).  A
+    CPU tensor takes the plain backward (which recomputes L where none is
+    given), a CUDA tensor the backward kernel (counted in
+    ``flash_attention.bwd_launches`` and ``.bwd_shapes``; it needs L),
+    any other device raises ValueError."""
     _check(q, k, v)
     if o.shape != q.shape or do.shape != q.shape \
             or o.device != q.device or do.device != q.device:
         raise ValueError(f"flash_attention backward: out {tuple(o.shape)} "
                          f"and grad {tuple(do.shape)} must match q "
                          f"{tuple(q.shape)} on its device")
+    B, S, HQ, D = q.shape
+    if lse is not None and (lse.shape != (B, HQ, S) or lse.device != q.device
+                            or lse.dtype != torch.float32):
+        raise ValueError(f"flash_attention backward: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} must be ({B}, {HQ}, {S}) float32 on "
+                         f"q's device")
     dev = q.device
     if dev.type == "cpu":
-        return attention_bwd_ref(q, k, v, o, do,
-                                 group=q.shape[2] // k.shape[2],
-                                 causal=causal)
+        return attention_bwd_ref(q, k, v, o, do, group=HQ // k.shape[2],
+                                 causal=causal, lse=lse)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention has no backward kernel for "
                          f"device {dev}")
-    grads = flash_attention_bwd_cuda(q, k, v, o, do, causal)
-    B, S, HQ, D = q.shape
+    if lse is None:
+        raise ValueError("the flash_attention backward kernel takes the "
+                         "forward's log-sum-exp (lse, from "
+                         "flash_attention_fwd)")
+    grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
     if min(B, S, k.shape[1], HQ):   # an empty operand launches nothing
         flash_attention.bwd_launches += 1
         key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal),
@@ -129,20 +164,21 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """flash_attention with its gradient: the forward is the op's
-    dispatch, the backward :func:`flash_attention_bwd`."""
+    """flash_attention with its gradient: the forward is the op's dispatch
+    with L written, the backward :func:`flash_attention_bwd` from it."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out = _forward(q, k, v, causal)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _forward(q, k, v, causal, True)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal)
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
+                                         lse=lse)
         return dq, dk, dv, None
 
 
@@ -166,7 +202,8 @@ flash_attention.launches = 0
 #: (B, S, Sk, HQ, KH, D, causal, dtype) -> launches at that shape; dtype
 #: "bfloat16", "float32", or "<q dtype>/<k/v dtype>" where they differ
 flash_attention.shapes = {}
-#: backward kernel calls (each launches flash_bwd.cu's three kernels), and
+#: backward kernel calls (each launches flash_bwd.cu's three kernels:
+#: Delta, dk dv, dq), and
 #: the shapes they ran at, keyed as ``shapes`` is
 flash_attention.bwd_launches = 0
 flash_attention.bwd_shapes = {}

@@ -9,7 +9,9 @@ Two forms, as in the reference's ``flash_attention/ref.py``:
 And a model of the float32 CUDA kernel's arithmetic (3xTF32 products),
 ``attention_tf32x3_model``, which the CPU tests hold to a float64 oracle.
 The backward, ``attention_bwd_ref``, is written out as FlashAttention-2's
-formulas (no autograd), with a loop over key blocks for long sequences.
+formulas (no autograd), with a loop over key blocks for long sequences;
+it takes the forward's log-sum-exp of each row (``attention_lse_ref``,
+the plain version of what the kernels save) or recomputes it.
 
 The causal diagonal is aligned bottom-right: query row i (of S) sees key
 j (of Sk) when j <= i + (Sk - S), the reference oracles' mask.  Masked
@@ -161,11 +163,29 @@ def _row_stats(qg: torch.Tensor, k: torch.Tensor, *, causal: bool, S: int,
                        torch.full_like(l, math.inf))
 
 
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *, group: int,
+                      causal: bool = True, bk: int = 0,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The log-sum-exp L of each query row's scaled scores over the keys it
+    sees, as the forward kernels save it for the backward: q (B, S, HQ,
+    D), k (B, Sk, KH, D); returns (B, HQ, S) in `dtype`, +inf for a row
+    that sees no key.  Keys in blocks of bk (the backward's default)."""
+    B, S, HQ, D = q.shape
+    Sk, KH = k.shape[1], k.shape[2]
+    if not bk:
+        bk = Sk if S * Sk <= 2048 * 2048 else 1024
+    qg = q.to(dtype).reshape(B, S, KH, group, D)
+    lse = _row_stats(qg, k, causal=causal, S=S, Sk=Sk, bk=max(1, bk),
+                     scale=1.0 / math.sqrt(D))
+    return lse.reshape(B, HQ, S)
+
+
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       o: torch.Tensor, do: torch.Tensor, *, group: int,
                       causal: bool = True, bk: int = 0,
                       dtype: torch.dtype = torch.float32,
-                      operands: Optional[torch.dtype] = None
+                      operands: Optional[torch.dtype] = None,
+                      lse: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The gradient of attention: q, o (the forward's output) and do (the
     gradient of o) (B, S, HQ, D); k, v (B, Sk, KH, D); group = HQ // KH.
@@ -173,7 +193,9 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     FlashAttention-2's formulas, computed in `dtype` (float32; float64 for
     an oracle), not autograd of a forward: P is recomputed from each row's
-    log-sum-exp L (P = exp(S / sqrt(D) - L) over the keys the row sees),
+    log-sum-exp L (P = exp(S / sqrt(D) - L) over the keys the row sees;
+    L is the forward's, (B, HQ, S) as :func:`attention_lse_ref` returns
+    it, where `lse` is given, else recomputed by the same function),
     Delta = rowsum(dO * O), dV = P^T dO, dP = dO V^T, dS = P * (dP - Delta),
     dQ = dS K / sqrt(D), dK = dS^T Q / sqrt(D).  dK and dV sum over each KV
     head's `group` query heads.  The causal diagonal is aligned
@@ -191,7 +213,10 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = 1.0 / math.sqrt(D)
     qg = q.to(dtype).reshape(B, S, KH, group, D)
     dog = do.to(dtype).reshape(B, S, KH, group, D)
-    lse = _row_stats(qg, k, causal=causal, S=S, Sk=Sk, bk=bk, scale=scale)
+    if lse is None:
+        lse = attention_lse_ref(q, k, group=group, causal=causal, bk=bk,
+                                dtype=dtype)
+    lse = lse.to(dtype).reshape(B, KH, group, S, 1)
     delta = (dog * o.to(dtype).reshape(B, S, KH, group, D)).sum(-1) \
         .permute(0, 2, 3, 1)[..., None]                 # (B, KH, G, S, 1)
     dq = torch.zeros_like(qg)

@@ -1,5 +1,6 @@
 // gla_bwd: the gradient of the chunked gated-linear-attention scan
-// (gla_chunk.cu's function) on Hopper (sm_90a), accurate to float32.
+// (gla_chunk.cu's function) on Hopper (sm_90a), every product on the tensor
+// cores in 3xTF32, accurate to float32.
 //
 // Replaces no TPU kernel: the reference differentiates its jnp
 // chunked_gla (src/repro/models/ssm.py) with jax.value_and_grad
@@ -39,37 +40,55 @@
 // dla (B, S, H); dh0 (B, H, N, P).
 //
 // Five launches, one after another on the caller's stream:
-//   (a) gla_bwd_scan_kernel<E, 0>: the state entering each tile, the
-//       forward's own tile walk (h ← e^{L_tot} h + (k ⊙ e^{L_tot − L})ᵀ
-//       v), stored (B H, tiles, N, P), and the final state;
-//   (b) gla_bwd_scan_kernel<E, 1>: G, the tiles walked from the last,
-//       G ← e^{L_tot} G + (q ⊙ e^{L})ᵀ dy, the gradient leaving each tile
-//       stored the same way, and G_0 = dh0.  Each element of a state
-//       evolves on its own, so both walks are cut into blocks of 64 x 64
-//       elements of (N, P), each walking every tile in order;
-//   (c) gla_bwd_tile_kernel: one block a (batch, head, tile), in parallel
-//       over the tiles, from the stored h_c and G_{c+1}: the weighted
-//       causal score tile W and the output-gradient tile D, then dq and dk
-//       in chunks of 64 columns of N (each a sum over all of P, looped
-//       inside the block, so no partial sums leave it), then dv in chunks
-//       of 64 columns of P, and each row's dΛ;
-//   (d) gla_bwd_dla_kernel: dla, one block a (batch, head, tile): the
+//   (a) gla_bwd_state_kernel: each tile's own contribution to the state,
+//       U_c = kᵀ (v ⊙ e^{L_tot − L}), and to its gradient, qᵀ (dy ⊙
+//       e^{L}), every tile at once (one block a tile and direction,
+//       walking P, each 64 columns read once), written into the tile's
+//       slot of the stored states (B H, tiles, N, P); and each tile's
+//       e^{L_tot};
+//   (b) gla_bwd_carry_kernel: one element of a state a thread, its tiles
+//       walked in order, each slot turned into the state entering the
+//       tile, h ← e^{L_tot} h + U_c (from h0; the last h kept), and,
+//       walked from the last tile, into the gradient leaving it, G ←
+//       e^{L_tot} G + U_c (from dh; G_0 = dh0).  The walk is the only
+//       sequential work, and it is a pass over memory;
+//   (c) gla_bwd_tile_kernel: one block a (batch, head, tile, 64 columns of
+//       P), in parallel over the tiles and P (two blocks an SM where q
+//       and k are bfloat16 and kept so in shared memory; at the 128
+//       registers that leaves a thread it spills a few hundred bytes, and
+//       one block an SM without spills measured no faster), from the stored
+//       h_c and G_{c+1}.  This P chunk's part of the output-gradient tile
+//       D = dy vᵀ; then, 64 columns of N at a time, the score tile q kᵀ,
+//       this chunk's part of dq and dk (D is a sum over P, and so are the
+//       state terms dy h_cᵀ and v G_{c+1}ᵀ) and the k G_{c+1} of its dv
+//       columns; then the weighted score tile W, dv's columns whole, and
+//       this chunk's part of each row's dΛ in float64.  The first chunk
+//       writes dq, dk and dΛ in place, each later one a scratch partial;
+//   (d) gla_bwd_dla_kernel: blocks a (batch, head, tile): the chunks'
+//       partials of dq, dk and dΛ summed in chunk order, then dla, the
 //       tile's reverse cumsum of dΛ plus ⟨G_{c+1}, h_{c+1}⟩;
 //   (e) gla_bwd_head_sum_kernel, where q and k are broadcast: dq and dk
 //       summed over the heads, head 0 first.
 // Every sum runs in a fixed order and nothing is atomic, so two calls are
 // bitwise equal.
 //
-// Precision: every product runs in float32 on the CUDA cores (fmaf), each
-// term rounded as the plain float32 version rounds it, up to the order of
-// the sums; dΛ's dot products and the sums that make dla from them run in
-// float64, and dΛ's causal part is summed from the score tiles' small
-// terms (dla's errors add up in Mamba2's A_log gradient, a weighted sum
-// of it over every position).  Each tile's contribution to h and G
-// is summed in fresh registers and then added to the carried state (X ←
-// e^{L_tot} X + tile), so no sum is chained across the tiles in one
-// accumulator (a float32 sum chained across tiles on the tensor cores
-// truncates one-signed, PERF.md).
+// Precision: every product runs on mma.sync.m16n8k8 TF32 as 3xTF32
+// (hopper.cuh: split, mma3; gla_chunk.cu's scheme): an operand is split in
+// registers into hi, rounded to TF32, and lo = x − hi, and hi·hi, lo·hi,
+// hi·lo go into three float32 accumulators, as accurate as float32 FMAs.
+// A bfloat16 q or k is exact in TF32: its lo half is not formed (so the
+// state pass scales v and dy by the decay, not k and q).  dΛ's dot products and
+// the sums that make dla from them run in float64, and dΛ's causal part is
+// summed from the score tiles' small terms (dla's errors add up in
+// Mamba2's A_log gradient, a weighted sum of it over every position).
+// Each tile's contribution to h and G is summed in fresh accumulators and
+// then added to the carried state on the CUDA cores (X ← e^{L_tot} X +
+// U_c, the carry pass), so no sum is chained across the tiles on the
+// tensor cores, whose float32 accumulation truncates one-signed (PERF.md).
+//
+// mma.sync, not wgmma: wgmma takes TF32 operands only K-major, and most of
+// these products read one operand along its rows and the other along its
+// columns (gla_chunk.cu:45-52).
 //
 // What bounds it on this card: per tile and head about 2T²(3N + 2P) +
 // 10TNP operations (the scans 4TNP, dq dk dv 6TNP, the two score tiles
@@ -77,30 +96,64 @@
 // written and the two stored states (2NP a tile, written once and read
 // once): at zamba2's N = P = 64 about 30 operations per byte, at xlstm's
 // N 256, P 1025 about 200.  So the operations bound it, at the tensor
-// cores' peak.  This kernel is a first, simple design: its products run
-// on the CUDA cores (67 TFLOP/s of float32 at best, 4 x 4 register tiles
-// fed from shared memory, two shared loads a multiply-add pair), so it
-// runs well above that bound; tensor cores (3xTF32 on mma.sync, as
-// gla_chunk.cu does) are its redesign.  The design keeps the stored
-// states the one large cost of memory (h and G, 4 NP bytes a tile each).
+// cores' peak; in 3xTF32 on mma.sync each costs three TF32 products (two
+// for an exact bf16 operand).  What holds this design back is elsewhere:
+// the tile kernel's products run on 16 x 8 tiles whose fragment loads and
+// splits cost several instructions a product, so it issues far below the
+// tensor cores' rate, and the stored states (N P floats a tile and
+// direction, 1 MB at xlstm's N 256, P 1025) are written, carried and read
+// again, several times the bytes of the operands themselves.  Cutting P
+// across blocks costs the score tile q kᵀ once per 64 columns of P, 2T²N
+// more a chunk, and the scratch of the partials
+// (kernel.py:gla_chunk_bwd_cuda says how much); it gives xlstm's P 1025
+// 17 times the blocks.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "../../csrc/hopper.cuh"
+
 namespace {
+
+using namespace hopper;
 
 constexpr int T = 64;          // rows of a tile
 constexpr int C = 64;          // columns of an operand chunk (of N or P)
-constexpr int LD = C + 1;      // row stride of a shared T x C tile: reads
-                               // along a row or a column are conflict-free
-constexpr int THREADS = 256;   // 16 x 16 threads, each a 4 x 4 output tile
+constexpr int LD = C + 4;      // row stride of a shared T x C tile (floats)
 constexpr int MAX_N = 256;
 constexpr int TILE_WORDS = T * LD;
-// gla_bwd_tile_kernel's dynamic shared memory: W, D, four operand tiles,
-// then la, L, e^L, e^{L_tot − L}, e^{L_tot}
-constexpr int TILE_SMEM = (6 * TILE_WORDS + 4 * T + 4) * 4;
-
+// 8 warps, each a 16 x 32 strip of a 64 x 64 output
+constexpr int THREADS = 256;
+// blocks that share a tile's sum of the P chunks' partials of dq and dk
+constexpr int DLA_SPLIT = 4;
+// gla_bwd_state_kernel's tiles: rows of SLD floats, both of its operands
+// read down their columns (8 mod 32 words keeps those reads
+// conflict-free); its dynamic shared memory: the a tiles of all of N, two
+// m tiles, la, L, e^L, e^{L_tot − L}, e^{L_tot}
+constexpr int SLD = C + 8;
+constexpr int STATE_WORDS = T * SLD;
+inline int state_smem(int N) {
+  return (((N + C - 1) / C + 2) * STATE_WORDS + 4 * T + 4) * 4;
+}
+// gla_bwd_tile_kernel's: five float32 T x C tiles (dy, v, D, h_c or W,
+// G), the q and k chunks (bfloat16 q and k as bfloat16, rows of LDH, so
+// that two blocks fit an SM), la, L, e^L, e^{L_tot − L}, e^{L_tot}, then
+// the float64 row and column partials of dΛ
+constexpr int LDH = C + 8;
+template <typename E>
+struct TileSmem {
+  // the row stride of a stored q or k chunk
+  static constexpr int QL = std::is_same<E, float>::value ? LD : LDH;
+  static constexpr int QK_BYTES =
+      std::is_same<E, float>::value ? TILE_WORDS * 4 : T * LDH * 2;
+  static constexpr int QK_OFF = 5 * TILE_WORDS * 4;
+  static constexpr int L_OFF = QK_OFF + 2 * QK_BYTES;
+  static constexpr int D_OFF = L_OFF + (4 * T + 4) * 4;
+  static constexpr int BYTES = D_OFF + 6 * T * 8;
+};
 struct Strides {
   long long q[4], k[4];   // b, s, h, n
   long long v[4];         // b, s, h, p
@@ -117,72 +170,167 @@ __device__ __forceinline__ float ldf(const __nv_bfloat16* p) {
 
 // rows s0 .. s0 + T − 1 (those at or past S read as 0) and columns c0 ..
 // c0 + C − 1 (those at or past `width` read as 0) of one (b, h) slice of
-// a (B, S, H, width) operand, `base` at (b, 0, h, 0), into dst[r][c]
-template <typename E>
-__device__ void load_rows(float* dst, const E* base, long long s_stride,
-                          long long c_stride, int s0, int S, int c0,
-                          int width) {
-  for (int e = threadIdx.x; e < T * C; e += THREADS) {
-    const int r = e / C, c = e % C;
-    float x = 0.f;
-    if (s0 + r < S && c0 + c < width)
-      x = ldf(base + (long long)(s0 + r) * s_stride +
-              (long long)(c0 + c) * c_stride);
-    dst[r * LD + c] = x;
+// a (B, S, H, width) operand, `base` at (b, 0, h, 0), into dst[r][c] (row
+// stride DLD) by the block's NTH threads: float32 by cp.async, 4 bytes an
+// element (the caller commits the group and waits for it), bfloat16 by
+// plain loads, all issued before the first is stored, as float32 or (D
+// bfloat16) as they are
+template <int NTH, int DLD = LD, typename E, typename D = float>
+__device__ __forceinline__ void load_rows(D* dst, const E* base,
+                                          long long s_stride,
+                                          long long c_stride, int s0, int S,
+                                          int c0, int width) {
+  constexpr int PER = T * C / NTH;
+  if constexpr (std::is_same<E, float>::value) {
+#pragma unroll 4
+    for (int i = 0; i < PER; ++i) {
+      const int e = threadIdx.x + i * NTH, r = e / C, c = e % C;
+      const bool ok = s0 + r < S && c0 + c < width;
+      cp_async<4>(dst + r * DLD + c,
+                  ok ? base + (long long)(s0 + r) * s_stride +
+                           (long long)(c0 + c) * c_stride
+                     : base,
+                  ok ? 4 : 0);
+    }
+  } else {
+    D x[PER];
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = threadIdx.x + i * NTH, r = e / C, c = e % C;
+      const bool ok = s0 + r < S && c0 + c < width;
+      const E* src = base + (long long)(s0 + r) * s_stride +
+                     (long long)(c0 + c) * c_stride;
+      if constexpr (std::is_same<D, float>::value)
+        x[i] = ok ? ldf(src) : 0.f;
+      else
+        x[i] = ok ? *src : __float2bfloat16(0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int e = threadIdx.x + i * NTH;
+      dst[(e / C) * DLD + e % C] = x[i];
+    }
   }
 }
 
 // rows n0 .. n0 + C − 1 and columns p0 .. p0 + C − 1 of a contiguous
-// (N, P) state into dst[n][p], zeros past N and P
-__device__ void load_state(float* dst, const float* st, int n0, int p0,
-                           int N, int P) {
-  for (int e = threadIdx.x; e < C * C; e += THREADS) {
-    const int r = e / C, c = e % C;
-    dst[r * LD + c] = (n0 + r < N && p0 + c < P)
-                          ? st[(size_t)(n0 + r) * P + p0 + c]
-                          : 0.f;
-  }
-}
-
-// acc[i][j] += Σ_{kk < K} A(r_i, kk) B(kk, c_j) over this thread's rows
-// r_i = ty + 16 i and columns c_j = tx + 16 j of a 64 x 64 output, with
-// A(r, kk) = a[r * ar + kk * ak] and B(kk, c) = b[kk * bk + c * bc] in
-// shared memory (the strides give either orientation of a stored tile)
-__device__ __forceinline__ void gemm(float (&acc)[4][4], const float* a,
-                                     int ar, int ak, const float* b, int bk,
-                                     int bc, int K) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+// (N, P) state into dst[n][p], zeros past N and P, by cp.async
+template <int NTH>
+__device__ __forceinline__ void load_state(float* dst, const float* st,
+                                           int n0, int p0, int N, int P) {
 #pragma unroll 4
-  for (int kk = 0; kk < K; ++kk) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = a[(ty + 16 * i) * ar + kk * ak];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = b[kk * bk + (tx + 16 * j) * bc];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  for (int i = 0; i < T * C / NTH; ++i) {
+    const int e = threadIdx.x + i * NTH, r = e / C, c = e % C;
+    const bool ok = n0 + r < N && p0 + c < P;
+    cp_async<4>(dst + r * LD + c, ok ? st + (size_t)(n0 + r) * P + p0 + c : st,
+                ok ? 4 : 0);
   }
 }
 
-__device__ __forceinline__ void zero(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+// the la of one tile of (b, h), zeros past S, by cp.async
+__device__ __forceinline__ void load_la(float* la_s, const float* lb,
+                                        long long s_stride, int s0, int S) {
+  if (threadIdx.x < T) {
+    const bool ok = s0 + threadIdx.x < S;
+    cp_async<4>(la_s + threadIdx.x,
+                ok ? lb + (long long)(s0 + threadIdx.x) * s_stride : lb,
+                ok ? 4 : 0);
+  }
 }
 
-// L = cumsum(la) over the tile (one thread, in order: every kernel here
-// forms the same L), then e^{L}, e^{L_tot − L} and e^{L_tot}
+// issued loads in and visible to the block
+__device__ __forceinline__ void loads_done() {
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// A warp's strip of a 64 x 64 output: NJ = 4 16 x 8 tiles of m16n8k8 in
+// one row strip, each as its hi·hi, lo·hi and hi·lo sums.  WPR = 2 warps
+// share a row strip: rows m0 .. m0 + 15, m0 = 16 (warp / 2), columns n0 ..
+// n0 + 31, n0 = 32 (warp % 2).  Element e of tile j is at row m0 + g + 8
+// (e / 2), column n0 + 8j + 2t + e % 2 (g = lane / 4, t = lane % 4).
+struct Strip {
+  static constexpr int NJ = 4;
+  static constexpr int WPR = 8 / NJ;
+  float c[NJ][4], s1[NJ][4], s2[NJ][4];
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) c[j][e] = s1[j][e] = s2[j][e] = 0.f;
+  }
+  __device__ __forceinline__ float get(int j, int e) const {
+    return c[j][e] + (s1[j][e] + s2[j][e]);
+  }
+  // the strip holds x (a value summed on the CUDA cores) and the next
+  // product adds to it
+  __device__ __forceinline__ void set(int j, int e, float x) {
+    c[j][e] = x;
+    s1[j][e] = s2[j][e] = 0.f;
+  }
+  static __device__ __forceinline__ int m0() {
+    return 16 * ((threadIdx.x / 32) / WPR);
+  }
+  static __device__ __forceinline__ int n0() {
+    return 8 * NJ * ((threadIdx.x / 32) % WPR);
+  }
+  static __device__ __forceinline__ int row(int e) {
+    return m0() + (threadIdx.x % 32) / 4 + 8 * (e / 2);
+  }
+  static __device__ __forceinline__ int col(int j, int e) {
+    return n0() + 8 * j + 2 * (threadIdx.x % 4) + e % 2;
+  }
+
+  // += A B over depth k < K (a multiple of 8) in 3xTF32, with A(m, k) =
+  // a[m * ar + k * ak] over the strip's rows and B(k, n) = b[k * bk + n *
+  // bc] over its columns, both in shared memory, float32 or bfloat16 (the
+  // strides give either orientation of a stored tile); AX / BX: the
+  // operand is exact in TF32 (a bfloat16 q or k) and its lo half is not
+  // formed
+  template <bool AX, bool BX, typename TA, typename TB>
+  __device__ __forceinline__ void mma(const TA* a, int ar, int ak,
+                                      const TB* b, int bk, int bc, int K) {
+    const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+    const TA* pa = a + (m0() + g) * ar + t * ak;
+    const TB* pb = b + t * bk + (n0() + g) * bc;
+#pragma unroll 2
+    for (int k0 = 0; k0 < K; k0 += 8) {
+      const float xa[4] = {ldf(pa + k0 * ak), ldf(pa + 8 * ar + k0 * ak),
+                           ldf(pa + (k0 + 4) * ak),
+                           ldf(pa + 8 * ar + (k0 + 4) * ak)};
+      Frag<4> fa;
+      split<AX>(xa, fa);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float xb[2] = {ldf(pb + k0 * bk + 8 * j * bc),
+                             ldf(pb + (k0 + 4) * bk + 8 * j * bc)};
+        Frag<2> fb;
+        split<BX>(xb, fb);
+        mma3<AX, BX>(true, c[j], s1[j], s2[j], fa, fb);
+      }
+    }
+  }
+};
+
+// L = cumsum(la) over the tile (warp 0, in a fixed order: every kernel
+// here forms the same L: each lane sums its two rows, then an inclusive
+// warp scan), then e^{L}, e^{L_tot − L} and e^{L_tot}
 __device__ void tile_scales(const float* la_s, float* Ls, float* eL,
                             float* eK, float* eTot) {
-  if (threadIdx.x == 0) {
-    float l = 0.f;
-    for (int r = 0; r < T; ++r) {
-      l += la_s[r];
-      Ls[r] = l;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const float a = la_s[2 * lane], b = la_s[2 * lane + 1];
+    float x = a + b;
+#pragma unroll
+    for (int o = 1; o < 32; o *= 2) {
+      const float y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x = y + x;
     }
+    float ex = __shfl_up_sync(0xffffffffu, x, 1);  // the rows before
+    if (lane == 0) ex = 0.f;
+    Ls[2 * lane] = ex + a;
+    Ls[2 * lane + 1] = (ex + a) + b;
   }
   __syncthreads();
   if (threadIdx.x < T) {
@@ -193,96 +341,140 @@ __device__ void tile_scales(const float* la_s, float* Ls, float* eL,
   __syncthreads();
 }
 
-// the la of one tile of (b, h), zeros past S
-__device__ void load_la(float* la_s, const float* lb, long long s_stride,
-                        int s0, int S) {
-  if (threadIdx.x < T)
-    la_s[threadIdx.x] = s0 + threadIdx.x < S
-                            ? lb[(long long)(s0 + threadIdx.x) * s_stride]
-                            : 0.f;
-}
-
-struct ScanArgs {
-  const void* a;          // k (forward) or q (backward), (B, S, Hq, N)
-  long long as[4];
-  const float* m;         // v (forward) or dy (backward), (B, S, H, P)
-  long long ms[4];
+struct StateArgs {
+  const void* a[2];       // k (h, direction 0) and q (G, direction 1)
+  long long as[2][4];
+  const float* m[2];      // v and dy, (B, S, H, P)
+  long long ms[2][4];
   const float* la;
   long long ls[3];
-  const float* x0;        // h0 (forward) or dh (backward), or null (zeros)
-  long long xs[4];
-  float* states;          // (B H, tiles, N, P)
-  float* fin;             // (B H, N, P): the last state, or G_0
+  float* states[2];       // hs and gs, (B H, tiles, N, P)
+  float* dtot;            // (B H, tiles): e^{L_tot} of each tile
   int H, S, N, P, nt;
 };
 
-// grid (B H, ceil(N / C), ceil(P / C)): one 64 x 64 block of the state of
-// one (b, h), walked over every tile: forward (REV 0) from h0, storing the
-// state entering each tile; backward (REV 1) from dh, the tiles last to
-// first, storing the gradient leaving each tile.  X[n][p] ← e^{L_tot}
-// X[n][p] + Σ_j s_j a_j[n] m_j[p], s = e^{L_tot − L} forward, e^{L}
-// backward, the tile's sum in fresh registers.
-template <typename E, int REV>
+// grid (B H tiles, 1, 2): each tile's own contribution to the state and
+// to its gradient, every tile at once, for every 64 columns of P in turn:
+// U_c[n][p] = Σ_j a_j[n] s_j m_j[p] in fresh accumulators, 64 rows of N
+// at a time, with a = k, m = v, s = e^{L_tot − L} for h (direction 0) and
+// a = q, m = dy, s = e^{L} for G (direction 1), written into the slot of
+// the tile's state; gla_bwd_carry_kernel then turns the slots into the
+// states.  The tile's a stays in shared memory (all of N) and each 64
+// columns of m are read once, the next ones by cp.async into the other of
+// two buffers while these compute.
+template <typename E>
 __global__ void __launch_bounds__(THREADS)
-gla_bwd_scan_kernel(ScanArgs g) {
-  __shared__ float As[TILE_WORDS], Ms[TILE_WORDS];
-  __shared__ float la_s[T], Ls[T], eL[T], eK[T], eTot[1];
-  const int bh = blockIdx.x, b = bh / g.H, h = bh % g.H;
-  const int n0 = blockIdx.y * C, p0 = blockIdx.z * C;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const E* ab = static_cast<const E*>(g.a) + b * g.as[0] + h * g.as[2];
-  const float* mb = g.m + b * g.ms[0] + h * g.ms[2];
-  const float* lb = g.la + b * g.ls[0] + h * g.ls[2];
-  const float* scale = REV ? eL : eK;
-
-  float X[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + ty + 16 * i, p = p0 + tx + 16 * j;
-      X[i][j] = (g.x0 != nullptr && n < g.N && p < g.P)
-                    ? g.x0[b * g.xs[0] + h * g.xs[1] + n * g.xs[2] +
-                           p * g.xs[3]]
-                    : 0.f;
+gla_bwd_state_kernel(StateArgs g) {
+  constexpr bool EX = std::is_same<E, __nv_bfloat16>::value;
+  using St = Strip;
+  extern __shared__ __align__(16) float ssm[];
+  const int nb = (g.N + C - 1) / C, npb = (g.P + C - 1) / C;
+  float* As = ssm;                      // [nb][T][SLD]
+  float* Ms = As + nb * STATE_WORDS;    // two buffers
+  float* la_s = Ms + 2 * STATE_WORDS;
+  float* Ls = la_s + T;
+  float* eL = Ls + T;
+  float* eK = eL + T;
+  float* eTot = eK + T;
+  const int bh = blockIdx.x / g.nt, c = blockIdx.x % g.nt;
+  const int dir = blockIdx.z;
+  const int b = bh / g.H, h = bh % g.H, s0 = c * T;
+  const long long* as = g.as[dir];
+  const long long* ms = g.ms[dir];
+  const E* ab = static_cast<const E*>(g.a[dir]) + b * as[0] + h * as[2];
+  const float* mb = g.m[dir] + b * ms[0] + h * ms[2];
+  float* st = g.states[dir] + ((size_t)bh * g.nt + c) * g.N * g.P;
+  load_la(la_s, g.la + b * g.ls[0] + h * g.ls[2], g.ls[1], s0, g.S);
+  load_rows<THREADS, SLD>(Ms, mb, ms[1], ms[3], s0, g.S, 0, g.P);
+  for (int i = 0; i < nb; ++i)
+    load_rows<THREADS, SLD>(As + i * STATE_WORDS, ab, as[1], as[3], s0, g.S,
+                            i * C, g.N);
+  loads_done();
+  tile_scales(la_s, Ls, eL, eK, eTot);
+  const float* scale = dir ? eL : eK;
+  if (threadIdx.x == 0 && dir == 0) g.dtot[blockIdx.x] = eTot[0];
+  for (int pb = 0; pb < npb; ++pb) {
+    float* Mc = Ms + (pb & 1) * STATE_WORDS;
+    __syncthreads();   // the other buffer's last reads are done
+    if (pb + 1 < npb) {
+      load_rows<THREADS, SLD>(Ms + ((pb + 1) & 1) * STATE_WORDS, mb, ms[1],
+                              ms[3], s0, g.S, (pb + 1) * C, g.P);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-
-  for (int step = 0; step < g.nt; ++step) {
-    const int c = REV ? g.nt - 1 - step : step, s0 = c * T;
-    __syncthreads();   // the last tile's reads of As and Ms are done
-    load_rows(As, ab, g.as[1], g.as[3], s0, g.S, n0, g.N);
-    load_rows(Ms, mb, g.ms[1], g.ms[3], s0, g.S, p0, g.P);
-    load_la(la_s, lb, g.ls[1], s0, g.S);
-    __syncthreads();
-    tile_scales(la_s, Ls, eL, eK, eTot);
+    __syncthreads();   // these columns are in
     for (int e = threadIdx.x; e < T * C; e += THREADS)
-      As[(e / C) * LD + e % C] *= scale[e / C];
-    float* st = g.states + ((size_t)bh * g.nt + c) * g.N * g.P;
+      Mc[(e / C) * SLD + e % C] *= scale[e / C];
+    __syncthreads();   // and scaled
+    for (int i = 0; i < nb; ++i) {
+      // Aᵀ (M ⊙ s): A(n, t) = As[t][n], B(t, p) = Mc[t][p]
+      St acc;
+      acc.zero();
+      acc.mma<EX, false>(As + i * STATE_WORDS, 1, SLD, Mc, SLD, 1, T);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + ty + 16 * i, p = p0 + tx + 16 * j;
-        if (n < g.N && p < g.P) st[(size_t)n * g.P + p] = X[i][j];
-      }
-    __syncthreads();   // the scaled rows are in
-    float acc[4][4];
-    zero(acc);
-    gemm(acc, As, 1, LD, Ms, LD, 1, T);
-    const float d = eTot[0];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) X[i][j] = d * X[i][j] + acc[i][j];
-  }
-  float* fo = g.fin + (size_t)bh * g.N * g.P;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + ty + 16 * i, p = p0 + tx + 16 * j;
-      if (n < g.N && p < g.P) fo[(size_t)n * g.P + p] = X[i][j];
+        for (int e = 0; e < 4; ++e) {
+          const int n = i * C + St::row(e), p = pb * C + St::col(j, e);
+          if (n < g.N && p < g.P) st[(size_t)n * g.P + p] = acc.get(j, e);
+        }
     }
+  }
+}
+
+// grid (ceil(B H N P / THREADS), 2): one element of a state a thread, its
+// tiles walked in order: forward (direction 0) from h0, each slot U_c
+// replaced by the state entering tile c, h ← e^{L_tot,c} h + U_c, the last
+// into hfin; backward (1) from dh, the tiles last to first, each slot
+// replaced by the gradient leaving tile c, G ← e^{L_tot,c} G + U_c, the
+// last into dh0.  The tile's sum is added on the CUDA cores, so no sum is
+// chained across the tiles on the tensor cores.  Sixteen tiles' slots are
+// read at once, then written.
+__global__ void __launch_bounds__(THREADS)
+gla_bwd_carry_kernel(float* __restrict__ hs, float* __restrict__ gs,
+                     const float* __restrict__ dtot,
+                     const float* __restrict__ h0,
+                     const float* __restrict__ dh, long long h0s0,
+                     long long h0s1, long long h0s2, long long h0s3,
+                     long long dhs0, long long dhs1, long long dhs2,
+                     long long dhs3, float* __restrict__ hfin,
+                     float* __restrict__ dh0, int H, int N, int P, int nt,
+                     long long total) {
+  constexpr int U = 16;
+  const long long e = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (e >= total) return;
+  const int rev = blockIdx.y;
+  const long long np = (long long)N * P, bh = e / np, w = e % np;
+  const long long b = bh / H, h = bh % H, n = w / P, p = w % P;
+  const float* x0 = rev ? dh : h0;
+  float x = 0.f;
+  if (x0 != nullptr)
+    x = rev ? x0[b * dhs0 + h * dhs1 + n * dhs2 + p * dhs3]
+            : x0[b * h0s0 + h * h0s1 + n * h0s2 + p * h0s3];
+  float* st = (rev ? gs : hs) + bh * nt * np + w;
+  const float* d = dtot + bh * nt;
+  for (int s0 = 0; s0 < nt; s0 += U) {
+    float u[U], dd[U];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int c = rev ? nt - 1 - (s0 + i) : s0 + i;
+      if (s0 + i < nt) {
+        u[i] = st[c * np];
+        dd[i] = d[c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int c = rev ? nt - 1 - (s0 + i) : s0 + i;
+      if (s0 + i < nt) {
+        st[c * np] = x;
+        x = dd[i] * x + u[i];
+      }
+    }
+  }
+  (rev ? dh0 : hfin)[e] = x;
 }
 
 struct TileArgs {
@@ -293,50 +485,51 @@ struct TileArgs {
   const float* dy;
   const float* hs;        // (B H, tiles, N, P): h_c
   const float* gs;        // (B H, tiles, N, P): G_{c+1}
-  float* dq;              // (B, S, H, N), per head
+  float* dq;              // (B, S, H, N), per head: P chunk 0's part
   float* dk;
+  float* dq_part;         // (P chunks − 1, B, S, H, N): the later chunks'
+  float* dk_part;
   float* dv;              // (B, S, H, P)
-  double* dlam;           // (B H, S)
+  double* dlam;           // (B H, S): P chunk 0's part of dΛ
+  double* dl_part;        // (P chunks − 1, B H, S)
   Strides st;
-  int H, S, N, P, nt;
+  int B, H, S, N, P, nt;
 };
 
-// causal (j <= i) tile e^{L_i − L_j} acc into dst[i][j], zeros above the
-// diagonal (masked before the exponential)
-__device__ __forceinline__ void store_causal(float* dst,
-                                             const float (&acc)[4][4],
-                                             const float* Ls) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c = tx + 16 * j;
-      dst[r * LD + c] = c <= r ? acc[i][j] * expf(Ls[r] - Ls[c]) : 0.f;
-    }
-}
-
-// one block a (b, h, tile): grid B H tiles
+// grid (B H tiles, ceil(P / C)): one block a (b, h, tile) and 64 columns
+// of P; two blocks an SM where q and k are bfloat16
 template <typename E>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 2)
 gla_bwd_tile_kernel(TileArgs g) {
+  constexpr bool EX = std::is_same<E, __nv_bfloat16>::value;
+  using St = Strip;
+  using L = TileSmem<E>;
+  constexpr int QL = L::QL;
   extern __shared__ __align__(16) float sm[];
-  float* Wm = sm;                      // W[i][j] = (q_i·k_j) e^{L_i−L_j}
-  float* Dm = Wm + TILE_WORDS;         // D[i][j] = (dy_i·v_j) e^{L_i−L_j}
-  float* b0 = Dm + TILE_WORDS;
-  float* b1 = b0 + TILE_WORDS;
-  float* b2 = b1 + TILE_WORDS;
-  float* b3 = b2 + TILE_WORDS;
-  float* la_s = b3 + TILE_WORDS;
+  float* Ys = sm;                      // dy of the P chunk
+  float* Vs = Ys + TILE_WORDS;         // v of the P chunk
+  float* Dm = Vs + TILE_WORDS;         // D[i][j] = (dy_i·v_j) e^{L_i−L_j}
+  float* Hs = Dm + TILE_WORDS;         // h_c: 64 N x 64 P; then W[i][j] =
+  float* Wm = Hs;                      //   (q_i·k_j) e^{L_i−L_j}
+  float* Gs = Hs + TILE_WORDS;         // G_{c+1}: 64 N x 64 P
+  E* Qc = reinterpret_cast<E*>(reinterpret_cast<uint8_t*>(sm) + L::QK_OFF);
+  E* Kc = reinterpret_cast<E*>(reinterpret_cast<uint8_t*>(sm) + L::QK_OFF +
+                               L::QK_BYTES);
+  float* la_s = reinterpret_cast<float*>(reinterpret_cast<uint8_t*>(sm) +
+                                         L::L_OFF);
   float* Ls = la_s + T;
   float* eL = Ls + T;
   float* eK = eL + T;
   float* eTot = eK + T;
+  double* rowp = reinterpret_cast<double*>(reinterpret_cast<uint8_t*>(sm) +
+                                           L::D_OFF);          // [2][T]
+  double* colp = rowp + 2 * T;                                 // [4][T]
 
   const int bh = blockIdx.x / g.nt, c = blockIdx.x % g.nt;
+  const int pc = blockIdx.y, p0 = pc * C;
   const int b = bh / g.H, h = bh % g.H, s0 = c * T;
   const int nrow = min(T, g.S - s0);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const Strides& st = g.st;
   const E* qb = static_cast<const E*>(g.q) + b * st.q[0] + h * st.q[2];
   const E* kb = static_cast<const E*>(g.k) + b * st.k[0] + h * st.k[2];
@@ -345,195 +538,232 @@ gla_bwd_tile_kernel(TileArgs g) {
   const float* lb = g.la + b * st.la[0] + h * st.la[2];
   const float* hc = g.hs + ((size_t)bh * g.nt + c) * g.N * g.P;
   const float* gc = g.gs + ((size_t)bh * g.nt + c) * g.N * g.P;
+  const size_t part = (size_t)g.B * g.S * g.H * g.N;
+  float* dq = pc == 0 ? g.dq : g.dq_part + (pc - 1) * part;
+  float* dk = pc == 0 ? g.dk : g.dk_part + (pc - 1) * part;
+  double* dl = pc == 0 ? g.dlam
+                       : g.dl_part + (size_t)(pc - 1) * g.B * g.H * g.S;
+  auto load_chunk = [&](int n0) {
+    load_rows<THREADS, QL>(Qc, qb, st.q[1], st.q[3], s0, g.S, n0, g.N);
+    load_rows<THREADS, QL>(Kc, kb, st.k[1], st.k[3], s0, g.S, n0, g.N);
+    load_state<THREADS>(Hs, hc, n0, p0, g.N, g.P);
+    load_state<THREADS>(Gs, gc, n0, p0, g.N, g.P);
+  };
 
+  // every operand's first chunk at once: la, dy and v of the P chunk, h_c
+  // and G_{c+1} there, q and k of N's first 64 columns
   load_la(la_s, lb, st.la[1], s0, g.S);
-  __syncthreads();
+  load_rows<THREADS>(Ys, yb, st.dy[1], st.dy[3], s0, g.S, p0, g.P);
+  load_rows<THREADS>(Vs, vb, st.v[1], st.v[3], s0, g.S, p0, g.P);
+  load_chunk(0);
+  loads_done();
   tile_scales(la_s, Ls, eL, eK, eTot);
 
-  float acc[4][4];
-  // W: q kᵀ over N
-  zero(acc);
+  // this chunk's D = dy vᵀ, causal (masked before the exponential)
+  {
+    St dacc;
+    dacc.zero();
+    dacc.mma<false, false>(Ys, LD, 1, Vs, 1, LD, C);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = St::row(e), cc = St::col(j, e);
+        Dm[r * LD + cc] =
+            cc <= r ? dacc.get(j, e) * expf(Ls[r] - Ls[cc]) : 0.f;
+      }
+  }
+
+  // over N, 64 columns at a time: S = q kᵀ; dq and dk (the states' parts
+  // first, with their parts of dΛ in float64, then D k and Dᵀ q); the
+  // state part of dv, k G_{c+1}
+  St sacc, vacc;
+  sacc.zero();
+  vacc.zero();
+  double dlr[2] = {0.0, 0.0};  // dΛ of rows row(0) and row(2), this thread
   for (int n0 = 0; n0 < g.N; n0 += C) {
-    __syncthreads();
-    load_rows(b0, qb, st.q[1], st.q[3], s0, g.S, n0, g.N);
-    load_rows(b1, kb, st.k[1], st.k[3], s0, g.S, n0, g.N);
-    __syncthreads();
-    gemm(acc, b0, LD, 1, b1, 1, LD, C);
-  }
-  store_causal(Wm, acc, Ls);
-  float sraw[4][4];   // q_i·k_j, for dΛ's causal part
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) sraw[i][j] = acc[i][j];
-  // D: dy vᵀ over P
-  zero(acc);
-  for (int p0 = 0; p0 < g.P; p0 += C) {
-    __syncthreads();
-    load_rows(b0, yb, st.dy[1], st.dy[3], s0, g.S, p0, g.P);
-    load_rows(b1, vb, st.v[1], st.v[3], s0, g.S, p0, g.P);
-    __syncthreads();
-    gemm(acc, b0, LD, 1, b1, 1, LD, C);
-  }
-  store_causal(Dm, acc, Ls);
-
-  // dΛ's causal part, Σ_j A_ij − Σ_j A_ji with A_ij = (dy_i·v_j)(q_i·k_j)
-  // e^{L_i−L_j} (j ≤ i): sums of small terms, as autograd of the forward
-  // forms them (q_i·dq_i − k_i·dk_i would dot rounded sums); row sums
-  // per thread (finished by the row's butterfly below), column sums over
-  // the 16 thread rows through shared memory (b2, free until the loops)
-  double dl[4], col[4] = {0.0, 0.0, 0.0, 0.0};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dl[i] = 0.0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = ty + 16 * i, c2 = tx + 16 * j;
-      const double a = c2 <= r ? (double)acc[i][j] * sraw[i][j] *
-                                     expf(Ls[r] - Ls[c2])
-                               : 0.0;
-      dl[i] += a;
-      col[j] += a;
+    __syncthreads();   // D is in; the last chunk's reads are done
+    if (n0 > 0) {
+      load_chunk(n0);
+      loads_done();
     }
-  }
-  double* csum = reinterpret_cast<double*>(b2);   // [16][T]
-  __syncthreads();
+    sacc.mma<EX, EX>(Qc, QL, 1, Kc, 1, QL, C);
+    // dq: e^{L_i} Σ_p dy_i[p] h_c[n][p], its part of dΛ, then + D k
+    St acc;
+    acc.zero();
+    acc.mma<false, false>(Ys, LD, 1, Hs, 1, LD, C);
 #pragma unroll
-  for (int j = 0; j < 4; ++j) csum[ty * T + tx + 16 * j] = col[j];
-  __syncthreads();
-  if (tx == 0) {
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      double cs = 0.0;
-      for (int y = 0; y < 16; ++y) cs += csum[y * T + r];
-      dl[i] -= cs;
-    }
-  }
-
-  // dq and dk, 64 columns of N at a time; their states' parts of dΛ
-  for (int n0 = 0; n0 < g.N; n0 += C) {
-    __syncthreads();
-    load_rows(b0, qb, st.q[1], st.q[3], s0, g.S, n0, g.N);
-    load_rows(b1, kb, st.k[1], st.k[3], s0, g.S, n0, g.N);
-    // dq: e^{L_i} Σ_p dy_i[p] h_c[n][p], then + D k
-    zero(acc);
-    for (int p0 = 0; p0 < g.P; p0 += C) {
-      __syncthreads();
-      load_rows(b2, yb, st.dy[1], st.dy[3], s0, g.S, p0, g.P);
-      load_state(b3, hc, n0, p0, g.N, g.P);
-      __syncthreads();
-      gemm(acc, b2, LD, 1, b3, 1, LD, C);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] *= eL[ty + 16 * i];
-        dl[i] += (double)b0[(ty + 16 * i) * LD + tx + 16 * j] * acc[i][j];
+      for (int e = 0; e < 4; ++e) {
+        const int r = St::row(e), cc = St::col(j, e);
+        const float x = acc.get(j, e) * eL[r];
+        dlr[e / 2] += (double)ldf(Qc + r * QL + cc) * x;
+        acc.set(j, e, x);
       }
-    gemm(acc, Dm, LD, 1, b1, LD, 1, T);
+    acc.mma<false, EX>(Dm, LD, 1, Kc, QL, 1, T);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, n = n0 + tx + 16 * j;
+      for (int e = 0; e < 4; ++e) {
+        const int r = St::row(e), n = n0 + St::col(j, e);
         if (r < nrow && n < g.N)
-          g.dq[(((size_t)b * g.S + s0 + r) * g.H + h) * g.N + n] = acc[i][j];
+          dq[(((size_t)b * g.S + s0 + r) * g.H + h) * g.N + n] =
+              acc.get(j, e);
       }
-    // dk: e^{L_tot − L_j} Σ_p v_j[p] G[n][p], then + Dᵀ q
-    zero(acc);
-    for (int p0 = 0; p0 < g.P; p0 += C) {
-      __syncthreads();
-      load_rows(b2, vb, st.v[1], st.v[3], s0, g.S, p0, g.P);
-      load_state(b3, gc, n0, p0, g.N, g.P);
-      __syncthreads();
-      gemm(acc, b2, LD, 1, b3, 1, LD, C);
-    }
+    // dk: e^{L_tot − L_j} Σ_p v_j[p] G[n][p], its part of dΛ, then + Dᵀ q
+    acc.zero();
+    acc.mma<false, false>(Vs, LD, 1, Gs, 1, LD, C);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] *= eK[ty + 16 * i];
-        dl[i] -= (double)b1[(ty + 16 * i) * LD + tx + 16 * j] * acc[i][j];
+      for (int e = 0; e < 4; ++e) {
+        const int r = St::row(e), cc = St::col(j, e);
+        const float x = acc.get(j, e) * eK[r];
+        dlr[e / 2] -= (double)ldf(Kc + r * QL + cc) * x;
+        acc.set(j, e, x);
       }
-    gemm(acc, Dm, 1, LD, b0, LD, 1, T);
+    acc.mma<false, EX>(Dm, 1, LD, Qc, QL, 1, T);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, n = n0 + tx + 16 * j;
+      for (int e = 0; e < 4; ++e) {
+        const int r = St::row(e), n = n0 + St::col(j, e);
         if (r < nrow && n < g.N)
-          g.dk[(((size_t)b * g.S + s0 + r) * g.H + h) * g.N + n] = acc[i][j];
+          dk[(((size_t)b * g.S + s0 + r) * g.H + h) * g.N + n] =
+              acc.get(j, e);
       }
+    // dv's state part over this chunk of N: A(j, n) = k_j[n], B(n, p) = G
+    vacc.mma<EX, false>(Kc, QL, 1, Gs, LD, 1, C);
   }
-  // dΛ of each row: the 16 threads of a row (one half-warp) in a fixed
-  // butterfly
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o /= 2)
-      dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], o);
-    const int r = ty + 16 * i;
-    if (tx == 0 && r < nrow) g.dlam[(size_t)bh * g.S + s0 + r] = dl[i];
-  }
+  __syncthreads();   // every read of h_c is done: W takes its place
 
-  // dv, 64 columns of P at a time: e^{L_tot − L_j} Σ_n k_j[n] G[n][p],
-  // then + Wᵀ dy
-  for (int p0 = 0; p0 < g.P; p0 += C) {
-    zero(acc);
-    for (int n0 = 0; n0 < g.N; n0 += C) {
-      __syncthreads();
-      load_rows(b0, kb, st.k[1], st.k[3], s0, g.S, n0, g.N);
-      load_state(b1, gc, n0, p0, g.N, g.P);
-      __syncthreads();
-      gemm(acc, b0, LD, 1, b1, LD, 1, C);
+  // W, causal, into shared memory; dΛ's causal part, Σ_j A_ij − Σ_j A_ji
+  // with A_ij = (dy_i·v_j)(q_i·k_j) e^{L_i−L_j} (j ≤ i): sums of small
+  // terms in float64, as autograd of the forward forms them (q_i·dq_i −
+  // k_i·dk_i would dot rounded sums).  Row sums per thread, column sums
+  // over the lanes of a column, then the four row strips through shared
+  // memory
+  double dlc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dlc[i] = 0.0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = St::row(e), cc = St::col(j, e);
+      const bool on = cc <= r;
+      const float sv = sacc.get(j, e);
+      Wm[r * LD + cc] = on ? sv * expf(Ls[r] - Ls[cc]) : 0.f;
+      const double a = on ? (double)Dm[r * LD + cc] * sv : 0.0;
+      dlr[e / 2] += a;
+      dlc[2 * j + e % 2] += a;
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i) {
+    dlc[i] += __shfl_xor_sync(0xffffffffu, dlc[i], 4);
+    dlc[i] += __shfl_xor_sync(0xffffffffu, dlc[i], 8);
+    dlc[i] += __shfl_xor_sync(0xffffffffu, dlc[i], 16);
+  }
+  if (lane < 4) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= eK[ty + 16 * i];
-    __syncthreads();
-    load_rows(b2, yb, st.dy[1], st.dy[3], s0, g.S, p0, g.P);
-    __syncthreads();
-    gemm(acc, Wm, 1, LD, b2, LD, 1, T);
+    for (int i = 0; i < 8; ++i)
+      colp[(warp / St::WPR) * T + St::col(i / 2, i % 2)] = dlc[i];
+  }
+  __syncthreads();   // W is in
+
+  // dv = e^{L_tot − L_j} Σ_n k_j[n] G[n][p] + Wᵀ dy
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * i, p = p0 + tx + 16 * j;
-        if (r < nrow && p < g.P)
-          g.dv[(((size_t)b * g.S + s0 + r) * g.H + h) * g.P + p] = acc[i][j];
-      }
+    for (int e = 0; e < 4; ++e)
+      vacc.set(j, e, vacc.get(j, e) * eK[St::row(e)]);
+  vacc.mma<false, false>(Wm, 1, LD, Ys, LD, 1, T);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = St::row(e), p = p0 + St::col(j, e);
+      if (r < nrow && p < g.P)
+        g.dv[(((size_t)b * g.S + s0 + r) * g.H + h) * g.P + p] =
+            vacc.get(j, e);
+    }
+
+  // this chunk's dΛ of each row: the row sums over the quad (a fixed
+  // butterfly) and the two warps of the row strip, less the column sums
+  // of the four row strips, in order
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    dlr[i] += __shfl_xor_sync(0xffffffffu, dlr[i], 1);
+    dlr[i] += __shfl_xor_sync(0xffffffffu, dlr[i], 2);
+  }
+  if (lane % 4 == 0) {
+    rowp[(warp % St::WPR) * T + St::row(0)] = dlr[0];
+    rowp[(warp % St::WPR) * T + St::row(2)] = dlr[1];
+  }
+  __syncthreads();
+  if (threadIdx.x < nrow) {
+    const int r = threadIdx.x;
+    const double cs = ((colp[r] + colp[T + r]) + colp[2 * T + r]) +
+                      colp[3 * T + r];
+    dl[(size_t)bh * g.S + s0 + r] = (rowp[r] + rowp[T + r]) - cs;
   }
 }
 
-// grid (B H, tiles): dla[b, t, h] for the rows t of one tile c = the
-// tile's Σ_{u ≥ t} dlam[bh, u] plus ⟨G_{c+1}, h_{c+1}⟩ (gs[c], and
-// hs[c + 1] or the final state), all in float64 in a fixed order
+// grid (B H, tiles, DLA_SPLIT or 1): the tile's rows of dq and dk (P
+// chunk 0's, in place) plus the later chunks' partials, in chunk order,
+// shared by the blocks of blockIdx.z; then, in block z = 0, dΛ likewise in
+// float64;
+// then dla[b, t, h] for the tile's rows t = the tile's Σ_{u ≥ t} dΛ_u plus
+// ⟨G_{c+1}, h_{c+1}⟩ (gs[c], and hs[c + 1] or the final state), in a
+// fixed order
 __global__ void __launch_bounds__(THREADS)
-gla_bwd_dla_kernel(const double* dlam, const float* hs, const float* gs,
-                   const float* fin, float* dla, int H, int S, int N, int P,
-                   int nt) {
+gla_bwd_dla_kernel(double* dlam, const double* dl_part, float* dq, float* dk,
+                   const float* dq_part, const float* dk_part,
+                   const float* hs, const float* gs, const float* fin,
+                   float* dla, int B, int H, int S, int N, int P, int nt,
+                   int chunks) {
   __shared__ double part[THREADS / 32];
   const int bh = blockIdx.x, c = blockIdx.y, b = bh / H, h = bh % H;
-  const size_t np = (size_t)N * P;
-  const float* g = gs + ((size_t)bh * nt + c) * np;
+  const int s0 = c * T, nrow = min(T, S - s0);
+  const size_t np = (size_t)N * P, dq_stride = (size_t)B * S * H * N;
+  if (chunks > 1) {
+    for (int e = blockIdx.z * THREADS + threadIdx.x; e < nrow * N;
+         e += gridDim.z * THREADS) {
+      const size_t i = (((size_t)b * S + s0 + e / N) * H + h) * N + e % N;
+      float x = dq[i], y = dk[i];
+#pragma unroll 4
+      for (int pc = 1; pc < chunks; ++pc) {
+        x += dq_part[(pc - 1) * dq_stride + i];
+        y += dk_part[(pc - 1) * dq_stride + i];
+      }
+      dq[i] = x;
+      dk[i] = y;
+    }
+    if (blockIdx.z > 0) return;
+    if (threadIdx.x < nrow) {
+      const size_t i = (size_t)bh * S + s0 + threadIdx.x;
+      double x = dlam[i];
+      for (int pc = 1; pc < chunks; ++pc)
+        x += dl_part[(pc - 1) * (size_t)B * H * S + i];
+      dlam[i] = x;
+    }
+  }
+  const float* gt = gs + ((size_t)bh * nt + c) * np;
   const float* x = c + 1 < nt ? hs + ((size_t)bh * nt + c + 1) * np
                               : fin + (size_t)bh * np;
   double dot = 0.0;
   for (size_t e = threadIdx.x; e < np; e += THREADS)
-    dot += (double)g[e] * x[e];
+    dot += (double)gt[e] * x[e];
   for (int o = 16; o > 0; o /= 2)
     dot += __shfl_xor_sync(0xffffffffu, dot, o);
   if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = dot;
-  __syncthreads();
+  __syncthreads();   // and dΛ of the tile is summed
   if (threadIdx.x == 0) {
     double acc = 0.0;
     for (int w = 0; w < THREADS / 32; ++w) acc += part[w];
-    const int s0 = c * T, last = min(S, s0 + T) - 1;
     double suf = 0.0;
-    for (int t = last; t >= s0; --t) {
+    for (int t = s0 + nrow - 1; t >= s0; --t) {
       suf += dlam[(size_t)bh * S + t];
       dla[((size_t)b * S + t) * H + h] = (float)(suf + acc);
     }
@@ -557,40 +787,52 @@ __global__ void gla_bwd_head_sum_kernel(const float* dq, const float* dk,
 template <typename E>
 int run(const void* q, const void* k, const float* v, const float* la,
         const float* h0, const float* dy, const float* dh, float* hs,
-        float* gs, float* hfin, double* dlam, float* dq, float* dk,
-        float* dv, float* dla, float* dh0, float* dq_sum, float* dk_sum,
-        int B, int H, int S, int N, int P, const Strides& st,
-        cudaStream_t stream) {
-  const int nt = (S + T - 1) / T;
-  const dim3 sgrid(B * H, (N + C - 1) / C, (P + C - 1) / C);
-  ScanArgs fwd{k, {st.k[0], st.k[1], st.k[2], st.k[3]}, v,
-               {st.v[0], st.v[1], st.v[2], st.v[3]}, la,
-               {st.la[0], st.la[1], st.la[2]}, h0,
-               {st.h0[0], st.h0[1], st.h0[2], st.h0[3]}, hs, hfin, H, S, N, P,
-               nt};
-  gla_bwd_scan_kernel<E, 0><<<sgrid, THREADS, 0, stream>>>(fwd);
-  cudaError_t e = cudaGetLastError();
+        float* gs, float* hfin, float* dtot, double* dlam, double* dl_part,
+        float* dq, float* dk, float* dq_part, float* dk_part, float* dv,
+        float* dla, float* dh0, float* dq_sum, float* dk_sum, int B, int H,
+        int S, int N, int P, const Strides& st, cudaStream_t stream) {
+  const int nt = (S + T - 1) / T, chunks = (P + C - 1) / C;
+  const int ssmem = state_smem(N);
+  cudaError_t e = cudaFuncSetAttribute(
+      gla_bwd_state_kernel<E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(gla_bwd_tile_kernel<E>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             TileSmem<E>::BYTES);
   if (e != cudaSuccess) return (int)e;
-  ScanArgs rev{q, {st.q[0], st.q[1], st.q[2], st.q[3]}, dy,
-               {st.dy[0], st.dy[1], st.dy[2], st.dy[3]}, la,
-               {st.la[0], st.la[1], st.la[2]}, dh,
-               {st.dh[0], st.dh[1], st.dh[2], st.dh[3]}, gs, dh0, H, S, N, P,
-               nt};
-  gla_bwd_scan_kernel<E, 1><<<sgrid, THREADS, 0, stream>>>(rev);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(gla_bwd_tile_kernel<E>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           TILE_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  TileArgs ta{q, k, v, la, dy, hs, gs, dq, dk, dv, dlam, st, H, S, N, P, nt};
-  gla_bwd_tile_kernel<E><<<B * H * nt, THREADS, TILE_SMEM, stream>>>(ta);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  gla_bwd_dla_kernel<<<dim3(B * H, nt), THREADS, 0, stream>>>(
-      dlam, hs, gs, hfin, dla, H, S, N, P, nt);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  StateArgs sa{{k, q},
+               {{st.k[0], st.k[1], st.k[2], st.k[3]},
+                {st.q[0], st.q[1], st.q[2], st.q[3]}},
+               {v, dy},
+               {{st.v[0], st.v[1], st.v[2], st.v[3]},
+                {st.dy[0], st.dy[1], st.dy[2], st.dy[3]}},
+               la,
+               {st.la[0], st.la[1], st.la[2]},
+               {hs, gs},
+               dtot,
+               H, S, N, P, nt};
+  gla_bwd_state_kernel<E>
+      <<<dim3(B * H * nt, 1, 2), THREADS, ssmem, stream>>>(sa);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  const long long total = (long long)B * H * N * P;
+  gla_bwd_carry_kernel<<<dim3((unsigned)((total + THREADS - 1) / THREADS), 2),
+                         THREADS, 0, stream>>>(
+      hs, gs, dtot, h0, dh, st.h0[0], st.h0[1], st.h0[2], st.h0[3], st.dh[0],
+      st.dh[1], st.dh[2], st.dh[3], hfin, dh0, H, N, P, nt, total);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  TileArgs ta{q,       k,       v,  la,   dy,      hs, gs, dq, dk,
+              dq_part, dk_part, dv, dlam, dl_part, st, B,  H,  S,  N,
+              P,       nt};
+  gla_bwd_tile_kernel<E>
+      <<<dim3(B * H * nt, chunks), THREADS, TileSmem<E>::BYTES, stream>>>(
+          ta);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  gla_bwd_dla_kernel<<<dim3(B * H, nt, chunks > 1 ? DLA_SPLIT : 1), THREADS,
+                       0, stream>>>(
+      dlam, dl_part, dq, dk, dq_part, dk_part, hs, gs, hfin, dla, B, H, S, N,
+      P, nt, chunks);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   if (dq_sum != nullptr) {
     const long long n = (long long)B * S * N;
     const dim3 grid((unsigned)((n + 255) / 256), 2);
@@ -609,16 +851,19 @@ int run(const void* q, const void* k, const float* v, const float* la,
 // n), k (b, s, h, n), v (b, s, h, p), la (b, s, h), h0 (b, h, n, p), dy
 // (b, s, h, p), dh (b, h, n, p); h0 and dh may be null (zeros).  Scratch
 // the wrapper allocates: hs and gs (B H, ceil(S / 64), N, P), hfin (B H,
-// N, P), dlam (B H, S) float64; outputs, contiguous float32: dq and dk (B,
-// S, H, N) per head, dv (B, S, H, P), dla (B, S, H), dh0 (B, H, N, P), and, where
-// dq_sum and dk_sum are not null, the head sums (B, S, N).  The wrapper
-// checks shapes and dtypes and never calls this with B, H, S or P equal
-// to 0.
+// N, P), dtot (B H, ceil(S / 64)), dlam (B H, S) float64; with C =
+// ceil(P / 64) chunks of P above one, dq_part and dk_part (C − 1, B, S,
+// H, N) float32 and dl_part (C − 1, B H, S) float64 (null at one chunk);
+// outputs, contiguous float32: dq and dk (B, S, H, N) per head, dv (B, S,
+// H, P), dla (B, S, H), dh0 (B, H, N, P), and, where dq_sum and dk_sum
+// are not null, the head sums (B, S, N).  The wrapper checks shapes and
+// dtypes and never calls this with B, H, S or P equal to 0.
 extern "C" int gla_bwd_launch(const void* q, const void* k, const void* v,
                               const void* la, const void* h0, const void* dy,
                               const void* dh, void* hs, void* gs, void* hfin,
-                              void* dlam, void* dq, void* dk, void* dv,
-                              void* dla, void* dh0, void* dq_sum,
+                              void* dtot, void* dlam, void* dl_part, void* dq,
+                              void* dk, void* dq_part, void* dk_part,
+                              void* dv, void* dla, void* dh0, void* dq_sum,
                               void* dk_sum, int qk_dtype, int B, int H,
                               int S, int N, int P, const long long* strides,
                               void* stream) {
@@ -636,13 +881,15 @@ extern "C" int gla_bwd_launch(const void* q, const void* k, const void* v,
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   auto w = [](void* p) { return static_cast<float*>(p); };
-  double* dl = static_cast<double*>(dlam);
+  auto d = [](void* p) { return static_cast<double*>(p); };
   if (qk_dtype == 0)
     return run<float>(q, k, f(v), f(la), f(h0), f(dy), f(dh), w(hs), w(gs),
-                      w(hfin), dl, w(dq), w(dk), w(dv), w(dla), w(dh0),
+                      w(hfin), w(dtot), d(dlam), d(dl_part), w(dq), w(dk),
+                      w(dq_part), w(dk_part), w(dv), w(dla), w(dh0),
                       w(dq_sum), w(dk_sum), B, H, S, N, P, st, cs);
   return run<__nv_bfloat16>(q, k, f(v), f(la), f(h0), f(dy), f(dh), w(hs),
-                            w(gs), w(hfin), dl, w(dq), w(dk), w(dv), w(dla),
-                            w(dh0), w(dq_sum), w(dk_sum), B, H, S, N, P, st,
-                            cs);
+                            w(gs), w(hfin), w(dtot), d(dlam), d(dl_part),
+                            w(dq), w(dk), w(dq_part), w(dk_part), w(dv),
+                            w(dla), w(dh0), w(dq_sum), w(dk_sum), B, H, S, N,
+                            P, st, cs);
 }

@@ -194,13 +194,15 @@ def gla_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, h
 
 
-#: rows of a tile of the backward kernel (``csrc/gla_bwd.cu``: T)
+#: rows of a tile of the backward kernel (``csrc/gla_bwd.cu``: T), and
+#: columns of P (and of N) of its tile pass's blocks (C)
 BWD_TILE = 64
+BWD_CHUNK = 64
 
 
 def _bwd_launcher():
     fn = _build.load("gla_bwd").gla_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -218,7 +220,12 @@ def gla_chunk_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hq, N), summed over the heads where Hq = 1 < H; dv (B, S, H, P); dla
     (B, S, H); dh0 (B, H, N, P).  Anything else raises ValueError before
     any launch.  Scratch: the states entering and the gradients leaving
-    each 64-row tile, 2 B H ceil(S / 64) N P float32."""
+    each 64-row tile, 2 B H ceil(S / 64) N P float32 (each tile's own
+    contribution first, turned into the states in place); and, with C =
+    ceil(P / 64) chunks of P above one (the tile pass cuts P across
+    blocks), the later chunks' partials of dq and dk, 2 (C - 1) B S H N
+    float32, and of dΛ, (C - 1) B H S float64: at xlstm-1.3b's B 2, S
+    2048, H 4, N 256, P 1025 (17 chunks) 268 MB each for dq and dk."""
     B, S, Hq, N = q.shape
     H, P = v.shape[2], v.shape[3]
     if q.dtype not in DTYPES or k.dtype != q.dtype:
@@ -249,7 +256,15 @@ def gla_chunk_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hs = torch.empty((B * H, nt, N, P), **f)
     gs = torch.empty((B * H, nt, N, P), **f)
     hfin = torch.empty((B * H, N, P), **f)
+    dtot = torch.empty((B * H, nt), **f)
     dlam = torch.empty((B * H, S), dtype=torch.float64, device=dev)
+    chunks = -(-P // BWD_CHUNK)
+    dq_part = dk_part = dl_part = None
+    if chunks > 1:
+        dq_part = torch.empty((chunks - 1, B, S, H, N), **f)
+        dk_part = torch.empty((chunks - 1, B, S, H, N), **f)
+        dl_part = torch.empty((chunks - 1, B * H, S), dtype=torch.float64,
+                              device=dev)
     dq, dk = torch.empty((B, S, H, N), **f), torch.empty((B, S, H, N), **f)
     dv, dla = torch.empty((B, S, H, P), **f), torch.empty((B, S, H), **f)
     dh0 = torch.empty((B, H, N, P), **f)
@@ -271,8 +286,9 @@ def gla_chunk_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_launcher()(
         ptr(q), ptr(k), ptr(v), ptr(la), ptr(h0), ptr(dy), ptr(dh), ptr(hs),
-        ptr(gs), ptr(hfin), ptr(dlam), ptr(dq), ptr(dk), ptr(dv), ptr(dla),
-        ptr(dh0), ptr(dq_sum), ptr(dk_sum), DTYPES[q.dtype], B, H, S, N, P,
+        ptr(gs), ptr(hfin), ptr(dtot), ptr(dlam), ptr(dl_part), ptr(dq),
+        ptr(dk), ptr(dq_part), ptr(dk_part), ptr(dv), ptr(dla), ptr(dh0),
+        ptr(dq_sum), ptr(dk_sum), DTYPES[q.dtype], B, H, S, N, P,
         ctypes.cast(strides, ctypes.c_void_p), stream)
     _build.check(err, "gla_chunk backward")
     if summed:

@@ -47,11 +47,19 @@ limit from max|want| alone would miss them); float32 held to the plain
 backward in
 float64, its error at most 4x the float32 plain backward's, or 1e-6 of
 max|want| where that is larger; two calls bitwise equal (no atomics).
+The backward takes the forward kernel's log-sum-exp L
+(``flash_attention_fwd``): writing it leaves the forward's output bitwise
+as it was, and it is held to the plain L (``attention_lse_ref``) within
+1e-5 absolute in float32 and 2e-5 in bfloat16 (both kernels compute the
+scores in float32; the bf16 kernel's exponentials are exp2 of log2 e
+scaled scores).  The backward takes every D the forward takes (D 80).
 The ``gla_chunk`` backward kernel (``gla_bwd.cu``, its float32 outputs)
 against the plain backward in float64 on the same inputs: each of dq,
 dk, dv, dla and dh0 within 4x the float32 plain backward's error, or
 1e-6 of its max|want| where that is larger; the op's bfloat16 dq and dk
-those outputs rounded; two calls bitwise equal (no atomics).
+those outputs rounded; two calls bitwise equal (no atomics), also where
+P is cut into 64-column chunks whose partials the kernel sums (P 65 and
+the mLSTM's 1025).
 """
 import numpy as np
 import pytest
@@ -69,8 +77,10 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_ref_4d)
 from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_lse_ref,
                                                  flash_attention,
                                                  flash_attention_bwd,
+                                                 flash_attention_fwd,
                                                  flash_attention_plain)
 from repro_torch.kernels.gla_chunk import (gla_chunk, gla_chunk_bwd,
                                            gla_chunk_bwd_plain,
@@ -1064,13 +1074,17 @@ def test_gla_chunk_bf16_q_k_and_broadcast_heads(cuda_dev, broadcast,
 
 #: (B, S, H, N, P, chunk, q/k dtype, q/k heads, h0 and dh given): per
 #: head, one row for every head (Mamba2) and a stride-0 view over the
-#: heads; a ragged last 64-row tile (S 96); N 256 (the mLSTM's) and N 1
+#: heads; a ragged last 64-row tile (S 96); N 256 (the mLSTM's) and N 1;
+#: P cut into 64-column chunks with a ragged last one (P 65, and the
+#: mLSTM's P 1025 with its one-column chunk)
 GLA_BWD_CASES = [
     (2, 128, 3, 16, 17, 32, torch.float32, "heads", False),
     (1, 96, 4, 64, 65, 32, torch.float32, "one", True),
     (2, 192, 8, 64, 64, 64, torch.bfloat16, "one", False),
     (1, 128, 2, 256, 33, 128, torch.bfloat16, "heads", True),
     (1, 64, 2, 1, 5, 64, torch.float32, "stride0", True),
+    (1, 256, 2, 256, 1025, 128, torch.bfloat16, "heads", True),
+    (1, 160, 2, 96, 1025, 32, torch.float32, "one", True),
 ]
 
 
@@ -1353,6 +1367,7 @@ FLASH_BWD_CASES = [
     (1, 40, 130, 4, 1, 64, True),        # Sk > S
     (1, 100, 36, 4, 2, 128, True),       # Sk < S: rows that see no key
     (1, 2048, 2048, 4, 2, 128, True),    # long causal rows, held by row
+    (1, 96, 96, 4, 2, 80, True),         # D 80: padded as the forward pads
 ]
 
 
@@ -1372,12 +1387,13 @@ def _bwd_operands(dev, dtype, B, S, Sk, HQ, KH, D, seed):
 
 
 def _check_bwd(q, k, v, do, causal):
-    """The kernel's (dq, dk, dv) against the plain backward: returns the
-    errors; asserts the limits of the module docstring."""
-    o = flash_attention(q, k, v, causal=causal)
+    """The kernel's (dq, dk, dv), from the forward kernel's L, against the
+    plain backward: returns the errors; asserts the limits of the module
+    docstring."""
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
     before = flash_attention.bwd_launches
-    got = flash_attention_bwd(q, k, v, o, do, causal=causal)
-    again = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    got = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    again = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
     torch.cuda.synchronize()
     assert flash_attention.bwd_launches == before + 2
     group = q.shape[2] // k.shape[2]
@@ -1430,9 +1446,35 @@ def test_flash_bwd_kernel_matches_plain(cuda_dev, case, dtype):
     _check_bwd(q, k, v, do, causal)
     if S > Sk and causal:
         # the rows that see no key have zero gradient
-        o = flash_attention(q, k, v, causal=causal)
-        dq = flash_attention_bwd(q, k, v, o, do, causal=causal)[0]
+        o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        dq = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)[0]
         assert not dq[:, :S - Sk].float().abs().any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_forward_writes_its_lse(cuda_dev, case, dtype):
+    """The forward kernel's output is bitwise the same with and without L,
+    and its L is the plain L (+inf on the rows that see no key)."""
+    B, S, Sk, HQ, KH, D, causal = case
+    q, k, v, _ = _bwd_operands(cuda_dev, dtype, B, S, Sk, HQ, KH, D,
+                               S + Sk + D + 1)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    out_l, lse = flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert torch.equal(out, out_l)
+    assert lse.shape == (B, HQ, S) and lse.dtype == torch.float32
+    want = attention_lse_ref(q, k, group=HQ // KH, causal=causal)
+    inf = torch.isinf(want)
+    assert torch.equal(inf, torch.isinf(lse)) and bool((lse[inf] > 0).all())
+    tol = 1e-5 if dtype == torch.float32 else 2e-5
+    err = (lse[~inf] - want[~inf]).abs().max().item() if (~inf).any() else 0
+    assert err <= tol * max(1.0, want[~inf].abs().max().item()), err
 
 
 @pytest.mark.cuda
@@ -1443,6 +1485,19 @@ def test_flash_bwd_f32_long_sums_stay_float32(cuda_dev):
                                 64, 5)
     v = v + 1.0
     _check_bwd(q, k, v, do, False)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_needs_the_forward_lse(cuda_dev):
+    """On the card the backward takes L from the forward: without it, it
+    raises before any launch."""
+    q, k, v, do = _bwd_operands(cuda_dev, torch.bfloat16, 1, 64, 64, 4, 2,
+                                64, 6)
+    o = flash_attention(q, k, v, causal=True)
+    before = flash_attention.bwd_launches
+    with pytest.raises(ValueError, match="log-sum-exp"):
+        flash_attention_bwd(q, k, v, o, do, causal=True)
+    assert flash_attention.bwd_launches == before
 
 
 @pytest.mark.cuda
@@ -1458,8 +1513,10 @@ def test_flash_bwd_through_autograd(cuda_dev):
     grads = torch.autograd.grad(out, (q, k, v), do)
     assert (flash_attention.launches, flash_attention.bwd_launches) == (
         before[0] + 1, before[1] + 1)
+    _, lse = flash_attention_fwd(q.detach(), k.detach(), v.detach(),
+                                 causal=True)
     want = flash_attention_bwd(q.detach(), k.detach(), v.detach(),
-                               out.detach(), do, causal=True)
+                               out.detach(), do, causal=True, lse=lse)
     for a, b in zip(grads, want):
         assert torch.equal(a, b)
 
@@ -1477,7 +1534,8 @@ def test_flash_empty_operands_count_no_launch(cuda_dev, S, Sk):
     before = (flash_attention.launches, flash_attention.bwd_launches)
     o = flash_attention(q, k, v, causal=False) if S == 0 \
         else torch.zeros_like(q)
-    grads = flash_attention_bwd(q, k, v, o, do, causal=False)
+    lse = torch.zeros((1, 4, S), device=cuda_dev)
+    grads = flash_attention_bwd(q, k, v, o, do, causal=False, lse=lse)
     torch.cuda.synchronize()
     assert not any(g.float().abs().any() for g in grads)
     assert flash_attention.bwd_launches == before[1]
@@ -1486,18 +1544,21 @@ def test_flash_empty_operands_count_no_launch(cuda_dev, S, Sk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("what", ["D32", "mixed", "f16"])
+@pytest.mark.parametrize("what", ["D136", "D40", "mixed", "f16"])
 def test_flash_bwd_out_of_range_raises(cuda_dev, what):
-    D = 32 if what == "D32" else 64
+    """A D the forward does not take (136; 40 in bf16, not a multiple of
+    16), mixed dtypes and float16 raise before any launch."""
+    D = {"D136": 136, "D40": 40}.get(what, 64)
     dt = torch.float16 if what == "f16" else torch.bfloat16
     q, k, v, do = _bwd_operands(cuda_dev, torch.float32, 1, 16, 16, 2, 2, D,
                                 3)
     q, do = q.to(dt), do.to(dt)
     if what != "mixed":
         k, v = k.to(dt), v.to(dt)
+    lse = torch.zeros((1, 2, 16), device=cuda_dev)
     before = flash_attention.bwd_launches
     with pytest.raises(ValueError):
-        flash_attention_bwd(q, k, v, do, do, causal=True)
+        flash_attention_bwd(q, k, v, do, do, causal=True, lse=lse)
     assert flash_attention.bwd_launches == before
 
 

@@ -26,7 +26,16 @@ held against it on the card, ``tests/test_torch_cuda.py``).  Here:
     the float64 sums), and the default leaves the result as it was;
   * the op inside ``torch.autograd`` on CPU tensors (the Function) gives
     attention_bwd_ref's gradients bitwise, and its forward the plain
-    version's; no kernel launch is counted on the CPU.
+    version's; no kernel launch is counted on the CPU;
+  * the forward's log-sum-exp L (what the kernels save for the backward,
+    ``flash_attention_fwd``; on the CPU ``attention_lse_ref``) against
+    ``jax.nn.logsumexp`` of the reference's scaled scores with its
+    bottom-right mask: within 1e-6 of max|L| in float32 (sums in another
+    order); +inf on rows that see no key, where the reference gives
+    -inf; the Function saves it, and the plain backward given it is the
+    one that recomputes it, bitwise;
+  * the backward's instance check (``kernel.flash_bwd_plan``) takes
+    exactly the D the forward takes.
 """
 import jax
 import jax.numpy as jnp
@@ -36,9 +45,14 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention as r_flash
 from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_lse_ref,
                                                  flash_attention,
                                                  flash_attention_bwd,
+                                                 flash_attention_fwd,
                                                  flash_attention_plain)
+from repro_torch.kernels.flash_attention.kernel import (flash_bwd_plan,
+                                                        flash_f32_plan,
+                                                        wgmma_plan)
 
 CASES = [
     # (B, S, Sk, HQ, KH, D, causal)
@@ -88,9 +102,12 @@ def test_bwd_ref_matches_autograd_of_plain_forward(case):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
 
 
+@pytest.mark.parametrize("lse", ["recomputed", "given"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", CASES, ids=_ids)
-def test_bwd_ref_matches_reference_grad(case, dtype):
+def test_bwd_ref_matches_reference_grad(case, dtype, lse):
+    """The plain backward, recomputing L or given the forward's L (as the
+    Function gives it), against jax.grad of the reference."""
     B, S, Sk, HQ, KH, D, causal = case
     qn, kn, vn, don = _inputs(2, B, S, Sk, HQ, KH, D)
     jdt = getattr(jnp, dtype)
@@ -104,8 +121,10 @@ def test_bwd_ref_matches_reference_grad(case, dtype):
 
     tdt = getattr(torch, dtype)
     q, k, v, do = (torch.from_numpy(a).to(tdt) for a in (qn, kn, vn, don))
-    o = flash_attention_plain(q, k, v, causal=causal)
-    got = attention_bwd_ref(q, k, v, o, do, group=HQ // KH, causal=causal)
+    o, L = flash_attention_fwd(q, k, v, causal=causal)
+    kw = dict(group=HQ // KH, causal=causal,
+              lse=L if lse == "given" else None)
+    got = attention_bwd_ref(q, k, v, o, do, **kw)
     rows = _seen_rows(S, Sk, causal)
     tol = 2e-5 if dtype == "float32" else 2.0 ** -7
     dq, dk, dv = (g.float().numpy() for g in got)
@@ -120,7 +139,7 @@ def test_bwd_ref_matches_reference_grad(case, dtype):
         want = [np.asarray(w.astype(jnp.float32)) for w in want]
         do = torch.from_numpy(don).to(tdt)
         dq, dk, dv = (g.float().numpy() for g in attention_bwd_ref(
-            q, k, v, o, do, group=HQ // KH, causal=causal))
+            q, k, v, o, do, **kw))
     for name, a, b in (("dq", dq[:, rows], want[0][:, rows]),
                        ("dk", dk, want[1]), ("dv", dv, want[2])):
         err = float(np.abs(a - b).max())
@@ -193,6 +212,10 @@ def test_autograd_function_on_cpu(case, dtype):
     assert o.requires_grad and o.dtype == dtype
     assert torch.equal(o.detach(), flash_attention_plain(q, k, v,
                                                          causal=causal))
+    # it saves q, k, v, the output and L
+    saved = o.grad_fn.saved_tensors
+    assert len(saved) == 5 and torch.equal(
+        saved[4], attention_lse_ref(q, k, group=HQ // KH, causal=causal))
     got = torch.autograd.grad(o, (qg, kg, vg), do)
     want = attention_bwd_ref(q, k, v, o.detach(), do, group=HQ // KH,
                              causal=causal)
@@ -228,3 +251,88 @@ def test_backward_checks_its_operands():
         flash_attention_bwd(q, k[:, :, :1].expand(1, 8, 3, 16), v, o, do)
     with pytest.raises(ValueError, match="no backward kernel"):
         flash_attention_bwd(*(t.to("meta") for t in (q, k, v, o, do)))
+
+
+LSE_CASES = [
+    # (B, S, Sk, HQ, KH, D, causal)
+    (2, 24, 24, 4, 2, 16, True),
+    (1, 12, 30, 6, 2, 16, True),        # Sk > S
+    (1, 30, 12, 4, 2, 64, True),        # Sk < S: rows that see no key
+    (2, 9, 17, 4, 2, 16, False),
+    (1, 20, 7, 4, 4, 32, False),
+]
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=_ids)
+def test_forward_lse_matches_reference_logsumexp(case):
+    B, S, Sk, HQ, KH, D, causal = case
+    qn, kn, vn, _ = _inputs(8, B, S, Sk, HQ, KH, D)
+    # the reference's scores, its mask aligned bottom-right
+    kr = np.repeat(kn, HQ // KH, axis=2)
+    s = jnp.einsum("bqhd,bkhd->bhqk", jnp.asarray(qn),
+                   jnp.asarray(kr)) / (D ** 0.5)
+    if causal:
+        mask = jnp.tril(jnp.ones((S, Sk), bool), k=Sk - S)
+        s = jnp.where(mask, s, -jnp.inf)
+    want = np.asarray(jax.nn.logsumexp(s, axis=-1))        # (B, HQ, S)
+    q, k, v = (torch.from_numpy(a) for a in (qn, kn, vn))
+    launches = flash_attention.launches
+    out, got = flash_attention_fwd(q, k, v, causal=causal)
+    assert flash_attention.launches == launches
+    assert torch.equal(out, flash_attention_plain(q, k, v, causal=causal))
+    assert got.shape == (B, HQ, S) and got.dtype == torch.float32
+    got = got.numpy()
+    none = np.isneginf(want)
+    assert bool(none.any()) == (causal and Sk < S)
+    assert np.all(np.isposinf(got[none]))
+    top = float(np.abs(want[~none]).max())
+    assert float(np.abs(got[~none] - want[~none]).max()) <= 1e-6 * top
+    assert torch.equal(torch.from_numpy(got), attention_lse_ref(
+        q, k, group=HQ // KH, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_plain_backward_given_lse_is_bitwise_the_recomputed(case, dtype):
+    B, S, Sk, HQ, KH, D, causal = case
+    q, k, v, do = (torch.from_numpy(a).to(dtype)
+                   for a in _inputs(9, B, S, Sk, HQ, KH, D))
+    o, lse = flash_attention_fwd(q, k, v, causal=causal)
+    given = flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse)
+    recomputed = flash_attention_bwd(q, k, v, o, do, causal=causal)
+    for a, b in zip(given, recomputed):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, o, do, causal=causal, lse=lse[:, :1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_backward_takes_the_forward_head_dims(dtype):
+    """flash_bwd_plan accepts a D exactly where the forward's plan does
+    (wgmma_plan for bfloat16, flash_f32_plan for float32): D 80 in both,
+    D 130 in neither (ValueError); bfloat16 D pads to 64 or 128, float32
+    to a multiple of 32."""
+    for D in range(1, 140):
+        q = torch.zeros((1, 16, 2, D), dtype=dtype)
+        try:
+            if dtype == torch.bfloat16:
+                wgmma_plan(q, q, q)
+            else:
+                flash_f32_plan(1, 16, 16, 2, 2, D, True)
+            fwd = True
+        except ValueError:
+            fwd = False
+        try:
+            plan = flash_bwd_plan(D, dtype)
+        except ValueError:
+            plan = None
+        assert (plan is not None) == fwd, D
+        if plan is not None:
+            assert plan.dp >= D and plan.dp in (
+                (64, 128) if dtype == torch.bfloat16 else (32, 64, 96, 128))
+    assert flash_bwd_plan(80, dtype).dp == (128 if dtype == torch.bfloat16
+                                            else 96)
+    with pytest.raises(ValueError):
+        flash_bwd_plan(130, dtype)

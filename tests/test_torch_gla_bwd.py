@@ -14,7 +14,10 @@ gradient within one bfloat16 rounding of the reference's float32 one,
 see ``test_bf16_q_k_match_jax_grad``).  The loss is ⟨y, dy⟩ + ⟨h, dh⟩
 for random dy and dh.  Mamba2's q and k are one row broadcast over the heads: the reference
 differentiates ``jnp.broadcast_to`` of them, the port returns the head
-sum for a one-head q or k.
+sum for a one-head q or k.  The card's kernel cuts P into chunks of 64
+columns and sums the chunks' partials of dq, dk and dla in chunk order:
+the plain backward computed that way (``p_chunked_grads``) is held to
+``jax.grad`` as well, at P 17, 65 and 1025 (within 2e-5 of max|want|).
 """
 import jax
 import jax.numpy as jnp
@@ -94,6 +97,31 @@ def port_grads(x, chunk, qk_dtype=torch.float32):
     return out + ([g[4].numpy()] if h0 is not None else [])
 
 
+def p_chunked_grads(x, chunk, width=64):
+    """The op's plain backward on CPU tensors as the card's kernel cuts
+    P: each chunk of `width` columns of v, dy, h0 and dh on its own (every
+    column of the scan evolves apart), its dq, dk and dla summed over the
+    chunks in chunk order, its dv and dh0 columns placed; float32 numpy in
+    reference_grads' order."""
+    P = x["v"].shape[-1]
+    q, k, la = (torch_of(x[n]) for n in ("q", "k", "la"))
+    sums, cols = None, []
+    for p0 in range(0, P, width):
+        cut = {n: None if x[n] is None else torch_of(x[n])[..., p0:p0 + width]
+               for n in ("v", "h0", "dy", "dh")}
+        g = gla_chunk_bwd(q, k, cut["v"], la, cut["h0"], cut["dy"],
+                          cut["dh"], chunk=chunk)
+        part = (g[0], g[1], g[3])
+        sums = part if sums is None else tuple(a + b for a, b in
+                                               zip(sums, part))
+        cols.append((g[2], g[4]))
+    dv = torch.cat([c[0] for c in cols], dim=-1)
+    out = [sums[0].numpy(), sums[1].numpy(), dv.numpy(), sums[2].numpy()]
+    if x["h0"] is not None:
+        out.append(torch.cat([c[1] for c in cols], dim=-1).numpy())
+    return out
+
+
 def close(got, want, tol=F32_TOL):
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -110,6 +138,16 @@ def test_plain_backward_matches_jax_grad(shape, broadcast, state):
     x = inputs(B, S, H, N, P, seed=S + N + P, broadcast=broadcast,
                state=state)
     close(port_grads(x, chunk), reference_grads(x, chunk))
+
+
+@pytest.mark.parametrize("state", [False, True], ids=["no_state", "h0_dh"])
+@pytest.mark.parametrize("P", [17, 65, 1025])
+def test_p_chunked_backward_matches_jax_grad(P, state):
+    """The kernel's cut of P, on the plain side: per-64-column partials
+    summed in chunk order equal jax.grad of the reference's chunked_gla
+    (a ragged last chunk of 17, of 1 at P 65 and 1025)."""
+    x = inputs(1, 48, 2, 8, P, seed=P + 2, state=state)
+    close(p_chunked_grads(x, 16), reference_grads(x, 16))
 
 
 @pytest.mark.parametrize("broadcast", [False, True],

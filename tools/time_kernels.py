@@ -25,7 +25,9 @@ flash_bwd, the flash_attention backward kernel at chip_smoke's
 FLASH_BWD_CASES (Llama-3.2-3B's train_4k B2 S4096 causal bf16, whisper's
 encoder in bf16 and float32, phi-3-vision's D 96, a long-key float32
 case) beside its operation bound, the plain backward and
-scaled_dot_product_attention's backward alone; gla_bwd, the gla_chunk
+scaled_dot_product_attention's backward alone, and at the first of them
+the forward kernel with and without writing the log-sum-exp L that the
+backward takes; gla_bwd, the gla_chunk
 backward kernel at chip_smoke's GLA_BWD_CASES (zamba2-1.2b's and
 xlstm-1.3b's train_4k scans, h0 and dh given, a ragged last tile, a long
 slow-decay scan) beside its operation and byte bound and the plain
@@ -282,11 +284,11 @@ def flash_bwd_row(cs, label, card, shape):
     except ImportError as e:
         print(json.dumps(dict(row, ms="raises", error=str(e))), flush=True)
         return
-    q, k, v, o, do = cs.flash_bwd_inputs(*shape)
+    q, k, v, o, do, lse = cs.flash_bwd_inputs(*shape)
     big = S * Sk >= 4096 * 4096
     reps = 5 if big else 20
-    call = lambda: flash_attention_bwd(q, k, v, o, do,  # noqa
-                                       causal=causal)
+    kw = dict(causal=causal) if lse is None else dict(causal=causal, lse=lse)
+    call = lambda: flash_attention_bwd(q, k, v, o, do, **kw)  # noqa
     call_ms = cs.cuda_time_ms(call, reps=reps, warmup=1)
     ms = cs.kernel_ms(call, "flash_bwd", call_ms, reps=reps)
     plain = cs.cuda_time_ms(lambda: attention_bwd_ref(
@@ -300,8 +302,28 @@ def flash_bwd_row(cs, label, card, shape):
     print(json.dumps(dict(row, ms=ms, call_ms=call_ms, plain_ms=plain,
                           library_ms=lib, bound_ms=bound, bound_by=by)),
           flush=True)
-    del q, k, v, o, do, lib_call
+    if shape == cs.FLASH_BWD_CASES[0]:
+        flash_lse_rows(cs, row, q, k, v, causal)
+    del q, k, v, o, do, lse, lib_call
     torch.cuda.empty_cache()
+
+
+def flash_lse_rows(cs, row, q, k, v, causal):
+    """Two JSON lines of the forward kernel at the backward's first shape
+    (Llama-3.2-3B's train_4k): without L, as a served call runs it, and
+    writing L, as the training forward runs it (a checkout whose forward
+    writes no L gives only the first)."""
+    from repro_torch.kernels import flash_attention as fa
+    calls = [("flash_fwd", lambda: fa.flash_attention(q, k, v,
+                                                       causal=causal))]
+    if hasattr(fa, "flash_attention_fwd"):
+        calls.append(("flash_fwd_lse", lambda: fa.flash_attention_fwd(
+            q, k, v, causal=causal)))
+    for op, call in calls:
+        call_ms = cs.cuda_time_ms(call, reps=20, warmup=2)
+        ms = cs.kernel_ms(call, "flash_wgmma", call_ms, reps=20)
+        print(json.dumps(dict(row, op=op, ms=ms, call_ms=call_ms)),
+              flush=True)
 
 
 def gla_bwd_row(cs, label, card, shape):
