@@ -9,7 +9,8 @@ raises on failure and the script then exits non-zero; with no card, or
 without the repository beside it, it exits non-zero before printing any
 result.
 
-Phases, in the order they run:
+Phases, in the order they run (phase 16's two ranks are this script
+again, started with --mesh-rank):
   0. the card's name and power limit (nvidia-smi) and the kernel build,
      with each kernel instance's registers, spills and static shared
      memory (nvcc -Xptxas -v);
@@ -222,18 +223,16 @@ Phases, in the order they run:
      at 2 layers in float32 (S 512), one step's loss and every gradient
      leaf held to a replay with every op's plain version (PlainOps), and a
      checkpoint round trip (save after step 2, restore into a fresh
-     Trainer, step 3 bitwise equal to the uninterrupted run's); then the
-     flash backward kernel (flash_bwd.cu) against the plain backward at
-     Llama's, whisper's encoder (bf16 and float32), phi-3-vision's and a
-     long-key float32 shape, timed beside its bound, the plain backward
-     and scaled_dot_product_attention's backward.  Then the recurrent
+     Trainer, step 3 bitwise equal to the uninterrupted run's).  (The
+     flash backward kernels are held to the plain backward after phase
+     16: see there.)  Then the recurrent
      models (RECURRENT_TRAIN), each with the counts set to 0 just before:
      zamba2-1.2b (38 Mamba2 layers, the shared attention block 6 times)
-     4 steps of 2 x 4096 tokens, and xlstm-1.3b (42 mLSTM, 6 sLSTM) 3
-     steps of 2 x 2048 (its sLSTM loops cut S), bf16 and AdamW with
-     remat: per-step loss and ms, tokens/s, peak allocated memory, the
-     gla_chunk and flash launches of every step (76 / 38 / 12 / 6 and
-     84 / 42 / 0 / 0, asserted), step 1's gla backward launches of the
+     4 steps of 2 x 4096 tokens, and xlstm-1.3b at 24 of its 48 layers
+     (21 mLSTM, 3 sLSTM) 3 steps of 2 x 2048 (its sLSTM loops cut S and
+     the depth), bf16 and AdamW with remat: per-step loss and ms,
+     tokens/s, peak allocated memory, the gla_chunk and flash launches of
+     every step (76 / 38 / 12 / 6 and 42 / 21 / 0 / 0, asserted), step 1's gla backward launches of the
      last and first scan layer held to the float64 plain backward,
      xlstm's sLSTM-loop share of its third step (its second step alone
      is its step ms), and one profiled step's idle share; each at one
@@ -270,6 +269,34 @@ Phases, in the order they run:
      leaf, two steps with the error carried, bitwise against its plain
      computation on CPU tensors, the payload crossing the all-reduce as
      int32;
+ 16. tensor and expert parallelism: this script started again as two
+     processes on the card (--mesh-rank 0 and 1), joined by gloo over
+     CUDA tensors on a (data 1, model 2) mesh (nccl takes one rank a
+     device; the kernels are built already, so the ranks only load
+     them), each rank's counts set to 0 just before each run and read
+     just after: llama3.2-3b at full width and depth, tensor-parallel
+     (heads, MLP and vocab split over "model"), 3 steps of 2 x 4096
+     tokens (bf16, AdamW, remat), and phi3.5-moe at full width and 2
+     layers, expert-parallel (8 experts a rank) by its own moe_fused_ep,
+     3 steps, then one step unfused (the psum branch); per run and rank:
+     the losses (equal on both ranks), step ms, tokens/s, peak allocated
+     memory, one profiled step's idle share, 2L flash forward and L
+     backward launches a step at the local shapes (asserted), step 1's
+     first forward launch held to the plain version and its backward
+     launches of the last and first layers held to the plain backward
+     row by row; then at one layer, float32, S 512 each model's two-rank
+     loss and every gradient leaf (gathered whole) against the meshless
+     step on rank 0: the loss within 1e-5 relative, each leaf within
+     1e-4 of its max|grad| (phase 14's limits; neither model scans, so
+     the plain replays' gap is 0).  The local forward shapes join phase
+     7 (timed).  Then the flash backward kernels against the plain
+     backward at FLASH_BWD_CASES (Llama's, whisper's encoder in bf16 and
+     float32, phi-3-vision's, a long-key float32 shape, a head dim
+     zero-padded and two on the wide kernel) and every shape phases 14
+     and 16 launched, timed beside the bound, the plain backward and
+     scaled_dot_product_attention's backward.  Phase 7 also holds the
+     forward at a zero-padded head dim in each dtype and on the wide
+     kernel (flash_wide.cu) at D 160 and 256, timed;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -1739,6 +1766,14 @@ TF32_TENSOR_OPS_PER_S = 495e12
 #: the CUDA kernel each dtype's flash_attention call launches
 FLASH_KERNEL_NAMES = {"bfloat16": "flash_wgmma_kernel",
                       "float32": "flash_tf32x3_kernel"}
+#: above this head dim flash_attention runs the wide kernel
+#: (flash_wide.cu; kernel.py MAX_D), forward and backward
+FLASH_MAX_D = 128
+FLASH_WIDE_NAME = "flash_wide_fwd"
+#: the wide backward's three kernels (Delta, dq, dk dv)
+FLASH_WIDE_BWD_NAME = "flash_wide_d"
+#: (D, dtype) the wide kernel is checked and timed at in phase 7
+FLASH_WIDE_CASES = [(160, "bfloat16"), (256, "bfloat16"), (256, "float32")]
 #: each flash kernel's error against float64 attention on its own inputs
 #: may be at most this multiple of scaled_dot_product_attention's error on
 #: the same inputs (of the plain version's, where SDPA refuses them)
@@ -1811,6 +1846,13 @@ def phase_flash_kernel(rec, main_shapes):
     # non-causal with ragged tiles and Sk != S (cross-attention's shape)
     cases += [((2, 1000, 1500, 20, 20, 64, False, "float32"), -1)]
     cases += [((1, 77, 130, 8, 2, 128, True, "bfloat16"), 0)]
+    # head dims the tensor-core kernels do not take as they are: zero-
+    # padded by the op (D 72 in bf16, to 80; D 18 in float32, to 20), and
+    # the wide kernel above 128 (timed: no config launches them)
+    cases += [((1, 1024, 1024, 8, 2, 72, True, "bfloat16"), -1),
+              ((1, 1024, 1024, 8, 2, 18, True, "float32"), -1)]
+    cases += [((1, 2048, 2048, 8, 8, D, True, dt), -1)
+              for D, dt in FLASH_WIDE_CASES]
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     for (B, S, Sk, HQ, KH, D, causal, dt), launches in cases:
         qdt, kvdt = (dt.split("/") * 2)[:2]
@@ -1866,9 +1908,10 @@ def phase_flash_kernel(rec, main_shapes):
             continue
         big = S * Sk > 8192 * 8192
         reps = 3 if big else 20
+        kname = FLASH_WIDE_NAME if D > FLASH_MAX_D else FLASH_KERNEL_NAMES[kdt]
         call = lambda: flash_attention(q, k, v, causal=causal)  # noqa
         call_ms = cuda_time_ms(call, reps=reps, warmup=1)
-        ms = kernel_ms(call, FLASH_KERNEL_NAMES[kdt], call_ms, reps=reps)
+        ms = kernel_ms(call, kname, call_ms, reps=reps)
         plain = cuda_time_ms(lambda: flash_attention_plain(
             q, k, v, causal=causal), reps=1 if big else 5, warmup=1)
         lib = lib_err = None
@@ -1883,7 +1926,7 @@ def phase_flash_kernel(rec, main_shapes):
             shape["tf32x3_floor_ms"] = 3 * 4 * B * HQ * S * Sk * D / (
                 2 if causal else 1) / TF32_TENSOR_OPS_PER_S * 1e3
         rows.append(dict(shape, launches=max(launches, 0), timed=True,
-                         lm_path=launches > 0, kernel=FLASH_KERNEL_NAMES[kdt],
+                         lm_path=launches > 0, kernel=kname,
                          ms=ms, call_ms=call_ms,
                          plain_ms=plain, library_ms=lib,
                          library_what="" if qdt == kvdt else
@@ -3740,10 +3783,12 @@ RECURRENT_TRAIN = {
                         launches=dict(gla_fwd=76, gla_bwd=38, flash_fwd=12,
                                       flash_bwd=6)),
     # its sLSTM loops take 67-102 s a step at S 4096 (PERF.md): S cut to
-    # 2048, a multiple of the mLSTM's chunk 512; the second step is timed
+    # 2048, a multiple of the mLSTM's chunk 512, and the depth to 3 of its
+    # 6 repeating units (21 mLSTM, 3 sLSTM; 41-54 s a step at 48 layers
+    # kept the script too near its time limit); the second step is timed
     # clean, the third times the loops (slstm_share_step)
-    "xlstm-1.3b": dict(steps=3, seq=2048, small_layers=8,
-                       launches=dict(gla_fwd=84, gla_bwd=42, flash_fwd=0,
+    "xlstm-1.3b": dict(steps=3, seq=2048, small_layers=8, layers=24,
+                       launches=dict(gla_fwd=42, gla_bwd=21, flash_fwd=0,
                                      flash_bwd=0)),
 }
 #: (B, S, Sk, HQ, KH, D, causal, dtype) the backward kernel is held to its
@@ -3754,6 +3799,10 @@ FLASH_BWD_CASES = [
     (4, 1500, 1500, 20, 20, 64, False, "float32"),
     (2, 592, 592, 32, 32, 96, True, "bfloat16"),      # phi-3-vision
     (1, 16, 8192, 4, 4, 64, False, "float32"),        # long keys
+    # head dims zero-padded (D 72 in bf16) and on the wide kernel
+    (1, 1024, 1024, 8, 2, 72, True, "bfloat16"),
+    (1, 1024, 1024, 4, 4, 256, True, "bfloat16"),
+    (1, 1024, 1024, 4, 4, 160, False, "float32"),
 ]
 #: the shape whose keys are v = 1 + N(0, 1): a one-signed error from sums
 #: chained on the tensor cores would grow with the keys
@@ -3937,7 +3986,8 @@ def phase_flash_bwd_kernel(rec, train_shapes):
         call = lambda: flash_attention_bwd(q, k, v, o, do,  # noqa
                                            causal=causal, lse=lse)
         call_ms = cuda_time_ms(call, reps=5 if big else 20, warmup=1)
-        ms = kernel_ms(call, "flash_bwd", call_ms, reps=5 if big else 20)
+        ms = kernel_ms(call, FLASH_WIDE_BWD_NAME if D > FLASH_MAX_D
+                       else "flash_bwd", call_ms, reps=5 if big else 20)
         group = HQ // KH
         plain = cuda_time_ms(lambda: attention_bwd_ref(
             q, k, v, o, do, group=group, causal=causal), reps=2, warmup=1)
@@ -4200,7 +4250,8 @@ def slstm_share_step(tr, out):
 
 
 def train_recurrent(out, counters, arch):
-    """`arch` (RECURRENT_TRAIN) at its published width and depth (bf16
+    """`arch` (RECURRENT_TRAIN) at its published width and depth, or the
+    depth its ``layers`` cuts it to (bf16
     parameters, AdamW, remat) trains its steps of TRAIN_BATCH x its seq
     tokens through Trainer, with every kernel's count set to 0 just
     before: per-step loss and ms, tokens/s, the peak allocated memory, the
@@ -4222,7 +4273,9 @@ def train_recurrent(out, counters, arch):
     conf = RECURRENT_TRAIN[arch]
     S = conf["seq"]
     spec = get_arch(arch)
-    cfg = spec.model.replace(max_seq=max(spec.model.max_seq, S))
+    cfg = spec.model.replace(max_seq=max(spec.model.max_seq, S),
+                             n_layers=conf.get("layers",
+                                               spec.model.n_layers))
     t0 = time.perf_counter()
     tr = Trainer(cfg, optimizer=spec.optimizer, seq_len=S,
                  global_batch=TRAIN_BATCH, seed=0, torch_device=DEVICE)
@@ -4490,8 +4543,9 @@ def train_checkpoint(out, arch=TRAIN_ARCH, n_layers=TRAIN_SMALL_LAYERS):
 
 def phase_train(rec, counters):
     """Training on the card: train_llama (the main path, counts from 0),
-    then the float32 replay, the checkpoint round trip, and the flash
-    backward kernel against its plain version (phase_flash_bwd_kernel);
+    then the float32 replay and the checkpoint round trip (the flash
+    backward kernel is held to its plain version at the shapes llama
+    launched, and at phase 16's, after phase 16: phase_flash_bwd_kernel);
     then each of RECURRENT_TRAIN (train_recurrent, counts from 0 before
     each), its float32 replay and checkpoint round trip at one repeating
     unit, and the gla_chunk backward kernel against its plain version
@@ -4501,9 +4555,9 @@ def phase_train(rec, counters):
     train_llama(out["llama"], counters)
     train_f32_replay(out["f32_replay"], counters)
     train_checkpoint(out["checkpoint"])
-    rows, err = phase_flash_bwd_kernel(rec, out["llama"]["bwd_shapes"])
+    bwd_shapes = out["llama"]["bwd_shapes"]
     out["llama"]["bwd_shapes"] = [list(sh) + [n] for sh, n in
-                                  out["llama"]["bwd_shapes"].items()]
+                                  bwd_shapes.items()]
     gla_shapes = {}
     for arch, conf in RECURRENT_TRAIN.items():
         t0 = time.perf_counter()
@@ -4522,7 +4576,7 @@ def phase_train(rec, counters):
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 14 took {out['seconds']:.1f} s")
     rec["train"] = out
-    return out, rows, err, g_rows, g_err
+    return out, bwd_shapes, g_rows, g_err
 
 
 def gla_bound_ms(B, S, H, N, P, Q, qk_elt, y_elt, h0, broadcast):
@@ -5177,6 +5231,339 @@ def phase_mesh(rec, counters):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 16: tensor and expert parallelism on two gloo ranks of one card
+# ----------------------------------------------------------------------
+#: the (data, model) mesh of phase 16: two processes on the one card,
+#: joined by gloo over CUDA tensors (nccl takes one rank a device)
+MESH16_SHAPE = (1, 2)
+#: the runs: each at full width and phase 14's B2 S4096, bf16, AdamW with
+#: remat, `steps` steps through Trainer(mesh=); `layers` cuts the depth
+#: (None: the published depth).  phi3.5-moe's 32 layers of experts alone
+#: are 80.5 GB: 2 layers.  After phi's steps (its own moe_fused_ep), one
+#: more step with moe_fused_ep off (the psum branch of the expert-parallel
+#: path).
+MESH16_RUNS = {
+    TRAIN_ARCH: dict(layers=None, steps=3),
+    "phi3.5-moe-42b-a6.6b": dict(layers=2, steps=3, unfused_steps=1),
+}
+#: the float32 replays: one repeating unit (one layer) at S 512, B1
+MESH16_F32 = {TRAIN_ARCH: 1, "phi3.5-moe-42b-a6.6b": 1}
+#: seconds the two ranks may take together
+MESH16_TIMEOUT = 600
+MESH16_DIR = ROOT / "build" / "chip_smoke_mesh"
+
+
+def mesh16_capture():
+    """Wrap the flash op's forward and backward dispatch
+    (flash_attention/ops.py `_forward`, `flash_attention_bwd`) to keep a
+    copy of the inputs and outputs of chosen calls: the forward's first
+    call, and the backward's first and last calls of the next step (the
+    last layer's and the first's).  Returns (arm, captured, restore)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    real_fwd, real_bwd = fops._forward, fops.flash_attention_bwd
+    state = dict(fwd=None, bwd=[], on=False)
+
+    def fwd(q, k, v, causal, with_lse=False):
+        out = real_fwd(q, k, v, causal, with_lse)
+        if state["on"] and state["fwd"] is None:
+            o = out[0] if with_lse else out
+            state["fwd"] = dict(causal=causal, inputs=[
+                t.detach().clone() for t in (q, k, v)], out=o.detach()
+                .clone())
+        return out
+
+    def bwd(q, k, v, o, do, *, causal=True, lse=None):
+        grads = real_bwd(q, k, v, o, do, causal=causal, lse=lse)
+        if state["on"]:
+            state["bwd"].append(dict(causal=causal, inputs=[
+                t.detach().clone() for t in (q, k, v, o, do)],
+                grads=[g.clone() for g in grads]))
+            if len(state["bwd"]) > 2:       # keep the first and the last
+                del state["bwd"][1]
+        return grads
+
+    def arm(on):
+        state["on"] = on
+
+    def restore():
+        fops._forward, fops.flash_attention_bwd = real_fwd, real_bwd
+    fops._forward, fops.flash_attention_bwd = fwd, bwd
+    return arm, state, restore
+
+
+def mesh16_check_captured(state, what):
+    """The captured launches against their plain versions: the forward
+    within attn_tolerance, each backward row by row (flash_bwd_errors)."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    c = state["fwd"]
+    q, k, v = c["inputs"]
+    want = flash_attention_plain(q, k, v, causal=c["causal"])
+    err = float((c["out"].float() - want.float()).abs().max())
+    tol = attn_tolerance(str(q.dtype).split(".")[-1], want)
+    if err > tol:
+        fail(f"{what}: a flash forward launch at {tuple(q.shape)} differs "
+             f"from the plain version by {err} > {tol}")
+    out = dict(fwd=dict(shape=list(q.shape), kv=list(k.shape),
+                        max_abs_err=err, limit=tol), bwd=[])
+    for c in state["bwd"]:
+        q, k, v, o, do = c["inputs"]
+        checks, e = flash_bwd_errors(c["grads"], q, k, v, o, do,
+                                     c["causal"])
+        if not all(ck["ok"] for ck in checks):
+            fail(f"{what}: a flash backward launch differs from the plain "
+                 f"backward: {checks}")
+        out["bwd"].append(dict(shape=list(q.shape), err=e, checks=checks))
+    log(f"  {what}: the flash forward launch at q {out['fwd']['shape']} k "
+        f"{out['fwd']['kv']}: error {err:.3e} within {tol:.3e}; the "
+        f"backward's last and first layers: " + "; ".join(
+            flash_bwd_check_line(b["checks"]) for b in out["bwd"]))
+    return out
+
+
+def mesh16_train(mesh, arch, conf):
+    """`arch` through Trainer(mesh=) on this rank: steps, launches at the
+    local shapes, peak allocated memory, a profiled step; the step's
+    flash launches held to their plain versions (mesh16_check_captured)."""
+    import math
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import Trainer, build_mesh_train_step
+    spec = get_arch(arch)
+    cfg = spec.model.replace(max_seq=max(spec.model.max_seq, TRAIN_SEQ))
+    if conf["layers"]:
+        cfg = cfg.replace(n_layers=conf["layers"])
+    L = cfg.n_layers
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, optimizer=spec.optimizer, seq_len=TRAIN_SEQ,
+                 global_batch=TRAIN_BATCH, seed=0, mesh=mesh,
+                 torch_device=DEVICE)
+    torch.cuda.synchronize()
+    r = dict(arch=arch, layers=L, build_s=time.perf_counter() - t0,
+             state_gb=torch.cuda.memory_allocated() / 1e9,
+             split_leaves=sorted(k for k, v in tr.model_split.items() if v),
+             reduced=[f"global batch 256 -> {TRAIN_BATCH} sequences"] + (
+                 [f"{spec.model.n_layers} -> {L} layers"]
+                 if L != spec.model.n_layers else []))
+    flash_attention.launches = flash_attention.bwd_launches = 0
+    flash_attention.shapes.clear()
+    flash_attention.bwd_shapes.clear()
+    arm, state, restore = mesh16_capture()
+    steps = []
+    try:
+        for i in range(conf["steps"]):
+            before = (flash_attention.launches, flash_attention.bwd_launches)
+            arm(i == 0)
+            hist = tr.train(1, log_every=1)
+            arm(False)
+            fwd = flash_attention.launches - before[0]
+            bwd = flash_attention.bwd_launches - before[1]
+            steps.append(dict(loss=hist["loss"][0],
+                              grad_norm=hist["grad_norm"][0],
+                              ms=hist["seconds"][0] * 1e3, flash_fwd=fwd,
+                              flash_bwd=bwd))
+            if (fwd, bwd) != (2 * L, L):
+                fail(f"{arch} on the mesh: step {i + 1} launched the flash "
+                     f"kernels {fwd} (forward) and {bwd} (backward) times, "
+                     f"not {2 * L} and {L}")
+    finally:
+        restore()
+    r["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    r["fwd_shapes"] = [list(k) + [n] for k, n in
+                       flash_attention.shapes.items()]
+    r["bwd_shapes"] = [list(k) + [n] for k, n in
+                       flash_attention.bwd_shapes.items()]
+    if not all(math.isfinite(s["loss"]) for s in steps):
+        fail(f"{arch} on the mesh: losses {[s['loss'] for s in steps]}")
+    r["captured"] = mesh16_check_captured(state, f"{arch} on the mesh")
+    del state
+    med = statistics.median(s["ms"] for s in steps[1:])
+    r.update(steps=steps, step_ms_median=med,
+             tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / (med / 1e3))
+    profiled_step(tr, r)
+    if conf.get("unfused_steps"):
+        # the unfused expert-parallel path on the same parameters and state
+        tr.cfg = cfg.replace(moe_fused_ep=False)
+        tr.step_fn = build_mesh_train_step(tr.cfg, spec.optimizer, mesh,
+                                           tr.p_shard, tr.model_split)
+        hist = tr.train(conf["unfused_steps"], log_every=1)
+        r["unfused"] = dict(loss=hist["loss"], grad_norm=hist["grad_norm"],
+                            ms=[s * 1e3 for s in hist["seconds"]])
+        if not all(math.isfinite(x) for x in hist["loss"]):
+            fail(f"{arch} unfused on the mesh: losses {hist['loss']}")
+    log(f"  {arch} ({L} layers) on the (data 1, model 2) mesh: losses "
+        f"{[round(s['loss'], 5) for s in steps]}, step {med:.1f} ms "
+        f"(median of steps 2-{conf['steps']}), "
+        f"{r['tokens_per_s']:.0f} tokens/s, peak allocated "
+        f"{r['peak_allocated_gb']:.2f} GB on this rank, idle share "
+        f"{r['profiled_step']['idle_share']:.4f}; flash launches a step "
+        f"{2 * L} / {L} at {r['fwd_shapes']}"
+        + (f"; unfused step {r['unfused']['ms']} ms, loss "
+           f"{r['unfused']['loss']}" if "unfused" in r else ""))
+    del tr
+    free_device_memory()
+    return r
+
+
+def mesh16_f32(mesh, arch, n_layers, rank):
+    """`arch` at full width, `n_layers` layers, float32, S 512, B1: the
+    two-rank step's loss and every gradient leaf (gathered whole) against
+    the meshless step on the same weights and batch (rank 0 compares).
+    Limits as phase 14's float32 replays: the loss within max(1e-5, twice
+    two plain replays' gap) relative, each leaf within max(1e-4, twice
+    its own gap) of its max|grad|; these archs do not scan, so the plain
+    replays' gap is 0 and the limits are 1e-5 and 1e-4."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import (Trainer, _from_local, _gather,
+                                          build_mesh_grad_fn)
+    from repro_torch.models import transformer as T
+    cfg = get_arch(arch).model.replace(n_layers=n_layers, dtype="float32")
+    free_device_memory()
+    tr = Trainer(cfg, seq_len=TRAIN_SMALL_SEQ, global_batch=1, seed=0,
+                 mesh=mesh, torch_device=DEVICE)
+    batch = tr.batch(0)
+    grad_fn = build_mesh_grad_fn(cfg, mesh, tr.p_shard, tr.model_split)
+    metrics, grads = grad_fn(tr.params, batch)
+    sh = tree.flatten(tr.p_shard)
+    whole = {k: _gather(_from_local(g, sh[k]), ())
+             for k, g in tree.flatten(grads).items()}
+    loss_m = float(metrics["loss"])
+    del tr, grads
+    out = dict(arch=arch, layers=n_layers, seq_len=TRAIN_SMALL_SEQ,
+               loss=loss_m)
+    if rank == 0:
+        params = tree.requires_grad_(T.init_params(cfg, 0, DEVICE).tree())
+        total, m = T.forward_train(params, cfg, batch)
+        flat = tree.flatten(params)
+        g = dict(zip(flat, torch.autograd.grad(total, list(flat.values()))))
+        loss_p = float(m["loss"])
+        rel = abs(loss_m - loss_p) / abs(loss_p)
+        errs = {k: float((whole[k] - g[k]).abs().max()
+                         / g[k].abs().max().clamp_min(1e-30)) for k in g}
+        worst = max(errs, key=errs.get)
+        out.update(loss_meshless=loss_p, loss_rel_err=rel, loss_limit=1e-5,
+                   leaves=len(errs), leaf_limit=1e-4, worst_leaf=worst,
+                   worst_leaf_rel_err=errs[worst],
+                   worst_leaves=sorted(errs.items(), key=lambda kv: -kv[1])
+                   [:5])
+        log(f"  {arch} float32 ({n_layers} layer, S {TRAIN_SMALL_SEQ}): the "
+            f"two-rank step's loss {loss_m:.6f} against the meshless "
+            f"{loss_p:.6f} (relative {rel:.2e}, limit 1e-5); of "
+            f"{len(errs)} gradient leaves the farthest {worst} "
+            f"{errs[worst]:.2e} of its max|grad| (limit 1e-4)")
+        if rel > 1e-5 or errs[worst] > 1e-4:
+            fail(f"{arch}: the two-rank float32 step differs from the "
+                 f"meshless step: loss {rel:.2e}, leaves "
+                 f"{[(k, e) for k, e in errs.items() if e > 1e-4]}")
+        del params, g
+    del whole
+    free_device_memory()
+    return out
+
+
+def mesh16_rank(rank, port, out_path):
+    """One rank of phase 16: joins the gloo group, runs MESH16_RUNS and
+    MESH16_F32 on the (data 1, model 2) mesh, writes its record as JSON
+    to `out_path`.  Returns 0; a failed check exits non-zero."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    res = dict(rank=rank, backend=dist.get_backend())
+    try:
+        mesh = make_mesh(MESH16_SHAPE, ("data", "model"), device=DEVICE)
+        res["runs"] = {arch: mesh16_train(mesh, arch, conf)
+                       for arch, conf in MESH16_RUNS.items()}
+        res["f32"] = {arch: mesh16_f32(mesh, arch, n, rank)
+                      for arch, n in MESH16_F32.items()}
+    finally:
+        dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(res, default=str))
+    return 0
+
+
+def phase_mesh16(rec):
+    """Phase 16: two processes on the one card (this script with
+    --mesh-rank 0 and 1), a gloo group over CUDA tensors on a (data 1,
+    model 2) mesh; every process started is stopped before it returns.
+    The kernels are built already (phase 0), so the ranks only load them.
+    Returns rank 0's record, both ranks' losses held equal."""
+    import shutil
+    import socket
+    t_phase = time.perf_counter()
+    free_device_memory()
+    shutil.rmtree(MESH16_DIR, ignore_errors=True)
+    MESH16_DIR.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], []
+    for r in range(2):
+        f = open(MESH16_DIR / f"rank{r}.log", "w+")
+        logs.append(f)
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+             str(r), "--mesh-port", str(port), "--mesh-out",
+             str(MESH16_DIR / f"rank{r}.json")],
+            stdout=f, stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + MESH16_TIMEOUT
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if any(c not in (None, 0) for c in codes) \
+                    or time.monotonic() > deadline:
+                break
+            if all(c == 0 for c in codes):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    codes = [p.returncode for p in procs]
+    for line in texts[0].splitlines():
+        if line.startswith("  "):
+            log(f"  [rank 0]{line}")
+    if codes != [0, 0]:
+        bad = next((i for i, c in enumerate(codes) if c != 0), 0)
+        fail(f"phase 16: ranks exited {codes} (timeout {MESH16_TIMEOUT} s)"
+             f"; rank {bad}'s last output:\n{texts[bad][-3000:]}")
+    recs = [json.loads((MESH16_DIR / f"rank{r}.json").read_text())
+            for r in range(2)]
+    for arch in MESH16_RUNS:
+        a, b = (rc["runs"][arch] for rc in recs)
+        if [s["loss"] for s in a["steps"]] != [s["loss"] for s in b["steps"]]:
+            fail(f"phase 16: {arch}'s ranks report different losses")
+    out = dict(rank0=recs[0], rank1_peak_gb={
+        arch: recs[1]["runs"][arch]["peak_allocated_gb"]
+        for arch in MESH16_RUNS}, rank1_idle={
+        arch: recs[1]["runs"][arch]["profiled_step"]["idle_share"]
+        for arch in MESH16_RUNS}, seconds=time.perf_counter() - t_phase)
+    for arch in MESH16_RUNS:
+        r0 = recs[0]["runs"][arch]
+        log(f"  {arch}: peak allocated {r0['peak_allocated_gb']:.2f} / "
+            f"{out['rank1_peak_gb'][arch]:.2f} GB, idle share "
+            f"{r0['profiled_step']['idle_share']:.4f} / "
+            f"{out['rank1_idle'][arch]:.4f} (rank 0 / rank 1)")
+    rec["mesh16"] = out
+    log(f"  phase 16 took {out['seconds']:.1f} s")
+    shutil.rmtree(MESH16_DIR, ignore_errors=True)
+    return out
+
+
 def ptxas_report(text):
     """Per kernel instance in one nvcc -Xptxas -v log: its demangled-ish
     name (the template arguments kept), registers, spill bytes and static
@@ -5252,6 +5639,13 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--record", type=Path, default=None,
                     help="write the detailed record to this JSON file")
+    # phase 16 starts this script once a rank with these
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", type=Path, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     # the allocator maps and unmaps pages of one growing segment, so a
     # small tensor left behind cannot pin a freed model's whole segment:
@@ -5274,6 +5668,8 @@ def main():
               "run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(src))
+    if args.mesh_rank is not None:
+        return mesh16_rank(args.mesh_rank, args.mesh_port, args.mesh_out)
     from repro_torch.kernels import _build
     from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_scatter
     from repro_torch.kernels.vta_gemm import vta_gemm
@@ -5502,12 +5898,13 @@ def main():
 
     # ---- phase 14: training (counts from 0 before the run) --------------
     log("phase 14: training (llama3.2-3b, zamba2-1.2b and xlstm-1.3b at "
-        f"full width and depth, bf16 and AdamW, B{TRAIN_BATCH} "
+        f"full width, xlstm at 24 of 48 layers, bf16 and AdamW, "
+        f"B{TRAIN_BATCH} "
         f"S{TRAIN_SEQ}, Trainer), float32 replays, checkpoint round trips, "
         "and the flash and gla_chunk backward kernels")
     free_device_memory()
     counters.clear_shapes()
-    tr, fb_rows, fb_err, gb_rows, gb_err = phase_train(rec, counters)
+    tr, fb_shapes, gb_rows, gb_err = phase_train(rec, counters)
     train_launches = tr["llama"]["launches"]
     if train_launches["flash_attention"] <= 0 \
             or tr["llama"]["bwd_launches"] <= 0:
@@ -5550,6 +5947,22 @@ def main():
         train_gla_shapes[sh] = train_gla_shapes.get(sh, 0) + n
     rec["mesh_shapes"] = {k: [list(sh) + [n] for sh, n in v.items()]
                           for k, v in counters.shapes.items()}
+
+    # ---- phase 16: tensor and expert parallelism (each rank's counts
+    # from 0 before each run) --------------------------------------------
+    log("phase 16: llama3.2-3b (tensor-parallel) and phi3.5-moe at 2 layers "
+        "(expert-parallel) trained at full width through "
+        "Trainer(mesh=(1, 2) data x model) on two gloo ranks of this card, "
+        "the float32 replays against the meshless Trainer")
+    m16 = phase_mesh16(rec)
+    m16_runs = m16["rank0"]["runs"]
+    for r in m16_runs.values():
+        # the local shapes: forward timed in phase 7, backward below
+        for *sh, n in r["fwd_shapes"]:
+            flash_shapes[tuple(sh)] = flash_shapes.get(tuple(sh), 0) + n
+        for *sh, n in r["bwd_shapes"]:
+            fb_shapes[tuple(sh)] = fb_shapes.get(tuple(sh), 0) + n
+    fb_rows, fb_err = phase_flash_bwd_kernel(rec, fb_shapes)
 
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
@@ -5770,7 +6183,46 @@ def main():
         bound_by=gb["bound_by"], library_ms=None, checked=True,
         shape={k: gb[k] for k in ("B", "S", "H", "N", "P", "chunk",
                                    "qk_dtype", "qk_heads")}))
+    # the wide kernel (D above 128): no config launches it; each of its
+    # timed shapes is in the record and on the lines above, the line
+    # reports D 256 in bfloat16
+    fw = next(r for r in f_rows if r.get("kernel") == FLASH_WIDE_NAME
+              and r["D"] == 256 and r["dtype"] == "bfloat16")
+    bw = next(r for r in fb_rows if r["D"] > FLASH_MAX_D
+              and r["dtype"] == "bfloat16")
+    wide_src = "src/repro_torch/kernels/flash_attention/csrc/flash_wide.cu"
+    kernels += [
+        dict(name="flash_attention_wide", route="cuda", source=wide_src,
+             replaces="src/repro/kernels/flash_attention/kernel.py:76",
+             kernel=FLASH_WIDE_NAME, launches=0,
+             max_abs_err=max(r["max_abs_err"] for r in f_rows
+                             if r.get("kernel") == FLASH_WIDE_NAME),
+             ms=fw["ms"], call_ms=fw["call_ms"], plain_ms=fw["plain_ms"],
+             bound_ms=fw["bound_ms"], bound_by=fw["bound_by"],
+             library_ms=fw["library_ms"], checked=True,
+             shape={k: fw[k] for k in ("B", "S", "Sk", "HQ", "KH", "D",
+                                        "causal", "dtype")}),
+        dict(name="flash_attention_wide_bwd", route="cuda", source=wide_src,
+             replaces="src/repro/kernels/flash_attention/ref.py:18",
+             replaces_what="no TPU kernel: jax.value_and_grad of the "
+                           "reference's attention_ref",
+             kernel=FLASH_WIDE_BWD_NAME, launches=0,
+             max_abs_err=bw["err_vs_plain"], ms=bw["ms"],
+             call_ms=bw["call_ms"], plain_ms=bw["plain_ms"],
+             bound_ms=bw["bound_ms"], bound_by=bw["bound_by"],
+             library_ms=bw["library_ms"],
+             library_what="scaled_dot_product_attention's backward alone",
+             checked=True,
+             shape={k: bw[k] for k in ("B", "S", "Sk", "HQ", "KH", "D",
+                                        "causal", "dtype")}),
+    ]
     for kern in kernels:
+        if kern["name"] in ("flash_attention", "flash_attention_bwd"):
+            key = "flash_fwd" if kern["name"] == "flash_attention" \
+                else "flash_bwd"
+            kern["mesh16_train_launches"] = {
+                a: sum(st[key] for st in r["steps"])
+                for a, r in m16_runs.items()}
         if kern["name"] == "flash_attention":
             kern["train_launches"] = train_launches["flash_attention"]
             kern["zamba2_train_launches"] = \

@@ -16,16 +16,102 @@ takes a ``DeviceMesh`` or a plain ``{axis: size}`` mapping.
 ``Replicate()`` on the rest.  The same spec tree shards optimizer
 states (they mirror params) and is what restore-time resharding
 (elastic restart) targets.
+
+The specs say where a leaf is stored.  :func:`model_split_leaves` says
+where the port's layers compute it split over "model" (tensor and
+expert parallelism): attention where the split falls on heads
+(``HQ % tp == 0`` and ``KH % tp == 0``), an MLP where its hidden width
+divides, the vocab (embedding rows, ``lm_head`` columns) where it
+divides, the moe layer's experts where ``E % tp == 0``.  Every other
+leaf the specs shard on "model" (a head split that falls inside a head,
+the generic fallback) is gathered whole over "model" before use, and
+its compute is replicated over the model ranks, with the same values.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Dict, Optional, Tuple
 
-from repro_torch.models.config import ModelConfig
 from repro_torch.tree import flatten, is_node, map_tree, unflatten
 
 from .meshctx import MeshLike, axis_sizes, placements_of
+
+if TYPE_CHECKING:     # the model code imports this module
+    from repro_torch.models.config import ModelConfig
+
+# ----------------------------------------------------------------------
+# where the layers compute split over the "model" axis
+# ----------------------------------------------------------------------
+def heads_split(cfg: ModelConfig, tp: int) -> bool:
+    """Attention runs on HQ/tp query and KH/tp KV heads a rank."""
+    return tp > 1 and cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp == 0
+
+
+def hidden_split(f: int, tp: int) -> bool:
+    """An MLP of hidden width f runs column-parallel in, row-parallel
+    out."""
+    return tp > 1 and f % tp == 0
+
+
+def vocab_split(cfg: ModelConfig, tp: int) -> bool:
+    """The embedding lookup, the logits and the loss run on V/tp rows of
+    the vocab a rank."""
+    return tp > 1 and cfg.vocab_size % tp == 0
+
+
+def experts_split(cfg: ModelConfig, tp: int) -> bool:
+    """The moe layer runs E/tp experts a rank (expert parallelism)."""
+    return tp > 1 and cfg.moe_experts > 0 and cfg.moe_experts % tp == 0
+
+
+def shared_expert_width(cfg: ModelConfig) -> int:
+    return cfg.n_shared_experts * (cfg.moe_d_ff or cfg.d_ff)
+
+
+def _leaf_split(path: str, cfg: ModelConfig, tp: int) -> bool:
+    if path.startswith("embed/tokens") or path.startswith("lm_head"):
+        return vocab_split(cfg, tp)
+    parts = path.split("/")
+    if parts[-1] == "w":
+        parts = parts[:-1]
+    if len(parts) < 2:
+        return False
+    owner, last = parts[-2], parts[-1]
+    if "shared" in parts and "moe" in parts:
+        return last in ("wi", "wg", "wo") and hidden_split(
+            shared_expert_width(cfg), tp)
+    if owner == "moe" and last in ("wi", "wg", "wo"):
+        return experts_split(cfg, tp)
+    if owner in ("attn", "cross") and last in ("wq", "wk", "wv", "wo"):
+        return heads_split(cfg, tp)
+    if owner == "mlp" and last in ("wi", "wg", "wo"):
+        return hidden_split(cfg.d_ff, tp)
+    return False
+
+
+def model_split_leaves(spec_tree: Any, cfg: ModelConfig,
+                       mesh: MeshLike) -> Dict[str, bool]:
+    """{leaf path: whether the layers compute it split over the "model"
+    axis} for a tree of specs (``param_specs``).  No leaf is split where
+    the mesh's "model" axis has size 1 or is one of the config's data
+    axes (the recurrent archs' ``dp_over_model``).  Raises ValueError
+    where a layer would compute a leaf split that its spec does not shard
+    on "model"."""
+    sizes = axis_sizes(mesh)
+    sc = cfg.sharding
+    model = sc.model_axis
+    tp = sizes.get(model, 1) if model not in sc.data_axes else 1
+    out = {}
+    for path, spec in flatten(spec_tree).items():
+        split = _leaf_split(path, cfg, tp)
+        if split and not any(e == model or (isinstance(e, tuple)
+                                            and model in e) for e in spec):
+            raise ValueError(f"{path}: the layers compute it split over "
+                             f"{model!r} ({tp}), but its spec {spec} does "
+                             f"not shard it there")
+        out[path] = split
+    return out
+
 
 Spec = Tuple[Any, ...]
 

@@ -2,7 +2,11 @@
 are at the top of each source): ``csrc/flash_wgmma.cu`` for bfloat16
 operands (wgmma and TMA) and ``csrc/flash_tf32x3.cu`` for float32 ones
 (mma.sync in 3xTF32), and the backward of both, ``csrc/flash_bwd.cu``
-(:func:`flash_attention_bwd_cuda`).  :func:`route` picks one by dtype,
+(:func:`flash_attention_bwd_cuda`), all for D up to 128; and
+``csrc/flash_wide.cu`` (forward and backward, either dtype, on the CUDA
+cores) for 128 < D <= 256 (:func:`flash_wide_cuda`,
+:func:`flash_wide_bwd_cuda`).  :func:`head_dim_plan` says which takes a
+head dim and to what D the op zero-pads it, :func:`route` picks one by dtype,
 :func:`wgmma_plan` turns the operands' shapes and strides into the
 tensor maps of the bfloat16 kernel, :func:`flash_f32_plan` sizes the
 float32 kernel's tiles and :func:`flash_bwd_plan` checks and pads the
@@ -13,14 +17,16 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
 from .. import _build
 
-#: the largest head dim either kernel is instantiated for
+#: the largest head dim the tensor-core kernels are instantiated for
 MAX_D = 128
+#: the largest head dim of the op (flash_wide.cu above MAX_D)
+WIDE_MAX_D = 256
 #: log2(e): the bf16 kernel's exponentials are exp2 of log2e-scaled scores
 LOG2E = 1.4426950408889634
 
@@ -30,6 +36,30 @@ LOG2E = 1.4426950408889634
 SMS = 132
 #: the most shared memory a block may use (bytes)
 SMEM_MAX = 232448
+
+
+class HeadDimPlan(NamedTuple):
+    """Which kernels take head dim D ("tensor": wgmma / tf32x3 and
+    flash_bwd.cu; "wide": flash_wide.cu) and the D the op zero-pads q, k
+    and v to for them (the output and gradients are sliced back; zero
+    columns add nothing to q k^T, and the scale stays 1/sqrt(D))."""
+    kernels: str
+    dp: int
+
+
+def head_dim_plan(D: int, dtype: torch.dtype) -> HeadDimPlan:
+    """The plan for head dim D: up to MAX_D the tensor-core kernels, D
+    padded to a multiple of 16 (bfloat16) or 4 (float32); up to
+    WIDE_MAX_D flash_wide.cu, unpadded.  Raises ValueError above
+    WIDE_MAX_D.  The dtype is checked by the kernels' wrappers (the
+    forward's TypeError, the backward's ValueError), not here."""
+    step = 16 if dtype == torch.bfloat16 else 4
+    if 1 <= D <= MAX_D:
+        return HeadDimPlan("tensor", -(-D // step) * step)
+    if MAX_D < D <= WIDE_MAX_D:
+        return HeadDimPlan("wide", D)
+    raise ValueError(f"flash_attention takes head dims 1 to {WIDE_MAX_D}, "
+                     f"got {D}")
 
 
 def route(dtype: torch.dtype) -> str:
@@ -129,7 +159,7 @@ def _launcher(name, argtypes):
     return fn
 
 
-def _tf32x3(q, k, v, out, lse, causal):
+def _tf32x3(q, k, v, out, lse, causal, scale):
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
     plan = flash_f32_plan(B, S, Sk, HQ, KH, D, bool(causal))
@@ -151,15 +181,15 @@ def _tf32x3(q, k, v, out, lse, causal):
     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
               _ptr(lse), B, HQ, KH, S, Sk, D,
               ctypes.cast(strides, ctypes.c_void_p), int(causal),
-              float(1.0 / math.sqrt(D)), plan.bq, plan.bk, plan.stages,
-              plan.smem, stream)
+              float(1.0 / math.sqrt(D) if scale is None else scale),
+              plan.bq, plan.bk, plan.stages, plan.smem, stream)
 
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def _wgmma(q, k, v, out, lse, causal):
+def _wgmma(q, k, v, out, lse, causal, scale):
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
     dims, strides = wgmma_plan(q, k, v)
@@ -173,11 +203,13 @@ def _wgmma(q, k, v, out, lse, causal):
               _ptr(lse), B, HQ, KH, S, Sk, D,
               ctypes.cast(c_dims, ctypes.c_void_p),
               ctypes.cast(c_strides, ctypes.c_void_p), int(causal),
-              float(LOG2E / math.sqrt(D)), stream)
+              float(LOG2E / math.sqrt(D) if scale is None
+                    else LOG2E * scale), stream)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool, with_lse: bool = False):
+                         causal: bool, with_lse: bool = False,
+                         scale: Optional[float] = None):
     """q (B, S, HQ, D), k and v (B, Sk, KH, D) on one CUDA device, of one
     dtype.  bfloat16 launches the wgmma kernel (D a multiple of 16,
     strides and base multiples of 16 bytes), float32 the 3xTF32 kernel (D
@@ -186,7 +218,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns out (B, S, HQ, D) in q's dtype, contiguous; with `with_lse`,
     (out, L): the kernel also writes each query row's log-sum-exp of its
     scaled scores, L (B, HQ, S) float32, +inf for a row that sees no key
-    (the output is bitwise the same either way)."""
+    (the output is bitwise the same either way).  `scale` multiplies the
+    scores (default 1/sqrt(D); the op passes the unpadded D's)."""
     B, S, HQ, D = q.shape
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention takes q, k and v of one dtype, "
@@ -199,8 +232,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lse = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
     if out.numel():
-        err = (_wgmma if which == "wgmma" else _tf32x3)(q, k, v, out, lse,
-                                                        causal)
+        err = (_wgmma if which == "wgmma" else _tf32x3)(
+            q, k, v, out, lse, causal, scale)
         _build.check(err, f"flash_attention ({which})")
     return (out, lse) if with_lse else out
 
@@ -243,7 +276,7 @@ def _bwd_operand(t: torch.Tensor) -> torch.Tensor:
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, lse: torch.Tensor,
-                             causal: bool
+                             causal: bool, scale: Optional[float] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The gradient of flash_attention on the card: q, o (the forward's
@@ -253,7 +286,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     float32.  Launches ``csrc/flash_bwd.cu``'s three kernels (Delta, dk
     and dv, dq) and returns (dq, dk, dv), contiguous, in the operands'
     dtype.  Scratch: each row's (L, Delta), 2 B HQ S float32 (S rounded up
-    to a multiple of ROW_PAD)."""
+    to a multiple of ROW_PAD).  `scale` as in flash_attention_cuda."""
     if len({t.dtype for t in (q, k, v, o, do)}) != 1 \
             or q.dtype not in (torch.float32, torch.bfloat16):
         # the mixed route (a bfloat16 query over float32 K/V) included
@@ -279,6 +312,73 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
              do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              lse.data_ptr(), ld.data_ptr(), B, S, Sk, HQ, KH, D,
              int(causal), int(plan.route == "tf32x3"), plan.dp,
-             float(1.0 / math.sqrt(D)), stream)
+             float(1.0 / math.sqrt(D) if scale is None else scale), stream)
     _build.check(err, f"flash_attention backward ({plan.route})")
+    return dq, dk, dv
+
+
+def _wide_operands(*ts: torch.Tensor):
+    dt = ts[0].dtype
+    if any(t.dtype != dt for t in ts) or dt not in (torch.float32,
+                                                    torch.bfloat16):
+        raise ValueError(f"flash_wide takes operands of one dtype, float32 "
+                         f"or bfloat16, got {[str(t.dtype) for t in ts]}")
+    if not MAX_D < ts[0].shape[-1] <= WIDE_MAX_D:
+        raise ValueError(f"flash_wide takes {MAX_D} < D <= {WIDE_MAX_D}, "
+                         f"got {ts[0].shape[-1]}")
+    return [t.contiguous() for t in ts]
+
+
+def flash_wide_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool, with_lse: bool = False,
+                    scale: Optional[float] = None):
+    """``csrc/flash_wide.cu``'s forward: as :func:`flash_attention_cuda`
+    for MAX_D < D <= WIDE_MAX_D (ValueError else), one launch; the
+    operands are read contiguous (copied where they are not)."""
+    q, k, v = _wide_operands(q, k, v)
+    B, S, HQ, D = q.shape
+    _, Sk, KH, _ = k.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    if out.numel():
+        fn = _launcher("flash_wide", [ctypes.c_void_p] * 5
+                       + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _ptr(lse), B, HQ, KH, S, Sk, D, int(causal),
+                 int(q.dtype == torch.bfloat16),
+                 float(1.0 / math.sqrt(D) if scale is None else scale),
+                 stream)
+        _build.check(err, "flash_attention (wide)")
+    return (out, lse) if with_lse else out
+
+
+def flash_wide_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        causal: bool, scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``csrc/flash_wide.cu``'s backward from the forward's L: (dq, dk,
+    dv) in the operands' dtype, three launches (Delta, dq, dk dv);
+    scratch: Delta, (B, HQ, S) float32."""
+    q, k, v, o, do = _wide_operands(q, k, v, o, do)
+    lse = lse.contiguous()
+    B, S, HQ, D = q.shape
+    _, Sk, KH, _ = k.shape
+    if min(B, S, Sk, HQ) == 0:
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device)
+    fn = getattr(_build.load("flash_wide"), "flash_wide_bwd_launch")
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
+        + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             lse.data_ptr(), delta.data_ptr(), B, HQ, KH, S, Sk, D,
+             int(causal), int(q.dtype == torch.bfloat16),
+             float(1.0 / math.sqrt(D) if scale is None else scale), stream)
+    _build.check(err, "flash_attention backward (wide)")
     return dq, dk, dv

@@ -27,14 +27,25 @@ forward takes; anything else raises ValueError before any launch), any
 other device raises.  The Function saves q, k, v, the output and L.
 Otherwise (serving) the Function is not entered, nothing is saved and no
 L is written.  Backward launches are counted apart from the forward's.
+
+Every head dim D from 1 to 256 runs on the card (``kernel.head_dim_plan``):
+up to 128 the tensor-core kernels, q, k and v zero-padded here to a
+multiple of 16 (bfloat16) or 4 (float32) where D is not one, the scale
+kept at 1/sqrt(D) and the output and gradients sliced back (exact: zero
+columns add nothing to q k^T, and the padded columns of the output and of
+dq, dk, dv are zero); above 128 the wide kernel (``csrc/flash_wide.cu``),
+forward and backward.  D above 256 raises ValueError.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
-from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .kernel import (flash_attention_bwd_cuda, flash_attention_cuda,
+                     flash_wide_bwd_cuda, flash_wide_cuda, head_dim_plan)
 from .ref import (attention_bwd_ref, attention_lse_ref, attention_ref,
                   attention_ref_chunked)
 
@@ -77,6 +88,42 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _from_heads(out, B)
 
 
+def _pad(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """t with its last dim zero-padded to dp (t itself where it is dp)."""
+    return t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))
+
+
+def _cuda_forward(q, k, v, causal, with_lse):
+    """The kernel of q's head dim (``kernel.head_dim_plan``), on operands
+    of one dtype, padded and sliced back as the plan says."""
+    D = q.shape[-1]
+    plan = head_dim_plan(D, q.dtype)
+    if plan.kernels == "wide":
+        return flash_wide_cuda(q, k, v, causal, with_lse)
+    if plan.dp == D:
+        return flash_attention_cuda(q, k, v, causal, with_lse)
+    out = flash_attention_cuda(*(_pad(t, plan.dp) for t in (q, k, v)),
+                               causal, with_lse, scale=1.0 / math.sqrt(D))
+    if with_lse:
+        return out[0][..., :D].contiguous(), out[1]
+    return out[..., :D].contiguous()
+
+
+def _cuda_backward(q, k, v, o, do, lse, causal):
+    """The backward kernels of q's head dim, padded and sliced back as
+    ``kernel.head_dim_plan`` says."""
+    D = q.shape[-1]
+    plan = head_dim_plan(D, q.dtype)
+    if plan.kernels == "wide":
+        return flash_wide_bwd_cuda(q, k, v, o, do, lse, causal)
+    if plan.dp == D:
+        return flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+    grads = flash_attention_bwd_cuda(
+        *(_pad(t, plan.dp) for t in (q, k, v, o, do)), lse, causal,
+        scale=1.0 / math.sqrt(D))
+    return tuple(g[..., :D].contiguous() for g in grads)
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, with_lse: bool = False):
     """The output, or (output, L (B, HQ, S) float32) with `with_lse`."""
@@ -91,13 +138,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention has no kernel for device {dev}")
     names = [str(t.dtype).split(".")[-1] for t in (q, k, v)]
     if len(set(names)) == 1:
-        out = flash_attention_cuda(q, k, v, causal, with_lse)
+        out = _cuda_forward(q, k, v, causal, with_lse)
         dtype = names[0]
     else:
         # the reference's promotion: bfloat16 is exact in float32
         up = [t.float() if t.dtype == torch.bfloat16 else t
               for t in (q, k, v)]
-        out = flash_attention_cuda(*up, causal, with_lse)
+        out = _cuda_forward(*up, causal, with_lse)
         out = (out[0].to(q.dtype), out[1]) if with_lse else out.to(q.dtype)
         dtype = f"{names[0]}/{names[1]}"
     if q.numel():                   # an empty output launches nothing
@@ -153,7 +200,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("the flash_attention backward kernel takes the "
                          "forward's log-sum-exp (lse, from "
                          "flash_attention_fwd)")
-    grads = flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
+    grads = _cuda_backward(q, k, v, o, do, lse, causal)
     if min(B, S, k.shape[1], HQ):   # an empty operand launches nothing
         flash_attention.bwd_launches += 1
         key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal),

@@ -9,19 +9,36 @@ backward and the Mamba2 and mLSTM scans' the gla_chunk op's, each a
 hand-written kernel on the card.  Every config trains.  Parameters and
 optimizer state are updated in place.
 
-``Trainer(mesh=, fsdp=)`` is the data-parallel mesh path: one process a
-rank (the caller makes the process group: ``nccl`` on the card, ``gloo``
-on the CPU) over a ``DeviceMesh`` whose "model" axis, if any, has size 1
-(tensor and expert parallelism are ROADMAP Queue 1 item 6b).  Parameters
-and the AdamW moments live as DTensors under ``param_specs`` /
-``opt_state_specs``: replicated on the data axes, or sharded on them
-with ``fsdp=True`` (ZeRO-3).  A step (:func:`build_mesh_train_step`)
-takes this rank's rows of the global batch (``batch_specs``), gathers
-each parameter whole into a plain tensor (the model and the kernels see
-plain tensors only), takes the gradient, reduces it over the data axes
-to each leaf's placement as a mean (leaf by leaf, in path order),
-clips by the global norm of the whole reduced gradient, and updates each
-rank's shard in place.  The CLI has no mesh flag, as the reference's.
+``Trainer(mesh=, fsdp=)`` is the mesh path: one process a rank (the
+caller makes the process group: ``nccl`` on separate cards, ``gloo`` on
+the CPU or for ranks that share one card) over a ``DeviceMesh`` with
+data axes and a "model" axis.  Parameters and the optimizer's moments
+live as DTensors under ``param_specs`` / ``opt_state_specs``: sharded on
+"model" (tensor and expert parallelism) where the specs say so, and
+replicated on the data axes or, with ``fsdp=True``, sharded on them
+(ZeRO-3).  A step (:func:`build_mesh_train_step`) takes this rank's rows
+of the global batch (``batch_specs``) and gathers each parameter into a
+plain tensor over every mesh axis but "model" for the leaves the layers
+compute split over it (``sharding.model_split_leaves``: attention heads,
+MLP hidden widths, the vocab, the experts), which stay this rank's
+slice; the layers run the collectives over "model" themselves
+(``distributed/meshctx.py``).  The mesh is the layers' ambient mesh only
+inside the step (``meshctx.use_mesh``): the Trainer sets none for the
+process, so a model call outside a step computes on whole weights, as on
+one device.  The gradient is then reduced over the
+axes that split the batch to each leaf's placement as a mean (leaf by
+leaf, in path order): a leaf the layers compute split already has its
+rank's slice of the gradient, and a leaf replicated over "model" has its
+whole gradient on every model rank, so neither is summed over "model"
+unless "model" splits the batch (the recurrent archs'
+``dp_over_model``, where the config lists "model" among its data axes
+and every model-sharded leaf is gathered whole).  Clipping takes the
+global norm of the whole reduced gradient, and each rank updates its
+shard in place (Adafactor's factored means and update clip reduced over
+the leaf's shards).  The gathers and reductions are
+``torch.distributed``'s collectives on plain tensors (``meshctx``),
+never DTensor's functional ones, so two ``gloo`` ranks can share one card.
+The CLI has no mesh flag, as the reference's.
 
 Usage:
   python -m repro_torch.launch.train --arch llama3.2-3b --steps 4 \\
@@ -38,7 +55,6 @@ Without ``--device`` it runs on the card.
 from __future__ import annotations
 
 import argparse
-import math
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -53,7 +69,9 @@ from repro_torch.core.driver import TorchDeviceLike, resolve_torch_device
 from repro_torch.data import DataConfig, SyntheticLMDataset
 from repro_torch.distributed import meshctx
 from repro_torch.distributed.fault_tolerance import StepWatchdog
-from repro_torch.distributed.sharding import (batch_specs, named_shardings,
+from repro_torch.distributed.sharding import (batch_specs,
+                                              model_split_leaves,
+                                              named_shardings,
                                               opt_state_specs, param_specs)
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
@@ -70,8 +88,8 @@ def build_train_step(cfg: ModelConfig, optimizer: str, peak_lr: float = 3e-4,
     opt_init, opt_update = make_optimizer(optimizer)
 
     def train_step(params, opt_state, batch, step):
-        loss, metrics = T.forward_train(params, cfg, batch)
         flat = flatten(params)
+        loss, metrics = T.forward_train(params, cfg, batch)
         grads = unflatten(params, dict(zip(flat, torch.autograd.grad(
             loss, list(flat.values())))))
         grads, gnorm = clip_by_global_norm(grads, 1.0)
@@ -133,32 +151,58 @@ def _distribute(full: torch.Tensor, sharding):
     return _from_local(local, sharding)
 
 
+def _gather(v, keep: Tuple[int, ...]) -> torch.Tensor:
+    """The DTensor v as a plain tensor gathered over every mesh dim it is
+    sharded on but those in `keep` (minor dims first, so that two mesh
+    dims sharding one tensor dim come back in order)."""
+    from torch.distributed.tensor import Shard
+    mesh = v.device_mesh
+    local = v.to_local()
+    for i in reversed(range(mesh.ndim)):
+        pl = v.placements[i]
+        if isinstance(pl, Shard) and i not in keep and mesh.size(i) > 1:
+            ax = meshctx.axis_of(mesh, mesh.mesh_dim_names[i])
+            local = meshctx.all_gather_blocks(local, ax, pl.dim)
+    return local.contiguous()
+
+
 def _reduce_grad(g: torch.Tensor, sharding, split: Tuple[int, ...],
-                 n: int) -> torch.Tensor:
-    """This rank's shard of the mean gradient: `g` (the whole leaf's
-    gradient over this rank's rows) summed over the mesh dims in `split`
-    (all-reduce, or reduce-scatter onto a Shard placement), cut to its
-    shard on the other sharded dims, divided by `n`."""
+                 n: int, keep: Tuple[int, ...] = ()) -> torch.Tensor:
+    """This rank's shard of the mean gradient: `g` (the gradient over
+    this rank's rows of the leaf as the model used it: whole, or its
+    slice on the mesh dims in `keep`) summed over the mesh dims in
+    `split` (all-reduce, or reduce-scatter onto a Shard placement), cut to
+    its shard on the other sharded dims, divided by `n`."""
     from torch.distributed.tensor import Shard
     mesh = sharding.mesh
     coord = mesh.get_coordinate()
     for i, pl in enumerate(sharding.placements):
         size = mesh.size(i)
+        if i in keep or size == 1:
+            continue
+        ax = meshctx.axis_of(mesh, mesh.mesh_dim_names[i])
         if isinstance(pl, Shard):
             if i in split:
-                x = g.movedim(pl.dim, 0).contiguous()
-                out = torch.empty((x.shape[0] // size,) + x.shape[1:],
-                                  dtype=x.dtype, device=x.device)
-                dist.reduce_scatter_tensor(out, x, op=dist.ReduceOp.SUM,
-                                           group=mesh.get_group(i))
-                g = out.movedim(0, pl.dim)
-            elif size > 1:
+                g = meshctx.reduce_scatter_blocks(g, ax, pl.dim)
+            else:
                 g = g.chunk(size, dim=pl.dim)[coord[i]]
         elif i in split:
-            g = g.contiguous()
-            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=mesh.get_group(i))
+            g = meshctx.all_reduce_sum(g, ax)
     g = g.contiguous()
     return g.div_(n) if n > 1 else g
+
+
+def _shard_axes(sharding) -> Dict[int, List[Any]]:
+    """{tensor dim: the mesh axes a leaf's stored shard is split over
+    along it} (Adafactor's sharded moments)."""
+    from torch.distributed.tensor import Shard
+    mesh = sharding.mesh
+    out: Dict[int, List[Any]] = {}
+    for i, pl in enumerate(sharding.placements):
+        if isinstance(pl, Shard) and mesh.size(i) > 1:
+            out.setdefault(pl.dim, []).append(
+                meshctx.axis_of(mesh, mesh.mesh_dim_names[i]))
+    return out
 
 
 def _sharded_sq_reducer(shardings: Dict[str, Any]):
@@ -187,19 +231,24 @@ def _sharded_sq_reducer(shardings: Dict[str, Any]):
     return reduce_sq
 
 
-def build_mesh_train_step(cfg: ModelConfig, optimizer: str, mesh,
-                          p_shard: Any, peak_lr: float = 3e-4,
-                          warmup: int = 100, total_steps: int = 10_000):
-    """train_step(params, opt_state, batch, step) -> (params, opt_state,
-    metrics) on `mesh`: params a tree of DTensors under `p_shard` (a tree
-    of NamedSharding), the optimizer's moments DTensors of the same
-    placements (its count a host scalar), batch the global batch (the
-    same on every rank).  Updated in place, as build_train_step's."""
-    _, opt_update = make_optimizer(optimizer)
+def build_mesh_grad_fn(cfg: ModelConfig, mesh, p_shard: Any,
+                       model_split: Optional[Dict[str, bool]] = None):
+    """grad_fn(params, batch) -> (metrics, grads) on `mesh`: params a
+    tree of DTensors under `p_shard` (a tree of NamedSharding), batch the
+    global batch (the same on every rank); metrics the global batch's
+    (means over the ranks' rows), grads a tree of this rank's shards of
+    the mean gradient (each leaf's placement).  `model_split` ({leaf
+    path: bool}, ``sharding.model_split_leaves``) names the leaves the
+    layers compute split over "model": they keep their slice on it."""
     flat_sh = flatten(p_shard)
-    reduce_sq = _sharded_sq_reducer(flat_sh)
+    model_split = model_split or {}
+    names_ = mesh.mesh_dim_names
+    model_dim = names_.index(cfg.sharding.model_axis) \
+        if cfg.sharding.model_axis in names_ else None
+    keep = {k: (model_dim,) if model_split.get(k) else ()
+            for k in flat_sh}
 
-    def train_step(params, opt_state, batch, step):
+    def grad_fn(params, batch):
         specs = batch_specs(batch, cfg, mesh)
         split = _split_mesh_dims(mesh, specs["targets"])
         n = 1
@@ -215,27 +264,21 @@ def build_mesh_train_step(cfg: ModelConfig, optimizer: str, mesh,
 
         flat_p = flatten(params)
         with torch.no_grad():
-            full = {k: v.full_tensor().detach() for k, v in flat_p.items()}
+            full = {k: _gather(v, keep[k]).detach()
+                    for k, v in flat_p.items()}
         for t in full.values():
             t.requires_grad_(True)
-        loss, metrics = T.forward_train(unflatten(params, full), cfg, local)
-        obj = loss if weight == 1.0 else loss * weight
         names = list(full)
-        gl = list(torch.autograd.grad(obj, [full[k] for k in names]))
+        with meshctx.use_mesh(mesh, batch_axes=[names_[i] for i in split]):
+            loss, metrics = T.forward_train(unflatten(params, full), cfg,
+                                            local)
+            obj = loss if weight == 1.0 else loss * weight
+            gl = list(torch.autograd.grad(obj, [full[k] for k in names]))
         del full, obj, loss
         grads = {}
         for j, k in enumerate(names):
-            grads[k] = _reduce_grad(gl[j], flat_sh[k], split, n)
+            grads[k] = _reduce_grad(gl[j], flat_sh[k], split, n, keep[k])
             gl[j] = None
-        grads = unflatten(params, grads)
-        grads, gnorm = clip_by_global_norm(grads, 1.0, reduce_sq)
-        lr = cosine_schedule(step, warmup, total_steps, peak_lr)
-        with torch.no_grad():
-            local_p = map_tree(lambda v: v.to_local(), params)
-            state = {k: map_tree(lambda v: v.to_local(), v)
-                     if k != "count" else v for k, v in opt_state.items()}
-        _, state = opt_update(grads, state, local_p, lr=lr)
-        opt_state = dict(opt_state, count=state["count"])
         out = {}
         for k, v in metrics.items():
             v = v.detach().to(torch.float32).clone()
@@ -245,7 +288,39 @@ def build_mesh_train_step(cfg: ModelConfig, optimizer: str, mesh,
                 dist.all_reduce(v, op=dist.ReduceOp.SUM,
                                 group=mesh.get_group(i))
             out[k] = v / n if n > 1 else v
-        return params, opt_state, dict(out, grad_norm=gnorm, lr=lr)
+        return out, unflatten(params, grads)
+
+    return grad_fn
+
+
+def build_mesh_train_step(cfg: ModelConfig, optimizer: str, mesh,
+                          p_shard: Any, model_split: Optional[Dict[str, bool]]
+                          = None, peak_lr: float = 3e-4, warmup: int = 100,
+                          total_steps: int = 10_000):
+    """train_step(params, opt_state, batch, step) -> (params, opt_state,
+    metrics) on `mesh`: the gradient of :func:`build_mesh_grad_fn`,
+    clipped by its global norm, then each rank's shards updated in place
+    (params DTensors under `p_shard`, the optimizer's moments DTensors of
+    the same placements, its count a host scalar), as build_train_step's."""
+    _, opt_update = make_optimizer(optimizer)
+    flat_sh = flatten(p_shard)
+    grad_fn = build_mesh_grad_fn(cfg, mesh, p_shard, model_split)
+    reduce_sq = _sharded_sq_reducer(flat_sh)
+    opt_kw = {}
+    if optimizer == "adafactor":
+        opt_kw["sharded"] = {k: _shard_axes(sh) for k, sh in flat_sh.items()}
+
+    def train_step(params, opt_state, batch, step):
+        metrics, grads = grad_fn(params, batch)
+        grads, gnorm = clip_by_global_norm(grads, 1.0, reduce_sq)
+        lr = cosine_schedule(step, warmup, total_steps, peak_lr)
+        with torch.no_grad():
+            local_p = map_tree(lambda v: v.to_local(), params)
+            state = {k: map_tree(lambda v: v.to_local(), v)
+                     if k != "count" else v for k, v in opt_state.items()}
+        _, state = opt_update(grads, state, local_p, lr=lr, **opt_kw)
+        opt_state = dict(opt_state, count=state["count"])
+        return params, opt_state, dict(metrics, grad_norm=gnorm, lr=lr)
 
     return train_step
 
@@ -258,12 +333,11 @@ class Trainer:
     latest checkpoint, the reference's included.
 
     `mesh` (a ``DeviceMesh`` from ``launch.mesh.make_mesh``, on
-    `torch_device`'s type) takes the data-parallel mesh path (module
-    docstring); `fsdp` shards parameters and moments over its data axes.
-    Without a mesh `fsdp` is ignored, as the reference ignores it.
-    Raises ValueError for a "model" axis larger than 1, for the moe
-    layer or Adafactor's factored moments where the data axes split the
-    batch or shard the leaves (ROADMAP Queue 1 item 6b)."""
+    `torch_device`'s type) takes the mesh path (module docstring): data
+    parallelism over its data axes, tensor and expert parallelism over
+    its "model" axis; `fsdp` shards parameters and moments over its data
+    axes.  Without a mesh `fsdp` is ignored, as the reference ignores
+    it."""
 
     def __init__(self, cfg: ModelConfig, optimizer: str = "adamw",
                  seq_len: int = 128, global_batch: int = 8,
@@ -278,10 +352,9 @@ class Trainer:
         self.data = SyntheticLMDataset(DataConfig(
             vocab_size=cfg.vocab_size, seq_len=seq_len,
             global_batch=global_batch, seed=seed))
-        self.p_shard = self.o_shard = None
+        self.p_shard = self.o_shard = self.model_split = None
         if mesh is not None:
-            self._init_mesh(optimizer, seed, fsdp, peak_lr,
-                            (global_batch, seq_len))
+            self._init_mesh(optimizer, seed, fsdp, peak_lr)
         else:
             opt_init, self.step_fn = build_train_step(cfg, optimizer,
                                                       peak_lr=peak_lr)
@@ -291,39 +364,16 @@ class Trainer:
         self.step = 0
 
     def _init_mesh(self, optimizer: str, seed: int, fsdp: bool,
-                   peak_lr: float, batch_shape: Tuple[int, int]) -> None:
-        from torch.distributed.tensor import Shard
+                   peak_lr: float) -> None:
         cfg, mesh = self.cfg, self.mesh
-        sizes = meshctx.axis_sizes(mesh)
-        model_axis = cfg.sharding.model_axis
-        if sizes.get(model_axis, 1) > 1:
-            raise ValueError(
-                f"a {model_axis!r} axis of {sizes[model_axis]}: tensor "
-                f"parallelism is not ported (ROADMAP Queue 1 item 6b); the "
-                f"mesh path is data-parallel, its {model_axis!r} axis 1")
         if mesh.device_type != self.device.type:
             raise ValueError(f"the mesh is on {mesh.device_type}, the "
                              f"trainer on {self.device}")
-        spec = batch_specs({"targets": batch_shape}, cfg, mesh)["targets"]
-        split = _split_mesh_dims(mesh, spec)
-        if math.prod(mesh.size(i) for i in split) > 1 \
-                and "moe" in cfg.block_pattern():
-            raise ValueError("the moe layer routes and drops over the whole "
-                             "batch: its data-parallel form comes with "
-                             "expert parallelism (ROADMAP Queue 1 item 6b)")
-        meshctx.set_mesh(mesh)
         opt_init, _ = make_optimizer(optimizer)
         full = T.init_params(cfg, seed, self.device).tree()
         p_specs = param_specs(full, cfg, mesh, fsdp=fsdp)
         self.p_shard = named_shardings(p_specs, mesh)
-        if optimizer == "adafactor" and any(
-                mesh.size(i) > 1 and isinstance(pl, Shard)
-                for sh in flatten(self.p_shard).values()
-                for i, pl in enumerate(sh.placements)):
-            raise ValueError("Adafactor's factored moments and update "
-                             "clipping reduce over whole leaves: its "
-                             "sharded form waits for ROADMAP Queue 1 item "
-                             "6b (use fsdp=False)")
+        self.model_split = model_split_leaves(p_specs, cfg, mesh)
         self.params = map_tree(_distribute, full, self.p_shard)
         del full
         with torch.no_grad():
@@ -336,7 +386,8 @@ class Trainer:
                                                self.o_shard[k])
             for k, v in local.items()}
         self.step_fn = build_mesh_train_step(cfg, optimizer, mesh,
-                                             self.p_shard, peak_lr=peak_lr)
+                                             self.p_shard, self.model_split,
+                                             peak_lr=peak_lr)
 
     # ------------------------------------------------------------------
     def maybe_restore(self) -> bool:

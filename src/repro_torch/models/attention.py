@@ -10,6 +10,13 @@ card); ``decode_attention`` serves only and raises on the card where an
 operand requires grad.  Caches are written in place (the reference
 returns updated copies): the cache dict is returned so the call sites
 read as the reference's.
+
+Where the "model" axis splits the heads (``sharding.heads_split``:
+``HQ % tp == 0`` and ``KH % tp == 0``), the train forms run on the rank's
+HQ/tp query and KH/tp KV heads (its columns of wq/wk/wv, its rows of
+wo), so the GQA group is unchanged and the flash kernels launch at the
+local shapes; the row-parallel wo's partial outputs are summed over the
+axis (``reduce_from_model``).
 """
 from __future__ import annotations
 
@@ -17,6 +24,8 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import meshctx
+from repro_torch.distributed.sharding import heads_split
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 
@@ -34,11 +43,22 @@ def attn_init(gen: torch.Generator, cfg, device: torch.device,
             "wo": linear_init(gen, cfg.q_dim, d, dt, device, lead)}
 
 
+def _heads(cfg) -> Tuple[Optional[meshctx.Axis], int, int]:
+    """(the model axis where it splits the heads, else None; this rank's
+    query heads; its KV heads)."""
+    ax = meshctx.model_axis(cfg)
+    if ax is None or not heads_split(cfg, ax.size):
+        return None, cfg.n_heads, cfg.n_kv_heads
+    return ax, cfg.n_heads // ax.size, cfg.n_kv_heads // ax.size
+
+
 def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     B, S, _ = x.shape
-    q = linear_apply(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.hd)
-    k = linear_apply(p["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    v = linear_apply(p["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    ax, hq, kh = _heads(cfg)
+    x = meshctx.copy_to_model(x, ax)
+    q = linear_apply(p["wq"], x).reshape(B, S, hq, cfg.hd)
+    k = linear_apply(p["wk"], x).reshape(B, S, kh, cfg.hd)
+    v = linear_apply(p["wv"], x).reshape(B, S, kh, cfg.hd)
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -56,7 +76,16 @@ def attn_train(p: Params, cfg, x: torch.Tensor, *, causal: bool = True,
         positions = torch.arange(S, device=x.device).expand(B, S)
     q, k, v = _qkv(p, cfg, x, positions)
     o = flash_attention(q, k, v, causal=causal)
-    return linear_apply(p["wo"], o.reshape(B, S, cfg.q_dim))
+    return _out(p, cfg, o)
+
+
+def _out(p: Params, cfg, o: torch.Tensor) -> torch.Tensor:
+    """wo over the attention output o (B, S, heads, hd): the rank's rows
+    of wo summed over the model axis where it splits the heads."""
+    B, S = o.shape[:2]
+    ax, _, _ = _heads(cfg)
+    y = linear_apply(p["wo"], o.reshape(B, S, -1))
+    return meshctx.reduce_from_model(y, ax)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype: torch.dtype,
@@ -152,9 +181,11 @@ def cross_attn_apply(p: Params, cfg, x: torch.Tensor,
     K/V (B, T, KH, hd), non-causal.  K/V may be in another dtype than x
     (the decode step reads them from the cache): the op promotes."""
     B, S, _ = x.shape
-    q = linear_apply(p["wq"], x).reshape(B, S, cfg.n_heads, cfg.hd)
+    ax, hq, _ = _heads(cfg)
+    x = meshctx.copy_to_model(x, ax)
+    q = linear_apply(p["wq"], x).reshape(B, S, hq, cfg.hd)
     o = flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
-    return linear_apply(p["wo"], o.reshape(B, S, cfg.q_dim))
+    return _out(p, cfg, o)
 
 
 def encode_cross_kv(p: Params, cfg,
@@ -162,6 +193,8 @@ def encode_cross_kv(p: Params, cfg,
     """K and V (B, T, KH, hd) of the encoder output (B, T, d), in its
     dtype."""
     B, T, _ = enc_out.shape
-    k = linear_apply(p["wk"], enc_out).reshape(B, T, cfg.n_kv_heads, cfg.hd)
-    v = linear_apply(p["wv"], enc_out).reshape(B, T, cfg.n_kv_heads, cfg.hd)
+    ax, _, kh = _heads(cfg)
+    enc_out = meshctx.copy_to_model(enc_out, ax)
+    k = linear_apply(p["wk"], enc_out).reshape(B, T, kh, cfg.hd)
+    v = linear_apply(p["wv"], enc_out).reshape(B, T, kh, cfg.hd)
     return {"k": k, "v": v}

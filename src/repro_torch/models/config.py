@@ -4,8 +4,11 @@ The port's own copy of the reference's ``models/config.py``: the same
 fields and defaults, so ``ModelConfig(**dataclasses.asdict(ref_cfg))``
 (``convert.model_config_from_fields``) rebuilds a reference config.
 ``use_pallas`` stays as a field and is ignored: the port's ops pick by the
-device of their tensors.  The sharding and distributed fields are carried
-and not read yet.
+device of their tensors.  The mesh path reads ``sharding``'s data and
+model axes and the moe layer's distributed fields (``moe_combine``,
+``moe_token_gather``, ``moe_fused_ep``, ``moe_expert_2d``);
+``sharding.enabled``, ``fsdp_axes`` outside the sharding rules,
+``seq_axis`` and ``seq_parallel_residual`` are carried and not read.
 """
 from __future__ import annotations
 

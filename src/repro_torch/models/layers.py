@@ -7,6 +7,13 @@ dicts of tensors; the init functions draw from an explicit
 the tests carry the reference's weights across instead), and take a
 ``lead`` shape so a stack of layers is drawn at once.  The math is plain
 functions on tensors, in the reference's order of operations and dtypes.
+
+Under a mesh whose "model" axis computes split (``meshctx.model_axis``),
+the MLP runs column-parallel ``wi``/``wg`` and row-parallel ``wo`` on the
+rank's slice of the hidden width, and the embedding is a vocab-parallel
+lookup, each finished by ``reduce_from_model`` (the reference gets the
+same from GSPMD under ``param_specs``); the caller hands them the rank's
+slices of the weights.  With no such axis they are as on one device.
 """
 from __future__ import annotations
 
@@ -16,6 +23,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import meshctx
+from repro_torch.distributed.sharding import hidden_split, vocab_split
 from repro_torch.kernels.vta_gemm import quantized_linear
 
 Params = Dict[str, Any]
@@ -145,13 +154,21 @@ def mlp_init(gen: torch.Generator, cfg, d: int, d_ff: int,
             "wo": linear_init(gen, d_ff, d, dt, device, lead)}
 
 
-def mlp_apply(p: Params, x: torch.Tensor, cfg) -> torch.Tensor:
+def mlp_apply(p: Params, x: torch.Tensor, cfg,
+              d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP of hidden width `d_ff` (default ``cfg.d_ff``).  Where the
+    "model" axis splits it, p holds the rank's columns of wi/wg and rows
+    of wo, and the partial outputs are summed over the axis."""
+    ax = meshctx.model_axis(cfg)
+    if ax is not None and not hidden_split(d_ff or cfg.d_ff, ax.size):
+        ax = None
+    x = meshctx.copy_to_model(x, ax)
     if cfg.mlp == "swiglu":
         h = silu(linear_apply(p["wg"], x)) * linear_apply(p["wi"], x)
     else:
         # jax.nn.gelu is the tanh approximation by default
         h = F.gelu(linear_apply(p["wi"], x), approximate="tanh")
-    return linear_apply(p["wo"], h)
+    return meshctx.reduce_from_model(linear_apply(p["wo"], h), ax)
 
 
 # ----------------------------------------------------------------------
@@ -169,7 +186,20 @@ def embed_init(gen: torch.Generator, cfg, device: torch.device) -> Params:
 
 def embed_apply(p: Params, cfg, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    x = p["tokens"][tokens]
+    """Token (and position) embedding.  Where the "model" axis splits the
+    vocab, p["tokens"] holds the rank's V/tp rows: a token outside them
+    looks up zeros, and the ranks' rows are summed over the axis."""
+    ax = meshctx.model_axis(cfg)
+    if ax is not None and vocab_split(cfg, ax.size):
+        table = p["tokens"]
+        lo = ax.rank * table.shape[0]
+        local = tokens - lo
+        mine = (local >= 0) & (local < table.shape[0])
+        x = table[torch.where(mine, local, 0)] \
+            * mine[..., None].to(table.dtype)
+        x = meshctx.reduce_from_model(x, ax)
+    else:
+        x = p["tokens"][tokens]
     if cfg.pos in ("learned", "sinusoidal"):
         pos = positions if positions is not None \
             else torch.arange(tokens.shape[-1], device=tokens.device)

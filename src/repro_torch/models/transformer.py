@@ -46,6 +46,16 @@ reference checkpoints a hybrid stack's repeating unit, 5 Mamba2 and the
 shared block or 7 mLSTM and an sLSTM: the same values, more held); each
 loss chunk is checkpointed, as the reference's, so the vocab-wide
 float32 logits of one chunk at a time are live.
+
+Under a mesh whose "model" axis computes split (the trainer's mesh path,
+``meshctx.model_axis``), attention, the MLPs, the moe layer and the
+vocab run split over it (``layers``, ``attention``, ``moe``): the logits
+are vocab-sharded, and the loss is vocab-parallel (the max, the sum of
+exponentials and the gold logit each all-reduced over the axis).  The
+residual stream stays replicated over "model".  The reference's
+``seq_parallel_residual`` only lets GSPMD keep the residual
+sequence-sharded between layers; the values are the same, and a
+sequence-parallel residual is later speed work (ROADMAP, item 6b).
 """
 from __future__ import annotations
 
@@ -56,6 +66,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.driver import TorchDeviceLike, resolve_torch_device
+from repro_torch.distributed import meshctx
+from repro_torch.distributed.sharding import vocab_split
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -285,9 +297,18 @@ def _head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]["w"]
 
 
+def _vocab_axis(cfg: ModelConfig) -> Optional[meshctx.Axis]:
+    """The model axis where it splits the vocab, else None."""
+    ax = meshctx.model_axis(cfg)
+    return ax if ax is not None and vocab_split(cfg, ax.size) else None
+
+
 def logits_fn(params: Params, cfg: ModelConfig,
               h: torch.Tensor) -> torch.Tensor:
+    """The logits of h; where the model axis splits the vocab, this
+    rank's V/tp columns of them (the head holds its slice)."""
     h = norm_apply(cfg, params["final_norm"], h)
+    h = meshctx.copy_to_model(h, _vocab_axis(cfg))
     logits = h @ _head_weight(params, cfg).to(h.dtype)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
@@ -387,11 +408,32 @@ def forward_hidden(params: Union[LMParams, Params], cfg: ModelConfig,
 
 def _chunk_loss(params: Params, cfg: ModelConfig, h: torch.Tensor,
                 t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum of the chunk's token losses, its count of targets)."""
+    """(sum of the chunk's token losses, its count of targets).  Over a
+    vocab split on the model axis, each rank holds V/tp logits: the
+    log-sum-exp takes the max over the axis (no gradient flows through
+    it), then the sum of exponentials summed over the axis; the gold
+    logit is taken on the rank whose rows hold it (zeros elsewhere) and
+    summed over the axis."""
     logits = logits_fn(params, cfg, h).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, t.clamp_min(0)[..., None].long())[..., 0]
     mask = (t >= 0).to(torch.float32)
+    ax = _vocab_axis(cfg)
+    if ax is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            t.clamp_min(0)[..., None].long())[..., 0]
+        return torch.sum((lse - gold) * mask), torch.sum(mask)
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    torch.distributed.all_reduce(m, op=torch.distributed.ReduceOp.MAX,
+                                 group=ax.group)
+    sumexp = meshctx.reduce_from_model(
+        torch.exp(logits - m).sum(dim=-1), ax)
+    lse = m[..., 0] + torch.log(sumexp)
+    n = logits.shape[-1]
+    local = t.long().clamp_min(0) - ax.rank * n
+    mine = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None]
+                        )[..., 0] * mine.to(torch.float32)
+    gold = meshctx.reduce_from_model(gold, ax)
     return torch.sum((lse - gold) * mask), torch.sum(mask)
 
 

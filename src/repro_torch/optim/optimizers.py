@@ -15,12 +15,25 @@ order of its float32 sum: the global norm (one float32 copy of a leaf at
 a time, squared in place) and Adafactor's update clipping.  Trees are walked in sorted key
 order (``tree.py``), so the global norm sums leaves in the reference's
 order.
+
+On the trainer's mesh path each process updates its shard of a leaf.
+AdamW is elementwise and needs nothing more.  Adafactor's factored row
+and column means, the normalising mean of ``vr`` and the update-RMS clip
+reduce over the whole leaf: ``adafactor_update(..., sharded=)`` names,
+for each leaf, the mesh axes its shard is split over along each
+dimension, and each of those reductions is a local sum all-reduced over
+them and divided by the whole leaf's count, so every shard takes the
+whole leaf's values (the reference gets them from GSPMD).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+import math
+
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, \
+    Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import flatten, map_tree
 
@@ -139,23 +152,56 @@ def adafactor_init(params: Params) -> Dict[str, Any]:
             "count": torch.zeros((), dtype=torch.int32)}
 
 
+#: per leaf path, {tensor dim: the mesh axes (``meshctx.Axis``) the local
+#: shard is split over along it}
+ShardAxes = Mapping[str, Mapping[int, Sequence[Any]]]
+
+
+def _mean(x: torch.Tensor, dims: Tuple[int, ...],
+          axes: Sequence[Any], keepdim: bool = False) -> torch.Tensor:
+    """The mean of x over `dims` (all of them where empty), x a shard
+    split over `axes` along them: torch.mean where no axis splits it,
+    else the local sum all-reduced over the axes and divided by the
+    whole count."""
+    axes = [a for a in axes if a.size > 1]
+    if not axes:
+        return torch.mean(x, dim=dims, keepdim=keepdim) if dims \
+            else torch.mean(x)
+    n = x.numel() if not dims else math.prod(x.shape[d] for d in dims)
+    out = torch.sum(x, dim=dims, keepdim=keepdim) if dims else torch.sum(x)
+    for a in axes:
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=a.group)
+        n *= a.size
+    return out / n
+
+
 @torch.no_grad()
 def adafactor_update(grads: Params, state: Dict[str, Any], params: Params,
                      *, lr, decay: float = 0.99, eps: float = 1e-30,
-                     clip_threshold: float = 1.0, weight_decay: float = 0.0
+                     clip_threshold: float = 1.0, weight_decay: float = 0.0,
+                     sharded: Optional[ShardAxes] = None
                      ) -> Tuple[Params, Dict[str, Any]]:
-    """One Adafactor step, in place on params and the second moments."""
+    """One Adafactor step, in place on params and the second moments.
+    `sharded` (the trainer's mesh path): {leaf path: {dim: axes}} for the
+    leaves whose local shard is split over mesh axes."""
     count = state["count"] + 1
     lr = float(lr)
 
-    def upd(g, v, p):
+    def upd(g, v, p, split):
+        nd = g.dim()
+
+        def axes_of(*dims):
+            return [a for d in dims for a in split.get(d % nd, ())]
         g = g.to(torch.float32)
         g2 = g * g + eps
         if _factored(g.shape):
-            vr = decay * v["vr"] + (1 - decay) * torch.mean(g2, dim=-1)
-            vc = decay * v["vc"] + (1 - decay) * torch.mean(g2, dim=-2)
-            denom = (vr[..., None] / torch.mean(vr, dim=-1, keepdim=True)
-                     [..., None]) * vc[..., None, :]
+            vr = decay * v["vr"] + (1 - decay) * _mean(g2, (-1,),
+                                                       axes_of(-1))
+            vc = decay * v["vc"] + (1 - decay) * _mean(g2, (-2,),
+                                                       axes_of(-2))
+            denom = (vr[..., None] / _mean(vr, (-1,), axes_of(-2),
+                                           keepdim=True)[..., None]
+                     ) * vc[..., None, :]
             update = g * torch.rsqrt(denom + eps)
             v["vr"].copy_(vr)
             v["vc"].copy_(vc)
@@ -164,14 +210,21 @@ def adafactor_update(grads: Params, state: Dict[str, Any], params: Params,
             update = g * torch.rsqrt(nv + eps)
             v["v"].copy_(nv)
         # update clipping (RMS)
-        rms = torch.sqrt(torch.mean(torch.square(update)) + eps)
+        rms = torch.sqrt(_mean(torch.square(update), (),
+                               axes_of(*range(nd))) + eps)
         update = update / torch.clamp(rms / clip_threshold, min=1.0)
         if weight_decay:
             update = update + weight_decay * p.to(torch.float32)
         p.copy_((p.to(torch.float32) - lr * update).to(p.dtype))
 
     # at each parameter leaf, the state holds its {"vr", "vc"} or {"v"}
-    map_tree(lambda p, g, v: upd(g, v, p), params, grads, state["v"])
+    flat_g = flatten(grads)
+    moments: Dict[str, Dict[str, torch.Tensor]] = {}
+    for k, t in flatten(state["v"]).items():
+        path, name = k.rsplit("/", 1)
+        moments.setdefault(path, {})[name] = t
+    for path, p in flatten(params).items():
+        upd(flat_g[path], moments[path], p, (sharded or {}).get(path, {}))
     return params, {"v": state["v"], "count": count}
 
 

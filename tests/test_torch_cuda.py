@@ -53,6 +53,9 @@ as it was, and it is held to the plain L (``attention_lse_ref``) within
 1e-5 absolute in float32 and 2e-5 in bfloat16 (both kernels compute the
 scores in float32; the bf16 kernel's exponentials are exp2 of log2 e
 scaled scores).  The backward takes every D the forward takes (D 80).
+Every head dim up to 256, forward and backward, under the same limits:
+D the tensor-core kernels do not take as it is zero-padded by the op,
+D above 128 on the wide kernel (``flash_wide.cu``).
 The ``gla_chunk`` backward kernel (``gla_bwd.cu``, its float32 outputs)
 against the plain backward in float64 on the same inputs: each of dq,
 dk, dv, dla and dh0 within 4x the float32 plain backward's error, or
@@ -929,8 +932,10 @@ def test_flash_wgmma_refuses_misaligned_operands(cuda_dev):
             flash_attention(bad, good, good)
         with pytest.raises(ValueError):
             flash_attention(good, good, bad)
-    with pytest.raises(ValueError):
-        flash_attention(good[..., :40], good[..., :40], good[..., :40])
+    wide = torch.zeros((B, S, H, 264), dtype=torch.bfloat16,
+                       device=cuda_dev)
+    with pytest.raises(ValueError):        # above the widest head dim
+        flash_attention(wide, wide, wide)
     assert flash_attention.launches == before
 
 
@@ -1451,6 +1456,45 @@ def test_flash_bwd_kernel_matches_plain(cuda_dev, case, dtype):
         assert not dq[:, :S - Sk].float().abs().any()
 
 
+#: head dims the tensor-core kernels do not take as they are: D 20, 80
+#: and 100 zero-padded by the op (to 32, 80 and 112 in bfloat16; 20, 80 and
+#: 100 need none in float32), D 160, 200 and 256 on the wide kernel
+#: (flash_wide.cu), causal with Sk < S (rows that see no key) and GQA
+FLASH_ANY_D_CASES = [
+    (1, 64, 64, 4, 2, 20, True),
+    (1, 96, 96, 4, 2, 80, False),
+    (2, 70, 50, 4, 1, 100, True),
+    (1, 96, 96, 4, 2, 160, True),
+    (2, 70, 90, 4, 4, 200, False),
+    (1, 130, 130, 8, 2, 256, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", FLASH_ANY_D_CASES, ids=lambda c: "-".join(
+    str(x) for x in c))
+def test_flash_any_head_dim_matches_plain(cuda_dev, case, dtype):
+    """Forward and backward at head dims up to 256 against the plain
+    versions, under the limits of the kernels they route to."""
+    B, S, Sk, HQ, KH, D, causal = case
+    q, k, v, do = _bwd_operands(cuda_dev, dtype, B, S, Sk, HQ, KH, D,
+                                S + Sk + D)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    assert got.shape == want.shape and torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    limit = 1e-5 if dtype == torch.float32 else \
+        2.0 ** -6 * want.float().abs().max().item()
+    assert err <= limit, (err, limit)
+    _check_bwd(q, k, v, do, causal)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
@@ -1544,11 +1588,12 @@ def test_flash_empty_operands_count_no_launch(cuda_dev, S, Sk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("what", ["D136", "D40", "mixed", "f16"])
+@pytest.mark.parametrize("what", ["D264", "D512", "mixed", "f16"])
 def test_flash_bwd_out_of_range_raises(cuda_dev, what):
-    """A D the forward does not take (136; 40 in bf16, not a multiple of
-    16), mixed dtypes and float16 raise before any launch."""
-    D = {"D136": 136, "D40": 40}.get(what, 64)
+    """A D the forward does not take (above 256: every D up to 256 runs,
+    zero-padded or on the wide kernel), mixed dtypes and float16 raise
+    before any launch."""
+    D = {"D264": 264, "D512": 512}.get(what, 64)
     dt = torch.float16 if what == "f16" else torch.bfloat16
     q, k, v, do = _bwd_operands(cuda_dev, torch.float32, 1, 16, 16, 2, 2, D,
                                 3)

@@ -17,8 +17,7 @@
     across through ``convert.lm_params_from_numpy``), bfloat16 leaves
     included, in the reference's file format;
   * the CLI and ``examples/train_lm_torch.py``, two steps on the CPU;
-    Trainer refuses a mesh with a "model" axis of 2, and without a mesh
-    ignores ``fsdp``;
+    without a mesh Trainer ignores ``fsdp``;
   * the recurrent models, reduced zamba2-1.2b and xlstm-1.3b (float32):
     three steps against the reference's ``Trainer`` under the same
     limits, a reference checkpoint of xlstm restored into the port byte
@@ -48,7 +47,6 @@ from repro_torch.data import DataConfig, SyntheticLMDataset, \
     make_train_iterator
 from repro_torch.launch.train import Trainer
 from repro_torch.optim import cosine_schedule
-from torch_cases import spawn_ranks
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -246,28 +244,13 @@ def test_cli_trains_the_recurrent_models(tmp_path, arch):
     assert latest_step(str(tmp_path)) == 2
 
 
-@pytest.mark.parametrize("case", ["mesh", "fsdp"])
+@pytest.mark.parametrize("case", ["fsdp"])
 def test_trainer_refuses_mesh_and_fsdp(case):
-    """mesh: a mesh whose "model" axis is 2 (two gloo ranks) raises
-    ValueError citing item 6b (tensor parallelism is not ported); fsdp:
-    fsdp=True without a mesh is ignored, as the reference ignores it, and
-    trains bit for bit as the meshless Trainer."""
-    if case == "mesh":
-        outs = spawn_ranks("""
-            from repro_torch.configs import get_arch, reduced
-            from repro_torch.launch.mesh import make_mesh
-            from repro_torch.launch.train import Trainer
-            mesh = make_mesh((1, 2), ("data", "model"), device="cpu")
-            cfg = reduced(get_arch("llama3.2-3b").model)
-            try:
-                Trainer(cfg, seq_len=32, global_batch=2, mesh=mesh,
-                        torch_device="cpu")
-            except ValueError as e:
-                assert "item 6b" in str(e), e
-                print("REFUSED")
-        """, world=2, timeout=120)
-        assert all("REFUSED" in o for o in outs)
-        return
+    """fsdp: fsdp=True without a mesh is ignored, as the reference ignores
+    it, and trains bit for bit as the meshless Trainer.  (The "mesh" case,
+    a refusal of a "model" axis above 1, went with the refusal: tensor
+    and expert parallelism train, tests/test_torch_tp.py and
+    test_torch_ep.py.)"""
     cfg = reduced(get_arch("llama3.2-3b").model)
     runs = [Trainer(cfg, seq_len=32, global_batch=2, torch_device="cpu",
                     fsdp=fsdp) for fsdp in (False, True)]

@@ -280,6 +280,74 @@ def mesh_cfg(arch):
     return cfg.replace(remat=True) if arch == "llama3.2-3b" else cfg
 
 
+def mesh_vs_meshless(cfg, shape, steps, optimizer="adamw", fsdp=False):
+    """In a rank of ``spawn_ranks``: `cfg` trained `steps` steps through
+    ``Trainer(mesh=)`` on a (data, model) mesh of `shape`, and on rank 0
+    the meshless Trainer from the same seed beside it.  Returns a record:
+    the mesh run's losses and gradient norms, the leaves it computes split
+    over "model" with their local and whole shapes, the (query, KV) head
+    counts its flash calls saw; on rank 0 also the meshless run's losses
+    and gradient norms, and for each leaf its largest difference from the
+    meshless run (gathered whole): of the first step's gradient over the
+    meshless gradient's max|.| (``grad_err``), and of the parameter after
+    the steps over the meshless run's largest change of it
+    (``param_err``)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import (Trainer, _from_local, _gather,
+                                          build_mesh_grad_fn)
+    from repro_torch.models import attention
+    from repro_torch.models import transformer as T
+
+    def rel(a, b, scale):
+        return float((a - b).abs().max() / scale.abs().max().clamp_min(1e-30))
+
+    kw = dict(optimizer=optimizer, seq_len=32, global_batch=4,
+              peak_lr=3e-3, seed=0, torch_device="cpu")
+    mesh = make_mesh(shape, ("data", "model"), device="cpu")
+    tr = Trainer(cfg, mesh=mesh, fsdp=fsdp, **kw)
+    sh = tree.flatten(tr.p_shard)
+    batch = tr.batch(0)
+    _, grads = build_mesh_grad_fn(cfg, mesh, tr.p_shard, tr.model_split)(
+        tr.params, batch)
+    grads = {k: _gather(_from_local(g, sh[k]), ())
+             for k, g in tree.flatten(grads).items()}
+    real, heads = attention.flash_attention, set()
+
+    def spy(q, k, v, causal=True):
+        heads.add((q.shape[2], k.shape[2]))
+        return real(q, k, v, causal=causal)
+    attention.flash_attention = spy
+    try:
+        hist = tr.train(steps, log_every=1000)
+    finally:
+        attention.flash_attention = real
+    flat = tree.flatten(tr.params)
+    rec = dict(shape=list(shape), loss=hist["loss"],
+               grad_norm=hist["grad_norm"], heads=sorted(heads),
+               split=sorted(k for k, v in tr.model_split.items() if v),
+               local={k: list(v.to_local().shape) for k, v in flat.items()},
+               whole={k: list(v.shape) for k, v in flat.items()})
+    after = {k: _gather(v, ()).detach() for k, v in flat.items()}
+    if dist.get_rank() == 0:
+        ref = Trainer(cfg, **kw)
+        flat0 = tree.flatten(ref.params)
+        loss, _ = T.forward_train(ref.params, cfg, batch)
+        g0 = torch.autograd.grad(loss, list(flat0.values()))
+        rec["grad_err"] = {k: rel(grads[k], g, g)
+                           for k, g in zip(flat0, g0)}
+        init = {k: v.detach().clone() for k, v in flat0.items()}
+        want = ref.train(steps, log_every=1000)
+        rec["meshless"] = dict(loss=want["loss"],
+                               grad_norm=want["grad_norm"])
+        rec["param_err"] = {k: rel(after[k], v.detach(),
+                                   v.detach() - init[k])
+                            for k, v in flat0.items()}
+    return rec
+
+
 def mask_targets(tr):
     """Unequal counted targets across a 2-rank split of `tr`'s batches:
     the first 10 targets of row 0 ignored (-1) in every batch."""
