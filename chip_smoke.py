@@ -296,7 +296,17 @@ again, started with --mesh-rank):
      and 16 launched, timed beside the bound, the plain backward and
      scaled_dot_product_attention's backward.  Phase 7 also holds the
      forward at a zero-padded head dim in each dtype and on the wide
-     kernel (flash_wide.cu) at D 160 and 256, timed;
+     kernel (flash_wide.cu) at D 160 and 256, and in slices of 256
+     columns at D 320 and 512 in each dtype (the backward there too),
+     timed;
+ 17. the dry run against the card: ``launch/dryrun.py`` (the meta
+     device, a fake process group, no card), in a subprocess of this
+     script under its own timeout, predicts the peak allocated bytes of
+     phase 14's meshless llama3.2-3b and zamba2-1.2b steps and of phase
+     16's rank 0 (llama3.2-3b tensor-parallel, phi3.5-moe at 2 layers
+     expert-parallel); each within 10% of the measured peak, printed
+     with the five largest live tensors at the predicted peak and the
+     compute, memory and collective terms beside the measured step ms;
   3. the simulator and cuda engines on one stream, DRAM images compared;
   4. the kernels line, the card line, and the result line.
 
@@ -1772,8 +1782,12 @@ FLASH_MAX_D = 128
 FLASH_WIDE_NAME = "flash_wide_fwd"
 #: the wide backward's three kernels (Delta, dq, dk dv)
 FLASH_WIDE_BWD_NAME = "flash_wide_d"
-#: (D, dtype) the wide kernel is checked and timed at in phase 7
+#: (D, dtype) the wide kernel is checked and timed at in phase 7 (B1
+#: S2048 H8 causal), and the head dims above 256 it walks in slices of
+#: 256 columns (B1 S1024 H8 causal)
 FLASH_WIDE_CASES = [(160, "bfloat16"), (256, "bfloat16"), (256, "float32")]
+FLASH_SLICED_CASES = [(320, "bfloat16"), (320, "float32"), (512, "bfloat16"),
+                      (512, "float32")]
 #: each flash kernel's error against float64 attention on its own inputs
 #: may be at most this multiple of scaled_dot_product_attention's error on
 #: the same inputs (of the plain version's, where SDPA refuses them)
@@ -1853,6 +1867,8 @@ def phase_flash_kernel(rec, main_shapes):
               ((1, 1024, 1024, 8, 2, 18, True, "float32"), -1)]
     cases += [((1, 2048, 2048, 8, 8, D, True, dt), -1)
               for D, dt in FLASH_WIDE_CASES]
+    cases += [((1, 1024, 1024, 8, 8, D, True, dt), -1)
+              for D, dt in FLASH_SLICED_CASES]
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     for (B, S, Sk, HQ, KH, D, causal, dt), launches in cases:
         qdt, kvdt = (dt.split("/") * 2)[:2]
@@ -3803,6 +3819,11 @@ FLASH_BWD_CASES = [
     (1, 1024, 1024, 8, 2, 72, True, "bfloat16"),
     (1, 1024, 1024, 4, 4, 256, True, "bfloat16"),
     (1, 1024, 1024, 4, 4, 160, False, "float32"),
+    # head dims above 256: the wide kernel in slices of 256 columns
+    (1, 1024, 1024, 4, 4, 320, True, "bfloat16"),
+    (1, 1024, 1024, 4, 4, 320, False, "float32"),
+    (1, 512, 512, 4, 2, 512, True, "bfloat16"),
+    (1, 512, 512, 4, 2, 512, False, "float32"),
 ]
 #: the shape whose keys are v = 1 + N(0, 1): a one-signed error from sums
 #: chained on the tensor cores would grow with the keys
@@ -5564,6 +5585,120 @@ def phase_mesh16(rec):
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 17: the dry run against the card
+# ----------------------------------------------------------------------
+#: the steps phase 17 predicts with the dry run: (arch, mesh shape (()
+#: the meshless step), layers (None: the published depth)), each at phase
+#: 14's B2 S4096, AdamW, no FSDP, as phases 14 and 16 train them
+DRYRUN_CELLS = [(TRAIN_ARCH, (), None), ("zamba2-1.2b", (), None),
+                (TRAIN_ARCH, MESH16_SHAPE, None),
+                ("phi3.5-moe-42b-a6.6b", MESH16_SHAPE, 2)]
+#: seconds the dry run's subprocess may take, and the largest relative
+#: difference of a predicted peak from the measured one
+DRYRUN_TIMEOUT = 60
+DRYRUN_TOL = 0.10
+
+
+def dryrun17_cells(out_path):
+    """The dry run of DRYRUN_CELLS (run in a subprocess of phase 17, its
+    own fake process group apart from phase 16's gloo one): each cell's
+    predicted peak, arguments, five largest live tensors and live bytes
+    by site at the peak, its roofline terms, as JSON to `out_path`."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    cells = []
+    for arch, mesh_shape, layers in DRYRUN_CELLS:
+        spec = get_arch(arch)
+        ov = {"max_seq": max(spec.model.max_seq, TRAIN_SEQ),
+              "sharding": spec.model.sharding}
+        if layers:
+            ov["n_layers"] = layers
+        c = dryrun.run_cell(arch, "train_4k", False, overrides=ov,
+                            mesh_shape=mesh_shape, fsdp=False,
+                            shape_overrides={"global_batch": TRAIN_BATCH},
+                            verbose=False)
+        m = c["memory"]
+        cells.append(dict(
+            arch=arch, mesh=list(mesh_shape), layers=layers,
+            trace_seconds=c["trace_seconds"],
+            peak_gb=m["total_bytes_per_device"] / 1e9,
+            argument_gb=m["argument_size_in_bytes"] / 1e9,
+            peak_tensors=m["peak_tensors"][:5],
+            peak_by_site=m["peak_by_site"][:5],
+            terms_ms={k: c["roofline"][f"{k}_term_s"] * 1e3
+                      for k in ("compute", "memory", "collective")},
+            dot_flops=c["hlo"]["dot_flops_per_device"],
+            collective_counts=c["hlo"]["collective_counts"]))
+    Path(out_path).write_text(json.dumps(cells))
+    return 0
+
+
+def phase_dryrun17(rec, tr, m16_runs):
+    """DRYRUN_CELLS through the dry run in a subprocess (dryrun17_cells,
+    under DRYRUN_TIMEOUT), each predicted peak held within DRYRUN_TOL of
+    the peak allocated bytes phase 14 (meshless) or phase 16 (rank 0)
+    measured; logs the five largest live tensors at each predicted peak
+    and the compute, memory and collective terms beside the measured step
+    ms."""
+    out_path = ROOT / "build" / "chip_smoke_dryrun.json"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    try:
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-out",
+             str(out_path)], env=env, capture_output=True, text=True,
+            timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"phase 17: the dry run took over {DRYRUN_TIMEOUT} s")
+    if proc.returncode != 0:
+        fail(f"phase 17: the dry run exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    cells = json.loads(out_path.read_text())
+    out_path.unlink()
+    measured = {(TRAIN_ARCH, ()): tr["llama"],
+                ("zamba2-1.2b", ()): tr["zamba2-1.2b"]}
+    for arch, r in m16_runs.items():
+        measured[(arch, tuple(MESH16_SHAPE))] = r
+    bad = []
+    for c in cells:
+        m = measured[(c["arch"], tuple(c["mesh"]))]
+        c["measured_peak_gb"] = m["peak_allocated_gb"]
+        c["measured_step_ms"] = m["step_ms_median"]
+        c["rel_err"] = (c["peak_gb"] - m["peak_allocated_gb"]) \
+            / m["peak_allocated_gb"]
+        where = f"mesh {tuple(c['mesh'])}" if c["mesh"] else "meshless"
+        log(f"  {c['arch']} ({where}"
+            f"{', %d layers' % c['layers'] if c['layers'] else ''}): "
+            f"predicted peak {c['peak_gb']:.2f} GB (arguments "
+            f"{c['argument_gb']:.2f}), measured {m['peak_allocated_gb']:.2f}"
+            f" GB: {100 * c['rel_err']:+.1f}% (limit "
+            f"{100 * DRYRUN_TOL:.0f}%); terms compute "
+            f"{c['terms_ms']['compute']:.1f} / memory "
+            f"{c['terms_ms']['memory']:.1f} / collective "
+            f"{c['terms_ms']['collective']:.1f} ms (H100 datasheet peaks) "
+            f"beside the measured step {m['step_ms_median']:.1f} ms; traced "
+            f"in {c['trace_seconds']:.1f} s")
+        for t in c["peak_tensors"]:
+            log(f"    largest live at the peak: {t['shape']} {t['dtype']} "
+                f"{t['bytes'] / 1e9:.3f} GB made by {t['op']} at "
+                f"{t['site']}")
+        for t in c["peak_by_site"]:
+            log(f"    live at the peak by site: {t['bytes'] / 1e9:.3f} GB "
+                f"in {t['tensors']} tensors, {t['op']} at {t['site']}")
+        if abs(c["rel_err"]) > DRYRUN_TOL:
+            bad.append(c)
+    rec["dryrun17"] = dict(cells=cells,
+                           seconds=time.perf_counter() - t0)
+    log(f"  phase 17 took {rec['dryrun17']['seconds']:.1f} s")
+    if bad:
+        fail(f"phase 17: predicted peaks off by more than "
+             f"{100 * DRYRUN_TOL:.0f}%: " + "; ".join(
+                 f"{c['arch']} {c['mesh']}: {c['peak_gb']:.2f} vs "
+                 f"{c['measured_peak_gb']:.2f} GB" for c in bad))
+
+
 def ptxas_report(text):
     """Per kernel instance in one nvcc -Xptxas -v log: its demangled-ish
     name (the template arguments kept), registers, spill bytes and static
@@ -5646,6 +5781,9 @@ def main():
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", type=Path, default=None,
                     help=argparse.SUPPRESS)
+    # phase 17 starts this script once with this (the dry run alone)
+    ap.add_argument("--dryrun-out", type=Path, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     # the allocator maps and unmaps pages of one growing segment, so a
     # small tensor left behind cannot pin a freed model's whole segment:
@@ -5670,6 +5808,8 @@ def main():
     sys.path.insert(0, str(src))
     if args.mesh_rank is not None:
         return mesh16_rank(args.mesh_rank, args.mesh_port, args.mesh_out)
+    if args.dryrun_out is not None:
+        return dryrun17_cells(args.dryrun_out)
     from repro_torch.kernels import _build
     from repro_torch.kernels.tensor_alu import tensor_alu, tensor_alu_scatter
     from repro_torch.kernels.vta_gemm import vta_gemm
@@ -5962,6 +6102,12 @@ def main():
             flash_shapes[tuple(sh)] = flash_shapes.get(tuple(sh), 0) + n
         for *sh, n in r["bwd_shapes"]:
             fb_shapes[tuple(sh)] = fb_shapes.get(tuple(sh), 0) + n
+
+    # ---- phase 17: the dry run's predicted peaks against phases 14, 16 --
+    log("phase 17: the dry run (launch/dryrun.py on the meta device, no "
+        "card) of phase 14's and 16's steps, against their measured "
+        "peaks")
+    phase_dryrun17(rec, tr, m16_runs)
     fb_rows, fb_err = phase_flash_bwd_kernel(rec, fb_shapes)
 
     # ---- phase 1: kernels against plain versions ------------------------

@@ -19,6 +19,8 @@ MAXG = 8
 BLOCKS_PER_SM = 2
 #: the fewest positions a split is given (a block steps 4-128 rows at once)
 MIN_SPLIT = 32
+#: SMs of an H100 (the plan's card on ``meta`` tensors, the dry run)
+SMS = 132
 
 
 def head_blocks(G: int) -> int:
@@ -60,6 +62,8 @@ def _tickets(dev: torch.device, n: int) -> torch.Tensor:
     by every launch (the last block of a head row resets its counter).
     Grown, never shrunk.  Calls on one device's streams must not
     overlap."""
+    if dev.type == "meta":         # the dry run: a fresh buffer each call
+        return torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     buf = _TICKETS.get(idx)
     if buf is None or buf.numel() < n:
@@ -120,7 +124,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         len_dev = kv_len.contiguous().data_ptr()
     else:
         len_host = int(kv_len)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sms = SMS if dev.type == "meta" else \
+        torch.cuda.get_device_properties(dev).multi_processor_count
     splits, split_len = decode_plan(B, KH, G, S, None if len_dev is not None
                                     else len_host, sms)
     ws = tickets = None
@@ -129,6 +134,8 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          device=dev)
         tickets = _tickets(dev, BH * head_blocks(G))
     out = torch.empty((BH, G, D), dtype=q.dtype, device=dev)
+    if dev.type == "meta":         # the dry run: allocations alone
+        return out
     sb, ss, sh, _ = k.stride()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), len_dev,

@@ -1,13 +1,17 @@
 """Public op: batched GQA decode step over a (possibly padded) KV cache.
 
 A CPU tensor takes the plain version (``ref.decode_attention_ref_4d``); a
-CUDA tensor launches the CUDA kernel; any other device raises.  There is
+CUDA tensor launches the CUDA kernel; a ``meta`` tensor (the dry run)
+takes the card's route with nothing launched (``kernels/_meta.py``: the
+card's allocations, 4 S D FLOPs a query head over the whole cache, as
+the reference's oracle computes it); any other device raises.  There is
 no fallback between the two.
 """
 from __future__ import annotations
 
 import torch
 
+from .. import _meta
 from .._grad import refuse_grad
 from .kernel import decode_attention_cuda
 from .ref import KvLen, decode_attention_ref_4d
@@ -34,12 +38,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("decode_attention operands on different devices")
     if dev.type == "cpu":
         return decode_attention_ref_4d(q, k_cache, v_cache, kv_len)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention has no kernel for device {dev}")
     B, _, HQ, D = q.shape
     KH = k_cache.shape[2]
     qh = q.reshape(B * KH, HQ // KH, D).contiguous()
     out = decode_attention_cuda(qh, k_cache, v_cache, kv_len)
+    if dev.type == "meta":
+        _meta.record("decode_attention", 4 * B * HQ * k_cache.shape[1] * D,
+                     q, k_cache, v_cache, out)
+        return out.reshape(B, 1, HQ, D)
     decode_attention.launches += 1
     key = (B, k_cache.shape[1], HQ, KH, D, str(q.dtype).split(".")[-1],
            str(k_cache.dtype).split(".")[-1])

@@ -1,14 +1,14 @@
-// flash_wide: GQA attention and its gradient for head dims above 128 (up
-// to 256), float32 or bfloat16 operands, on the CUDA cores of Hopper
-// (sm_90a).  The tensor-core kernels beside it (flash_wgmma.cu,
-// flash_tf32x3.cu, flash_bwd.cu) keep a query tile's scores and output in
-// registers sized for D <= 128; this simple variant takes the wider heads
-// they refuse.  No config of the repository has such a head: it makes the
-// op take every head dim up to 256, as the TPU kernel does.
+// flash_wide: GQA attention and its gradient for head dims above 128,
+// float32 or bfloat16 operands, on the CUDA cores of Hopper (sm_90a).  The
+// tensor-core kernels beside it (flash_wgmma.cu, flash_tf32x3.cu,
+// flash_bwd.cu) keep a query tile's scores and output in registers sized
+// for D <= 128; this simple variant takes the wider heads they refuse.  No
+// config of the repository has such a head: it makes the op take every head
+// dim, as the TPU kernel does.
 //
 // Replaces: src/repro/kernels/flash_attention/kernel.py,
-// flash_attention_pallas (body _flash_kernel), for 128 < D <= 256; the
-// gradient has no TPU kernel (the reference differentiates its jnp oracle,
+// flash_attention_pallas (body _flash_kernel), for D > 128; the gradient
+// has no TPU kernel (the reference differentiates its jnp oracle,
 // src/repro/kernels/flash_attention/ref.py:18), as flash_bwd.cu.
 //
 // Computes, for each batch b, query head h and query row i (query head h
@@ -33,6 +33,18 @@
 // rounded once on store).  Operands are contiguous (the wrapper makes
 // them so): q, out, do, dq (B, S, HQ, D); k, v, dk, dv (B, Sk, KH, D); L
 // and Delta (B, HQ, S).
+//
+// Head dims above MAXD = 256 (the "sliced" kernels): a lane holds 8
+// values, so the head dim is walked in slices of 256 columns.  A score
+// (and in the backward do . v) is summed over the slices, each slice of
+// the register-side row against the same slice of a streamed tile.  The
+// forward takes two launches: each row's L (an online max and sum over
+// its keys), then one block per (rows, slice of the output): p = exp(s -
+// L) recomputed from L, its slice of p v accumulated and written.  The
+// backward writes dq, dk and dv slice by slice in the same way (a block a
+// slice, each recomputing p and ds from L and Delta over the whole head
+// dim).  So each output slice pays the whole score work again: right, not
+// fast.
 //
 // What bounds it on this card: each score costs a warp's dot product, a
 // five-step shuffle reduction and an exponential on the CUDA cores, far
@@ -321,9 +333,268 @@ flash_wide_dkdv(const T* q, const T* k, const T* v, const T* dout,
   }
 }
 
+// ---------------------------------------------------------------------
+// D > MAXD: the head dim in slices of MAXD columns
+// ---------------------------------------------------------------------
+__host__ __device__ __forceinline__ int n_slices(int D) {
+  return (D + MAXD - 1) / MAXD;
+}
+
+// Columns [c0, c0 + w) of rows [r0, r0 + TILE) of a (B, rows, H, D)
+// operand at (b, h) into shared memory as float32 (times `mul`), zeros
+// past the last row.
+template <typename T>
+__device__ __forceinline__ void load_cols(float (*dst)[MAXD], const T* src,
+                                          int b, int rows, int H, int h,
+                                          int D, int c0, int w, int r0,
+                                          float mul) {
+  for (int x = threadIdx.x; x < TILE * w; x += blockDim.x) {
+    const int j = x / w, e = x % w, r = r0 + j;
+    dst[j][e] = r < rows
+        ? ld(src + ((size_t)(b * rows + r) * H + h) * D + c0 + e) * mul
+        : 0.f;
+  }
+}
+
+// s[j] = (amul a) . (bmul b_j) over the whole head dim, for this warp's
+// row a (D values at `arow`, valid where `row`) and the TILE rows b_j from
+// r0 of a (B, rows, H, D) operand at (b, h): slice by slice, each slice of
+// the tile staged in `buf`.  Every thread of the block calls it.
+template <typename T>
+__device__ __forceinline__ void sliced_dots(const T* arow, bool row,
+                                            float amul, const T* src, int b,
+                                            int rows, int H, int h, int D,
+                                            int r0, float bmul,
+                                            float (*buf)[MAXD],
+                                            float (&s)[TILE]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int j = 0; j < TILE; ++j) s[j] = 0.f;
+  float r[EPL];
+  for (int c0 = 0; c0 < D; c0 += MAXD) {
+    const int w = min(MAXD, D - c0);
+    __syncthreads();
+    load_cols(buf, src, b, rows, H, h, D, c0, w, r0, bmul);
+    if (row) load_row(arow + c0, w, lane, amul, r);
+    __syncthreads();
+    if (row) {
+#pragma unroll
+      for (int j = 0; j < TILE; ++j) s[j] += dot(r, buf[j], w, lane);
+    }
+  }
+}
+
+// Each query row's L over its keys (scores summed over the slices).
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_wide_fwd_lse(const T* q, const T* k, float* lse, int S, int Sk,
+                   int HQ, int KH, int D, int causal, float scale) {
+  __shared__ float buf[TILE][MAXD];
+  const int warp = threadIdx.x / 32;
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (HQ / KH);
+  const int i0 = blockIdx.x * WARPS, i = i0 + warp;
+  const bool row = i < S;
+  const int lim = causal ? i + Sk - S : Sk - 1;
+  const T* qrow = q + ((size_t)(b * S + min(i, S - 1)) * HQ + h) * D;
+  float m = -INFINITY, l = 0.f;
+  const int kend = key_end(i0, S, Sk, causal);
+  for (int k0 = 0; k0 < kend; k0 += TILE) {
+    float s[TILE];
+    sliced_dots(qrow, row, scale, k, b, Sk, KH, kh, D, k0, 1.f, buf, s);
+    if (!row) continue;
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      const int kj = k0 + j;
+      if (!(kj < Sk && kj <= lim)) s[j] = -INFINITY;
+      tmax = fmaxf(tmax, s[j]);
+    }
+    if (tmax == -INFINITY) continue;
+    const float mn = fmaxf(m, tmax);
+    l *= expf(m - mn);
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) l += expf(s[j] - mn);
+    m = mn;
+  }
+  if (row && threadIdx.x % 32 == 0)
+    lse[((size_t)b * HQ + h) * S + i] = l > 0.f ? m + logf(l) : INFINITY;
+}
+
+// One slice of the output: out[:, c0:c0 + w] = sum_j exp(s_j - L) v_j.
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_wide_fwd_slice(const T* q, const T* k, const T* v, T* out,
+                     const float* lse, int S, int Sk, int HQ, int KH,
+                     int D, int causal, float scale) {
+  __shared__ float buf[TILE][MAXD];
+  __shared__ float vs[TILE][MAXD];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ns = n_slices(D);
+  const int h = blockIdx.y, b = blockIdx.z / ns, c0 = blockIdx.z % ns * MAXD;
+  const int w = min(MAXD, D - c0), kh = h / (HQ / KH);
+  const int i0 = blockIdx.x * WARPS, i = i0 + warp;
+  const bool row = i < S;
+  const int lim = causal ? i + Sk - S : Sk - 1;
+  const T* qrow = q + ((size_t)(b * S + min(i, S - 1)) * HQ + h) * D;
+  const float L = row ? lse[((size_t)b * HQ + h) * S + i] : INFINITY;
+  float acc[EPL];
+#pragma unroll
+  for (int t = 0; t < EPL; ++t) acc[t] = 0.f;
+  const int kend = key_end(i0, S, Sk, causal);
+  for (int k0 = 0; k0 < kend; k0 += TILE) {
+    float s[TILE];
+    sliced_dots(qrow, row, scale, k, b, Sk, KH, kh, D, k0, 1.f, buf, s);
+    __syncthreads();
+    load_cols(vs, v, b, Sk, KH, kh, D, c0, w, k0, 1.f);
+    __syncthreads();
+    if (!row) continue;
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      const int kj = k0 + j;
+      if (kj >= Sk || kj > lim) continue;
+      const float p = expf(s[j] - L);
+#pragma unroll
+      for (int t = 0; t < EPL; ++t) {
+        const int e = lane + 32 * t;
+        if (e < w) acc[t] = fmaf(p, vs[j][e], acc[t]);
+      }
+    }
+  }
+  if (!row) return;
+  T* o = out + ((size_t)(b * S + i) * HQ + h) * D + c0;
+#pragma unroll
+  for (int t = 0; t < EPL; ++t) {
+    const int e = lane + 32 * t;
+    if (e < w) st(o + e, acc[t]);
+  }
+}
+
+// One slice of dq: dq_i[c] = scale * sum_j ds_ij k_j[c].
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_wide_dq_slice(const T* q, const T* k, const T* v, const T* dout,
+                    const float* lse, const float* delta, T* dq, int S,
+                    int Sk, int HQ, int KH, int D, int causal, float scale) {
+  __shared__ float buf[TILE][MAXD];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ns = n_slices(D);
+  const int h = blockIdx.y, b = blockIdx.z / ns, c0 = blockIdx.z % ns * MAXD;
+  const int w = min(MAXD, D - c0), kh = h / (HQ / KH);
+  const int i0 = blockIdx.x * WARPS, i = i0 + warp;
+  const bool row = i < S;
+  const int lim = causal ? i + Sk - S : Sk - 1;
+  const size_t off = ((size_t)(b * S + min(i, S - 1)) * HQ + h) * D;
+  float L = INFINITY, Dl = 0.f;
+  if (row) {
+    L = lse[((size_t)b * HQ + h) * S + i];
+    Dl = delta[((size_t)b * HQ + h) * S + i];
+  }
+  float acc[EPL];
+#pragma unroll
+  for (int t = 0; t < EPL; ++t) acc[t] = 0.f;
+  const int kend = key_end(i0, S, Sk, causal);
+  for (int k0 = 0; k0 < kend; k0 += TILE) {
+    float s[TILE], dp[TILE];
+    sliced_dots(q + off, row, scale, k, b, Sk, KH, kh, D, k0, 1.f, buf, s);
+    sliced_dots(dout + off, row, 1.f, v, b, Sk, KH, kh, D, k0, 1.f, buf,
+                dp);
+    __syncthreads();
+    load_cols(buf, k, b, Sk, KH, kh, D, c0, w, k0, 1.f);
+    __syncthreads();
+    if (!row) continue;
+    for (int j = 0; j < TILE; ++j) {
+      const int kj = k0 + j;
+      if (kj >= Sk || kj > lim) break;
+      const float ds = expf(s[j] - L) * (dp[j] - Dl);
+#pragma unroll
+      for (int t = 0; t < EPL; ++t) {
+        const int e = lane + 32 * t;
+        if (e < w) acc[t] = fmaf(ds, buf[j][e], acc[t]);
+      }
+    }
+  }
+  if (!row) return;
+  T* o = dq + ((size_t)(b * S + i) * HQ + h) * D + c0;
+#pragma unroll
+  for (int t = 0; t < EPL; ++t) {
+    const int e = lane + 32 * t;
+    if (e < w) st(o + e, acc[t] * scale);
+  }
+}
+
+// One slice of dk and dv: dk_j[c] = sum_i ds_ij (scale q_i[c]), dv_j[c] =
+// sum_i p_ij do_i[c] over the query rows of every head in key j's group
+// that see it.
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+flash_wide_dkdv_slice(const T* q, const T* k, const T* v, const T* dout,
+                      const float* lse, const float* delta, T* dk, T* dv,
+                      int S, int Sk, int HQ, int KH, int D, int causal,
+                      float scale) {
+  __shared__ float qs[TILE][MAXD];
+  __shared__ float dos[TILE][MAXD];
+  __shared__ float Ls[TILE], Ds[TILE];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ns = n_slices(D);
+  const int kh = blockIdx.y, b = blockIdx.z / ns, c0 = blockIdx.z % ns * MAXD;
+  const int w = min(MAXD, D - c0), G = HQ / KH;
+  const int j0 = blockIdx.x * WARPS, j = j0 + warp;
+  const bool row = j < Sk;
+  const int shift = Sk - S;
+  const size_t off = ((size_t)(b * Sk + min(j, Sk - 1)) * KH + kh) * D;
+  float gk[EPL], gv[EPL];
+#pragma unroll
+  for (int t = 0; t < EPL; ++t) gk[t] = gv[t] = 0.f;
+  const int ibeg = causal ? max(0, j0 - shift) : 0;
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    for (int r0 = ibeg - ibeg % TILE; r0 < S; r0 += TILE) {
+      float s[TILE], dp[TILE];
+      sliced_dots(k + off, row, 1.f, q, b, S, HQ, h, D, r0, scale, qs, s);
+      sliced_dots(v + off, row, 1.f, dout, b, S, HQ, h, D, r0, 1.f, dos,
+                  dp);
+      __syncthreads();
+      load_cols(qs, q, b, S, HQ, h, D, c0, w, r0, scale);
+      load_cols(dos, dout, b, S, HQ, h, D, c0, w, r0, 1.f);
+      if (threadIdx.x < TILE) {
+        const int r = r0 + threadIdx.x;
+        const size_t at = ((size_t)b * HQ + h) * S + r;
+        Ls[threadIdx.x] = r < S ? lse[at] : INFINITY;
+        Ds[threadIdx.x] = r < S ? delta[at] : 0.f;
+      }
+      __syncthreads();
+      if (!row) continue;
+      for (int x = 0; x < TILE; ++x) {
+        const int i = r0 + x;
+        if (i >= S || (causal && j > i + shift)) continue;
+        const float p = expf(s[x] - Ls[x]);
+        const float ds = p * (dp[x] - Ds[x]);
+#pragma unroll
+        for (int t = 0; t < EPL; ++t) {
+          const int e = lane + 32 * t;
+          if (e < w) {
+            gv[t] = fmaf(p, dos[x][e], gv[t]);
+            gk[t] = fmaf(ds, qs[x][e], gk[t]);
+          }
+        }
+      }
+    }
+  }
+  if (!row) return;
+  const size_t out = ((size_t)(b * Sk + j) * KH + kh) * D + c0;
+#pragma unroll
+  for (int t = 0; t < EPL; ++t) {
+    const int e = lane + 32 * t;
+    if (e < w) {
+      st(dk + out + e, gk[t]);
+      st(dv + out + e, gv[t]);
+    }
+  }
+}
+
 bool bad_shape(int B, int HQ, int KH, int S, int Sk, int D) {
   return B < 1 || KH < 1 || HQ % KH || S < 1 || Sk < 1 || D < 1 ||
-         D > MAXD || HQ > 65535 || KH > 65535 || B > 65535;
+         HQ > 65535 || KH > 65535 || (long long)B * n_slices(D) > 65535;
 }
 
 template <typename T>
@@ -331,10 +602,24 @@ int fwd(const void* q, const void* k, const void* v, void* out, float* lse,
         int B, int HQ, int KH, int S, int Sk, int D, int causal,
         float scale, cudaStream_t cs) {
   dim3 grid((S + WARPS - 1) / WARPS, HQ, B);
-  flash_wide_fwd<T><<<grid, WARPS * 32, 0, cs>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), lse, S, Sk, HQ, KH,
-      D, causal, scale);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  if (D <= MAXD) {
+    flash_wide_fwd<T><<<grid, WARPS * 32, 0, cs>>>(
+        qt, kt, vt, static_cast<T*>(out), lse, S, Sk, HQ, KH, D, causal,
+        scale);
+    return (int)cudaGetLastError();
+  }
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  flash_wide_fwd_lse<T><<<grid, WARPS * 32, 0, cs>>>(qt, kt, lse, S, Sk, HQ,
+                                                     KH, D, causal, scale);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  dim3 slices((S + WARPS - 1) / WARPS, HQ, B * n_slices(D));
+  flash_wide_fwd_slice<T><<<slices, WARPS * 32, 0, cs>>>(
+      qt, kt, vt, static_cast<T*>(out), lse, S, Sk, HQ, KH, D, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -352,6 +637,19 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
       static_cast<const T*>(o), dt, delta, S, HQ, D);
   int err = (int)cudaGetLastError();
   if (err) return err;
+  if (D > MAXD) {
+    dim3 qsl((S + WARPS - 1) / WARPS, HQ, B * n_slices(D));
+    flash_wide_dq_slice<T><<<qsl, WARPS * 32, 0, cs>>>(
+        qt, kt, vt, dt, lse, delta, static_cast<T*>(dq), S, Sk, HQ, KH, D,
+        causal, scale);
+    err = (int)cudaGetLastError();
+    if (err) return err;
+    dim3 ksl((Sk + WARPS - 1) / WARPS, KH, B * n_slices(D));
+    flash_wide_dkdv_slice<T><<<ksl, WARPS * 32, 0, cs>>>(
+        qt, kt, vt, dt, lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), S, Sk, HQ, KH, D, causal, scale);
+    return (int)cudaGetLastError();
+  }
   flash_wide_dq<T><<<rows, WARPS * 32, 0, cs>>>(
       qt, kt, vt, dt, lse, delta, static_cast<T*>(dq), S, Sk, HQ, KH, D,
       causal, scale);
@@ -367,7 +665,9 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // The forward: out (and L where lse is not null); bf16 selects bfloat16
-// operands, else float32.  Returns a CUDA error code (0: launched).
+// operands, else float32.  Up to MAXD one launch; above it two (L, then
+// the output's slices), and lse must not be null.  Returns a CUDA error
+// code (0: launched).
 extern "C" int flash_wide_launch(const void* q, const void* k, const void* v,
                                  void* out, float* lse, int B, int HQ,
                                  int KH, int S, int Sk, int D, int causal,
@@ -382,7 +682,7 @@ extern "C" int flash_wide_launch(const void* q, const void* k, const void* v,
 }
 
 // The backward from the forward's L: Delta (scratch, (B, HQ, S) float32),
-// then dq, then dk and dv.  Three launches.
+// then dq, then dk and dv (above MAXD, slice by slice).  Three launches.
 extern "C" int flash_wide_bwd_launch(const void* q, const void* k,
                                      const void* v, const void* o,
                                      const void* dout, void* dq, void* dk,

@@ -4,14 +4,17 @@ operands (wgmma and TMA) and ``csrc/flash_tf32x3.cu`` for float32 ones
 (mma.sync in 3xTF32), and the backward of both, ``csrc/flash_bwd.cu``
 (:func:`flash_attention_bwd_cuda`), all for D up to 128; and
 ``csrc/flash_wide.cu`` (forward and backward, either dtype, on the CUDA
-cores) for 128 < D <= 256 (:func:`flash_wide_cuda`,
-:func:`flash_wide_bwd_cuda`).  :func:`head_dim_plan` says which takes a
+cores) for every D above 128, in slices of WIDE_SLICE columns above
+WIDE_SLICE (:func:`flash_wide_cuda`, :func:`flash_wide_bwd_cuda`).  :func:`head_dim_plan` says which takes a
 head dim and to what D the op zero-pads it, :func:`route` picks one by dtype,
 :func:`wgmma_plan` turns the operands' shapes and strides into the
 tensor maps of the bfloat16 kernel, :func:`flash_f32_plan` sizes the
 float32 kernel's tiles and :func:`flash_bwd_plan` checks and pads the
 backward's D; all are plain Python, so the CPU tests reach them.  Built
-at first call by :mod:`repro_torch.kernels._build`, never at import."""
+at first call by :mod:`repro_torch.kernels._build`, never at import.
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) each wrapper
+allocates what it allocates on the card, from the same plans, and
+launches nothing."""
 from __future__ import annotations
 
 import ctypes
@@ -25,8 +28,9 @@ from .. import _build
 
 #: the largest head dim the tensor-core kernels are instantiated for
 MAX_D = 128
-#: the largest head dim of the op (flash_wide.cu above MAX_D)
-WIDE_MAX_D = 256
+#: the head-dim columns flash_wide.cu holds at once (its MAXD): above
+#: this it walks the head dim in slices of WIDE_SLICE columns
+WIDE_SLICE = 256
 #: log2(e): the bf16 kernel's exponentials are exp2 of log2e-scaled scores
 LOG2E = 1.4426950408889634
 
@@ -49,17 +53,16 @@ class HeadDimPlan(NamedTuple):
 
 def head_dim_plan(D: int, dtype: torch.dtype) -> HeadDimPlan:
     """The plan for head dim D: up to MAX_D the tensor-core kernels, D
-    padded to a multiple of 16 (bfloat16) or 4 (float32); up to
-    WIDE_MAX_D flash_wide.cu, unpadded.  Raises ValueError above
-    WIDE_MAX_D.  The dtype is checked by the kernels' wrappers (the
-    forward's TypeError, the backward's ValueError), not here."""
+    padded to a multiple of 16 (bfloat16) or 4 (float32); above MAX_D
+    flash_wide.cu, unpadded.  Raises ValueError for D below 1.  The dtype
+    is checked by the kernels' wrappers (the forward's TypeError, the
+    backward's ValueError), not here."""
     step = 16 if dtype == torch.bfloat16 else 4
     if 1 <= D <= MAX_D:
         return HeadDimPlan("tensor", -(-D // step) * step)
-    if MAX_D < D <= WIDE_MAX_D:
+    if D > MAX_D:
         return HeadDimPlan("wide", D)
-    raise ValueError(f"flash_attention takes head dims 1 to {WIDE_MAX_D}, "
-                     f"got {D}")
+    raise ValueError(f"flash_attention takes head dims from 1, got {D}")
 
 
 def route(dtype: torch.dtype) -> str:
@@ -231,7 +234,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((B, S, HQ, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    if out.numel():
+    if out.numel() and not q.is_meta:
         err = (_wgmma if which == "wgmma" else _tf32x3)(
             q, k, v, out, lse, causal, scale)
         _build.check(err, f"flash_attention ({which})")
@@ -305,6 +308,8 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     # each row's (L, Delta), the rows padded to a multiple of ROW_PAD
     ld = torch.empty((B * HQ, -(-S // ROW_PAD) * ROW_PAD, 2),
                      dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        return dq, dk, dv
     fn = _launcher("flash_bwd", [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -323,9 +328,9 @@ def _wide_operands(*ts: torch.Tensor):
                                                     torch.bfloat16):
         raise ValueError(f"flash_wide takes operands of one dtype, float32 "
                          f"or bfloat16, got {[str(t.dtype) for t in ts]}")
-    if not MAX_D < ts[0].shape[-1] <= WIDE_MAX_D:
-        raise ValueError(f"flash_wide takes {MAX_D} < D <= {WIDE_MAX_D}, "
-                         f"got {ts[0].shape[-1]}")
+    if ts[0].shape[-1] <= MAX_D:
+        raise ValueError(f"flash_wide takes D above {MAX_D}, got "
+                         f"{ts[0].shape[-1]}")
     return [t.contiguous() for t in ts]
 
 
@@ -333,15 +338,17 @@ def flash_wide_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, with_lse: bool = False,
                     scale: Optional[float] = None):
     """``csrc/flash_wide.cu``'s forward: as :func:`flash_attention_cuda`
-    for MAX_D < D <= WIDE_MAX_D (ValueError else), one launch; the
-    operands are read contiguous (copied where they are not)."""
+    for D above MAX_D (ValueError else): one launch up to WIDE_SLICE, two
+    above it (each row's L, then the output slice by slice; L is written
+    to scratch where `with_lse` is off); the operands are read contiguous
+    (copied where they are not)."""
     q, k, v = _wide_operands(q, k, v)
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device) \
-        if with_lse else None
-    if out.numel():
+        if with_lse or D > WIDE_SLICE else None
+    if out.numel() and not q.is_meta:
         fn = _launcher("flash_wide", [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -370,6 +377,8 @@ def flash_wide_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device)
+    if q.is_meta:
+        return dq, dk, dv
     fn = getattr(_build.load("flash_wide"), "flash_wide_bwd_launch")
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 \
         + [ctypes.c_float, ctypes.c_void_p]

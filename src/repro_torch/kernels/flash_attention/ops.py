@@ -4,8 +4,11 @@ A CPU tensor takes the plain version (:func:`flash_attention_plain`: the
 materialized oracle up to ``_CHUNKED_THRESHOLD`` score elements per head,
 the chunked one above, as the reference op chooses); a CUDA tensor
 launches a CUDA kernel, chosen by dtype (``kernel.route``: bfloat16 the
-wgmma kernel, float32 the 3xTF32 one); any other device raises.  There is
-no fallback between any of them.
+wgmma kernel, float32 the 3xTF32 one); a ``meta`` tensor (the dry run)
+takes the card's route with nothing launched (``kernels/_meta.py``: the
+card's allocations, the work reported as the reference's oracle does it,
+4 S Sk D FLOPs a head forward and 8 backward, masked or not); any other
+device raises.  There is no fallback between any of them.
 
 Operands of mixed dtype (whisper's decode step: a bfloat16 query over K/V
 read from float32 caches) follow one fixed rule, the reference's
@@ -28,13 +31,14 @@ other device raises.  The Function saves q, k, v, the output and L.
 Otherwise (serving) the Function is not entered, nothing is saved and no
 L is written.  Backward launches are counted apart from the forward's.
 
-Every head dim D from 1 to 256 runs on the card (``kernel.head_dim_plan``):
-up to 128 the tensor-core kernels, q, k and v zero-padded here to a
-multiple of 16 (bfloat16) or 4 (float32) where D is not one, the scale
-kept at 1/sqrt(D) and the output and gradients sliced back (exact: zero
-columns add nothing to q k^T, and the padded columns of the output and of
-dq, dk, dv are zero); above 128 the wide kernel (``csrc/flash_wide.cu``),
-forward and backward.  D above 256 raises ValueError.
+Every head dim D from 1 runs on the card (``kernel.head_dim_plan``): up
+to 128 the tensor-core kernels, q, k and v zero-padded here to a multiple
+of 16 (bfloat16) or 4 (float32) where D is not one, the scale kept at
+1/sqrt(D) and the output and gradients sliced back (exact: zero columns
+add nothing to q k^T, and the padded columns of the output and of dq, dk,
+dv are zero); above 128 the wide kernel (``csrc/flash_wide.cu``), forward
+and backward, in slices of 256 columns above 256.  D below 1 raises
+ValueError.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from .. import _meta
 from .kernel import (flash_attention_bwd_cuda, flash_attention_cuda,
                      flash_wide_bwd_cuda, flash_wide_cuda, head_dim_plan)
 from .ref import (attention_bwd_ref, attention_lse_ref, attention_ref,
@@ -134,7 +139,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return out
         return out, attention_lse_ref(q, k, group=q.shape[2] // k.shape[2],
                                       causal=causal)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention has no kernel for device {dev}")
     names = [str(t.dtype).split(".")[-1] for t in (q, k, v)]
     if len(set(names)) == 1:
@@ -147,6 +152,11 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = _cuda_forward(*up, causal, with_lse)
         out = (out[0].to(q.dtype), out[1]) if with_lse else out.to(q.dtype)
         dtype = f"{names[0]}/{names[1]}"
+    if dev.type == "meta":
+        B, S, HQ, D = q.shape
+        _meta.record("flash_attention", 4 * B * HQ * S * k.shape[1] * D,
+                     q, k, v, *(out if with_lse else (out,)))
+        return out
     if q.numel():                   # an empty output launches nothing
         flash_attention.launches += 1
         B, S, HQ, D = q.shape
@@ -193,7 +203,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, group=HQ // k.shape[2],
                                  causal=causal, lse=lse)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention has no backward kernel for "
                          f"device {dev}")
     if lse is None:
@@ -201,6 +211,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "forward's log-sum-exp (lse, from "
                          "flash_attention_fwd)")
     grads = _cuda_backward(q, k, v, o, do, lse, causal)
+    if dev.type == "meta":
+        _meta.record("flash_attention_bwd", 8 * B * HQ * S * k.shape[1] * D,
+                     q, k, v, o, do, lse, *grads)
+        return grads
     if min(B, S, k.shape[1], HQ):   # an empty operand launches nothing
         flash_attention.bwd_launches += 1
         key = (B, S, k.shape[1], HQ, k.shape[2], D, bool(causal),

@@ -178,6 +178,8 @@ def gla_chunk_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return y, h
     if S == 0:
         raise ValueError("the gla_chunk kernel takes S > 0")
+    if q.is_meta:                  # the dry run: allocations alone
+        return y, h
     h0_strides = h0.stride() if h0 is not None else (0, 0, 0, 0)
     strides = (ctypes.c_longlong * 21)(
         *q.stride()[:3], *k.stride()[:3], *v.stride(), *la.stride(),
@@ -271,6 +273,9 @@ def gla_chunk_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     summed = Hq == 1 and H > 1
     dq_sum = torch.empty((B, S, 1, N), **f) if summed else None
     dk_sum = torch.empty((B, S, 1, N), **f) if summed else None
+    if q.is_meta:                  # the dry run: allocations alone
+        return (dq_sum, dk_sum, dv, dla, dh0) if summed \
+            else (dq, dk, dv, dla, dh0)
 
     def heads(t: torch.Tensor) -> tuple:
         s = t.stride()

@@ -1,8 +1,12 @@
 """Public op: the chunked GLA scan over (B, S, H, ...) tensors.
 
 A CPU tensor takes the plain version (:func:`gla_chunk_plain`, over
-``ref.gla_chunk_ref``); a CUDA tensor launches the CUDA kernel; any other
-device raises.  There is no fallback between the two.  Both keep the
+``ref.gla_chunk_ref``); a CUDA tensor launches the CUDA kernel; a
+``meta`` tensor (the dry run) takes the card's route with nothing
+launched (``kernels/_meta.py``: the card's allocations, the work reported
+as the reference's ``chunked_gla`` does it, its four chunk products
+forward and twice that backward); any other device raises.  There is no
+fallback between the two.  Both keep the
 reference op's rule on the chunk: Q = min(chunk, S) must divide S.
 
 q and k have H heads, or one (head dim 1) read for every head of v: the
@@ -26,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import _meta
 from .kernel import MAX_TILE, gla_chunk_bwd_cuda, gla_chunk_cuda
 from .ref import gla_chunk_bwd_ref, gla_chunk_ref
 
@@ -92,6 +97,16 @@ def _key(q: torch.Tensor, v: torch.Tensor, Q: int) -> tuple:
             H > 1 and (q.shape[2] == 1 or q.stride(2) == 0))
 
 
+def _oracle_flops(q: torch.Tensor, v: torch.Tensor, Q: int) -> int:
+    """The FLOPs of the reference's ``chunked_gla`` forward: per chunk of
+    Q rows and head, q k^T (2 Q Q N), its masked scores times v (2 Q Q
+    P), the chunk's state k^T v (2 Q N P) and q times the carried state
+    (2 Q N P)."""
+    B, S, H, P = v.shape
+    N = q.shape[3]
+    return B * H * (S // Q) * (2 * Q * Q * (N + P) + 4 * Q * N * P)
+
+
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              la: torch.Tensor, h0: Optional[torch.Tensor], Q: int,
              chunk: int, y_dtype: Optional[torch.dtype]
@@ -99,11 +114,15 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dev = q.device
     if dev.type == "cpu":
         return gla_chunk_plain(q, k, v, la, h0, chunk=chunk, y_dtype=y_dtype)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"gla_chunk has no kernel for device {dev}")
     H = v.shape[2]
     out = gla_chunk_cuda(_heads(q, H), _heads(k, H), v, la, h0,
                          min(Q, MAX_TILE), y_dtype or q.dtype)
+    if dev.type == "meta":
+        _meta.record("gla_chunk", _oracle_flops(q, v, Q), q, k, v, la, h0,
+                     *out)
+        return out
     gla_chunk.launches += 1
     key = _key(q, v, Q)
     gla_chunk.shapes[key] = gla_chunk.shapes.get(key, 0) + 1
@@ -162,16 +181,20 @@ def gla_chunk_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dev.type == "cpu":
         dq, dk, dv, dla, dh0 = gla_chunk_bwd_plain(q, k, v, la, h0, dy, dh,
                                                    chunk=chunk)
-    elif dev.type == "cuda":
+    elif dev.type in ("cuda", "meta"):
         f32 = [None if t is None else t.to(torch.float32)
                for t in (v, la, h0, dy, dh)]
         dq, dk, dv, dla, dh0 = gla_chunk_bwd_cuda(q, k, *f32[:3], *f32[3:])
-        gla_chunk.bwd_launches += 1
-        key = _key(q, v, Q)
-        gla_chunk.bwd_shapes[key] = gla_chunk.bwd_shapes.get(key, 0) + 1
     else:
         raise ValueError(f"gla_chunk has no backward kernel for device "
                          f"{dev}")
+    if dev.type == "meta":
+        _meta.record("gla_chunk_bwd", 2 * _oracle_flops(q, v, Q), q, k, v,
+                     la, h0, dy, dh, dq, dk, dv, dla, dh0)
+    elif dev.type == "cuda":
+        gla_chunk.bwd_launches += 1
+        key = _key(q, v, Q)
+        gla_chunk.bwd_shapes[key] = gla_chunk.bwd_shapes.get(key, 0) + 1
     return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dla.to(la.dtype),
             dh0)
 

@@ -3,7 +3,10 @@
 ``csrc/vta_wgmma.cu`` (the design notes are at the top of each).
 :func:`gemm_plan` picks the instance, its tile and the split of K; it is
 plain Python, so the CPU tests reach it.  Built at first call by
-:mod:`repro_torch.kernels._build`, never at import."""
+:mod:`repro_torch.kernels._build`, never at import.  On ``meta`` tensors
+(the dry run, ``launch/dryrun.py``) each wrapper allocates what it
+allocates on the card, from the same plans at an H100's 132 SMs, and
+launches nothing."""
 from __future__ import annotations
 
 import ctypes
@@ -147,6 +150,8 @@ def _scratch(dev: torch.device, what: str, n: int) -> torch.Tensor:
     split's partial sums, the tickets and the grid-wide amax words).
     Grown, never shrunk.  Calls on one device's streams must not
     overlap."""
+    if dev.type == "meta":         # the dry run: a fresh buffer each call
+        return torch.zeros(max(n, 4096), dtype=torch.int32, device=dev)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     buf = _SCRATCH.get((idx, what))
     if buf is None or buf.numel() < n:
@@ -198,6 +203,8 @@ def _launcher(sym: str):
 
 
 def _sms(dev: torch.device) -> int:
+    if dev.type == "meta":         # the dry run plans for an H100
+        return 132
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -220,6 +227,8 @@ def _launch_skinny(a, w_nk, bias, scale, out, T, M, N, K, a_dtype,
     if n_amax:
         part = _scratch(dev, "amax", n_amax + 1)
         xs_buf = torch.empty(1, dtype=torch.float32, device=dev)
+    if dev.type == "meta":         # the dry run: allocations alone
+        return
     err = _launcher("vta_gemm_launch")(
         a.data_ptr(), w_nk.data_ptr(), _ptr(bias), _ptr(scale),
         out.data_ptr(), _ptr(ws), _ptr(sync), _ptr(xs_given), _ptr(xs_buf),
@@ -245,6 +254,8 @@ def vta_gemm_cuda(a: torch.Tensor, w_nk: torch.Tensor,
                        EPILOGUES[epilogue], shift, ROUTES["skinny"], plan)
         return out
     a, w_nk = k_operand(a, K), k_operand(w_nk, K)
+    if dev.type == "meta":         # the dry run: allocations alone
+        return out
     err = _launcher("vta_wgmma_launch")(
         a.data_ptr(), w_nk.data_ptr(), _ptr(bias), _ptr(scale),
         out.data_ptr(), T, M, N, padded_k(K), EPILOGUES[epilogue],
@@ -299,6 +310,9 @@ def quantized_linear_cuda(x2: torch.Tensor, w_nk: torch.Tensor,
     xq = torch.empty((M, Kp), dtype=torch.int8, device=dev)
     xs_buf = torch.empty(1, dtype=torch.float32, device=dev) \
         if x_scale is None else None
+    if dev.type == "meta":         # the dry run: allocations alone
+        _scratch(dev, "sync", 4)
+        return out
     err = _launcher("vta_wgmma_qlinear")(
         x2.data_ptr(), X_DTYPES[x2.dtype], w_nk.data_ptr(), w_scale.data_ptr(),
         out.data_ptr(), xq.data_ptr(), _ptr(x_scale), _ptr(xs_buf),

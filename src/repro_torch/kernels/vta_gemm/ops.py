@@ -1,8 +1,10 @@
 """Public op: quantized GEMM through the VTA datapath.
 
 A CPU tensor takes the plain version (``ref.py``); a CUDA tensor launches
-the CUDA kernel; any other device raises.  There is no fallback between
-the two.  A leading tile axis batches peer tiles into one launch.
+the CUDA kernel; a ``meta`` tensor (the dry run) takes the card's route
+with nothing launched (``kernels/_meta.py``: the card's allocations, 2 M
+N K FLOPs a tile); any other device raises.  There is no fallback
+between the two.  A leading tile axis batches peer tiles into one launch.
 """
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from typing import Optional
 
 import torch
 
+from .. import _meta
 from .._grad import refuse_grad
 from .kernel import (EPILOGUES, OUT_DTYPES, X_DTYPES, quantized_linear_cuda,
                      vta_gemm_cuda)
@@ -50,7 +53,7 @@ def vta_gemm(a: torch.Tensor, w: torch.Tensor,
     if dev.type == "cpu":
         return vta_gemm_ref(a, w, bias, scale, epilogue=epilogue,
                             shift=shift)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"vta_gemm has no kernel for device {dev}")
     a3 = a if a.dim() == 3 else a[None]
     w3 = w if w.dim() == 3 else w[None]
@@ -64,6 +67,9 @@ def vta_gemm(a: torch.Tensor, w: torch.Tensor,
         bias.to(torch.int32).contiguous() if bias is not None else None,
         scale.to(torch.float32).contiguous() if scale is not None else None,
         epilogue, shift)
+    if dev.type == "meta":
+        _meta.record("vta_gemm", 2 * T * M * N * K, a, w, bias, scale, out)
+        return out if a.dim() == 3 else out[0]
     _count((T, M, N, K, epilogue, shift, bias is not None))
     return out if a.dim() == 3 else out[0]
 
@@ -106,7 +112,7 @@ def quantized_linear(x: torch.Tensor, w_q: torch.Tensor,
     dev = x.device
     if dev.type == "cpu":
         return quantized_linear_ref(x, w_q, w_scale, x_scale, gemm=vta_gemm)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"quantized_linear has no kernel for device {dev}")
     if x.dtype not in X_DTYPES or w_q.dtype != torch.int8:
         raise TypeError(f"quantized_linear on the card takes float32 or "
@@ -125,6 +131,9 @@ def quantized_linear(x: torch.Tensor, w_q: torch.Tensor,
         else x_scale.to(torch.float32).reshape(1).contiguous()
     y = quantized_linear_cuda(x2, w_q.t().contiguous(),
                               w_scale.to(torch.float32).contiguous(), xs)
+    if dev.type == "meta":
+        _meta.record("quantized_linear", 2 * M * N * K, x, w_q, w_scale, y)
+        return y.reshape(*orig_shape[:-1], N)
     _count((1, M, N, K, "dequant", 0, False))
     qkey = (M, N, K, str(x.dtype).split(".")[-1])
     quantized_linear.shapes[qkey] = quantized_linear.shapes.get(qkey, 0) + 1

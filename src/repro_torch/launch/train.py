@@ -259,8 +259,12 @@ def build_mesh_grad_fn(cfg: ModelConfig, mesh, p_shard: Any,
         # each rank's loss is the mean over its rows' counted targets:
         # weighted by its share of the global count, the ranks' mean is
         # the global batch's mean (weight 1 where the shares are equal)
-        counted = int((batch["targets"] >= 0).sum())
-        weight = int((local["targets"] >= 0).sum()) * n / max(counted, 1)
+        if batch["targets"].is_meta:
+            weight = 1.0        # the dry run's batch: every target counts
+        else:
+            counted = int((batch["targets"] >= 0).sum())
+            weight = int((local["targets"] >= 0).sum()) * n / max(counted,
+                                                                  1)
 
         flat_p = flatten(params)
         with torch.no_grad():

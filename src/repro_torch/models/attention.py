@@ -145,7 +145,7 @@ def attn_prefill(p: Params, cfg, x: torch.Tensor,
     q, k, v = _qkv(p, cfg, x, positions)
     o = flash_attention(q, k, v, causal=True)
     _write_at(cache, 0, k, v, cfg.kv_cache_quant)
-    return linear_apply(p["wo"], o.reshape(B, S, cfg.q_dim)), cache
+    return _out(p, cfg, o), cache
 
 
 def attn_decode(p: Params, cfg, x: torch.Tensor,
@@ -166,8 +166,7 @@ def attn_decode(p: Params, cfg, x: torch.Tensor,
     else:
         k_cache, v_cache = cache["k"], cache["v"]
     o = decode_attention(q, k_cache, v_cache, pos + 1)
-    out = linear_apply(p["wo"], o.reshape(B, 1, cfg.q_dim))
-    return out, cache
+    return _out(p, cfg, o), cache
 
 
 def cross_attn_init(gen: torch.Generator, cfg, device: torch.device,

@@ -74,6 +74,15 @@ def quantize_params(params: Any) -> LMParams:
     return LMParams(out)
 
 
+def quantized_param_shapes(param_shapes: Any) -> LMParams:
+    """The int8 PTQ tree of `param_shapes` (``meta`` tensors, as
+    ``transformer.init_params(cfg, 0, "meta")`` gives them): the same
+    leaves, shapes and dtypes :func:`quantize_params` makes, on ``meta``,
+    nothing computed (the dry run's ``--quantized`` serve cells)."""
+    with torch.no_grad():
+        return quantize_params(param_shapes)
+
+
 class VtaLinear:
     """A dense layer y = x @ W executed on the VTA datapath via a compiled
     ``Program``.

@@ -53,9 +53,11 @@ as it was, and it is held to the plain L (``attention_lse_ref``) within
 1e-5 absolute in float32 and 2e-5 in bfloat16 (both kernels compute the
 scores in float32; the bf16 kernel's exponentials are exp2 of log2 e
 scaled scores).  The backward takes every D the forward takes (D 80).
-Every head dim up to 256, forward and backward, under the same limits:
-D the tensor-core kernels do not take as it is zero-padded by the op,
-D above 128 on the wide kernel (``flash_wide.cu``).
+Every head dim, forward and backward, under the same limits: D the
+tensor-core kernels do not take as it is zero-padded by the op, D above
+128 on the wide kernel (``flash_wide.cu``; in slices of 256 columns above
+256, D 320 and 512 here; ``tools/time_kernels.py --ops flash_wide`` times
+them).
 The ``gla_chunk`` backward kernel (``gla_bwd.cu``, its float32 outputs)
 against the plain backward in float64 on the same inputs: each of dq,
 dk, dv, dla and dh0 within 4x the float32 plain backward's error, or
@@ -1459,7 +1461,8 @@ def test_flash_bwd_kernel_matches_plain(cuda_dev, case, dtype):
 #: head dims the tensor-core kernels do not take as they are: D 20, 80
 #: and 100 zero-padded by the op (to 32, 80 and 112 in bfloat16; 20, 80 and
 #: 100 need none in float32), D 160, 200 and 256 on the wide kernel
-#: (flash_wide.cu), causal with Sk < S (rows that see no key) and GQA
+#: (flash_wide.cu), D 320 and 512 on it in slices of 256 columns, causal
+#: with Sk < S (rows that see no key) and GQA
 FLASH_ANY_D_CASES = [
     (1, 64, 64, 4, 2, 20, True),
     (1, 96, 96, 4, 2, 80, False),
@@ -1467,6 +1470,10 @@ FLASH_ANY_D_CASES = [
     (1, 96, 96, 4, 2, 160, True),
     (2, 70, 90, 4, 4, 200, False),
     (1, 130, 130, 8, 2, 256, True),
+    (2, 70, 50, 4, 2, 320, True),
+    (1, 96, 96, 4, 4, 320, False),
+    (1, 130, 130, 4, 2, 512, True),
+    (2, 40, 60, 4, 1, 512, False),
 ]
 
 
@@ -1476,8 +1483,9 @@ FLASH_ANY_D_CASES = [
 @pytest.mark.parametrize("case", FLASH_ANY_D_CASES, ids=lambda c: "-".join(
     str(x) for x in c))
 def test_flash_any_head_dim_matches_plain(cuda_dev, case, dtype):
-    """Forward and backward at head dims up to 256 against the plain
-    versions, under the limits of the kernels they route to."""
+    """Forward and backward at head dims the tensor-core kernels do not
+    take as they are against the plain versions, under the limits of the
+    kernels they route to."""
     B, S, Sk, HQ, KH, D, causal = case
     q, k, v, do = _bwd_operands(cuda_dev, dtype, B, S, Sk, HQ, KH, D,
                                 S + Sk + D)

@@ -175,9 +175,14 @@ def test_rows_that_see_no_key_give_zeros():
 
 
 def test_meta_tensors_have_no_kernel():
+    """A meta tensor (the dry run) takes the card's route with no kernel
+    launched: the output's shape and dtype, nothing computed; shapes are
+    checked as on any device."""
     q = torch.empty((1, 4, 2, 16), device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        flash_attention(q, q, q)
+    before = flash_attention.launches
+    out = flash_attention(q, q, q)
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    assert flash_attention.launches == before
     with pytest.raises(ValueError, match="shapes"):
         flash_attention(q, q[:, :, :1, :8], q[:, :, :1, :8])
 

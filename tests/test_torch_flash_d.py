@@ -1,25 +1,26 @@
-"""flash_attention at every head dim up to 256.
+"""flash_attention at every head dim.
 
 The tensor-core kernels take D up to 128 (a multiple of 16 in bfloat16,
 of 4 in float32); the op zero-pads any other D up to 128 for them, and
-runs D above 128 on the wide kernel (``csrc/flash_wide.cu``), forward
-and backward (``kernel.head_dim_plan``).  Here, on the CPU:
+runs D above 128 on the wide kernel (``csrc/flash_wide.cu``, in slices of
+256 columns above 256), forward and backward (``kernel.head_dim_plan``).
+Here, on the CPU:
 
   * the plain version (what a CPU tensor runs) against the reference's
-    oracle (``flash_attention(use_pallas=False)``) at D 80, 160 and 256,
-    causal and not: float32 within 1e-5 of max|out|, bfloat16 within
+    oracle (``flash_attention(use_pallas=False)``) at D 80, 160, 256, 320
+    and 512, causal and not: float32 within 1e-5 of max|out|, bfloat16 within
     2^-7 (both compute in float32 and round once to bfloat16); its
     backward against ``jax.grad`` of that oracle: float32 within 2e-5 of
     max|grad| (sums in another order), bfloat16 within 2^-7;
   * ``head_dim_plan``: which kernels and what padding each D gets; D 0
-    and D above 256 raise;
+    raises, D 320 and 512 plan the wide kernel;
   * the card's dispatch (``ops._cuda_forward``, ``ops._cuda_backward``)
     with the kernels replaced by float64 stand-ins that record what they
     are given: a padded D reaches the tensor-core kernels padded, with
     the scale of the unpadded D, and the output, L and gradients sliced
     back equal the stand-ins' on the unpadded operands (within 1e-12:
-    zero columns add nothing); D above 128 reaches the wide kernel
-    unpadded.  The kernels themselves are held to the plain versions on
+    zero columns add nothing); D above 128 (320 included) reaches the
+    wide kernel unpadded.  The kernels themselves are held to the plain versions on
     the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7).
 """
 import math
@@ -35,10 +36,10 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_fwd)
 from repro_torch.kernels.flash_attention import ops as t_ops
-from repro_torch.kernels.flash_attention.kernel import (MAX_D, WIDE_MAX_D,
+from repro_torch.kernels.flash_attention.kernel import (MAX_D, WIDE_SLICE,
                                                         head_dim_plan)
 
-DS = [80, 160, 256]
+DS = [80, 160, 256, 320, 512]
 
 
 def _inputs(B, S, HQ, KH, D, seed):
@@ -84,9 +85,9 @@ def test_head_dim_plan(dtype):
         plan = head_dim_plan(D, dtype)
         assert plan.kernels == "tensor"
         assert plan.dp % step == 0 and D <= plan.dp < D + step
-    for D in range(MAX_D + 1, WIDE_MAX_D + 1):
+    for D in list(range(MAX_D + 1, WIDE_SLICE + 1)) + [320, 512]:
         assert head_dim_plan(D, dtype) == ("wide", D)
-    for D in (0, WIDE_MAX_D + 1, 512):
+    for D in (0, -1):
         with pytest.raises(ValueError):
             head_dim_plan(D, dtype)
 
@@ -109,7 +110,7 @@ def _attention64(q, k, v, causal, scale):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("D", [20, 80, 100, 160])
+@pytest.mark.parametrize("D", [20, 80, 100, 160, 320])
 def test_card_dispatch_pads_and_slices(monkeypatch, D, dtype):
     calls = []
 

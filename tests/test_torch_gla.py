@@ -163,8 +163,11 @@ def test_shapes_and_devices_are_checked():
         gla_chunk(q, k[:, :, :1], v, la)
     with pytest.raises(ValueError, match="shapes"):
         gla_chunk(q, k, v, la, h0[:, :1])
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        gla_chunk(*(t.to("meta") for t in (q, k, v, la)))
+    # meta tensors (the dry run): the card's output shapes, no launch
+    before = gla_chunk.launches
+    y, h = gla_chunk(*(t.to("meta") for t in (q, k, v, la)))
+    assert y.is_meta and y.shape == v.shape and h.shape == h0.shape
+    assert gla_chunk.launches == before
     with pytest.raises(ValueError, match="different devices"):
         gla_chunk(q, k, v.to("meta"), la)
 

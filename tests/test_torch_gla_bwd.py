@@ -264,4 +264,4 @@ def test_backward_refuses_mismatched_gradients():
     with pytest.raises(ValueError, match="multiple of the chunk"):
         gla_chunk_bwd(*args, chunk=24)
     with pytest.raises(ValueError, match="device"):
-        gla_chunk_bwd(*(t.to("meta") for t in args), chunk=16)
+        gla_chunk_bwd(*(t.to("meta") for t in args[:6]), args[6], chunk=16)

@@ -80,13 +80,17 @@ def test_tensor_alu_plain_matches_pallas(case):
 
 
 def test_ops_dispatch_by_device():
-    """A CPU tensor takes the plain version; a device that has no kernel
-    raises; building needs nvcc, which this machine lacks."""
+    """A CPU tensor takes the plain version; a meta tensor (the dry run)
+    takes vta_gemm's card route with no launch; a device that has no
+    kernel (tensor_alu on meta: off the LM path) raises; building needs
+    nvcc, which this machine lacks."""
     a = torch.zeros((4, 8), dtype=torch.int8)
     w = torch.zeros((8, 4), dtype=torch.int8)
     assert vta_gemm(a, w).dtype == torch.int32
-    with pytest.raises(ValueError):
-        vta_gemm(a.to("meta"), w.to("meta"))
+    before = vta_gemm.launches
+    out = vta_gemm(a.to("meta"), w.to("meta"))
+    assert out.is_meta and out.shape == (4, 4) and out.dtype == torch.int32
+    assert vta_gemm.launches == before
     with pytest.raises(ValueError):
         tensor_alu(torch.zeros(3, dtype=torch.int32).to("meta"),
                    chain=(("add", 1),))

@@ -2,9 +2,9 @@
 """Time the port's kernels of one checkout.
 
     python3 tools/time_kernels.py [--src DIR] [--label NAME] [--big]
-        [--ops lut_gemm,flash_attention,flash_bwd,gla_bwd,vta_gemm,
-               quantized_linear,decode_attention,gla_chunk,lm_step,
-               c9_request]
+        [--ops lut_gemm,flash_attention,flash_bwd,flash_wide,gla_bwd,
+               vta_gemm,quantized_linear,int_mm,decode_attention,
+               gla_chunk,lm_step,c9_request]
 
 Imports ``repro_torch`` from DIR (default: this checkout's ``src``),
 builds its CUDA kernels, and times each op at the shapes ``chip_smoke.py``
@@ -14,7 +14,11 @@ and zamba2 prefill shapes and whisper's float32 cross-attention; vta_gemm at the
 K1152 and its deep-K T2 tiles, at the LM decode linears, at zamba2-1.2b's
 512-token prefill linears and Llama-3.2-3B's at 512 and 4096 tokens;
 quantized_linear, the whole call from float activations, at the LM
-decode linears and the same prefill linears;
+decode linears and the same prefill linears; int_mm,
+torch._int_mm (the library yardstick of a skinny quantized linear: x
+int8 with its M rows padded to 32, the weights (K, N) a transposed view
+of a contiguous (N, K) int8 matrix) at the served skinny shapes of
+INT_MM_SHAPES;
 decode_attention at the decoder's and the LM steps' shapes, at kv_len S
 and at the served 32; gla_chunk at zamba2-1.2b's served 16- and
 512-token prefills and at S 4096 and 32768 (q and k broadcast over 64
@@ -27,7 +31,10 @@ encoder in bf16 and float32, phi-3-vision's D 96, a long-key float32
 case) beside its operation bound, the plain backward and
 scaled_dot_product_attention's backward alone, and at the first of them
 the forward kernel with and without writing the log-sum-exp L that the
-backward takes; gla_bwd, the gla_chunk
+backward takes; flash_wide, the wide kernel (``flash_wide.cu``) at the
+head dims above 256 it walks in slices (chip_smoke's FLASH_SLICED_CASES
+forward, B1 S1024 H8 causal, and the FLASH_BWD_CASES above 256) beside
+the plain versions; gla_bwd, the gla_chunk
 backward kernel at chip_smoke's GLA_BWD_CASES (zamba2-1.2b's and
 xlstm-1.3b's train_4k scans, h0 and dh given, a ragged last tile, a long
 slow-decay scan) beside its operation and byte bound and the plain
@@ -43,7 +50,8 @@ the idle share), with ``chip_smoke.kernel_ms``
 (torch.profiler
 device time per call of every kernel whose name holds "lut_gemm",
 "flash", "vta_gemm", "decode_" or "gla_kernel") beside the call's
-CUDA-event time.
+CUDA-event time.  The first line is the card's name and power limit
+(``nvidia-smi --query-gpu=name,power.limit``).
 With --big, flash_attention also at S 32768; --ops picks the ops (the
 default: the first two).  One JSON line per shape on stdout.  Run it
 once per checkout, each in its own process, to hold two versions of
@@ -54,6 +62,7 @@ card; it imports no JAX.
 """
 import argparse
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -115,6 +124,14 @@ GLA_SHAPES = [(1, 16, 64, 64, 64, 16, "float32", True),
               (1, 4096, 4, 256, 1025, 512, "bfloat16", False),
               (2, 4096, 64, 64, 64, 64, "bfloat16", True),
               (2, 2048, 4, 256, 1025, 512, "bfloat16", False)]
+#: (M, N, K) of the served skinny quantized linears (whisper's steps at
+#: M 4, phi-3-vision's at M 2, Llama-3.2-3B's down projection, xlstm's
+#: w_if, phi3.5-moe's and kimi-k2's at M 4) that torch._int_mm is timed
+#: at, M padded to 32 rows
+INT_MM_SHAPES = [(4, 1280, 1280), (4, 1280, 5120), (4, 5120, 1280),
+                 (2, 3072, 3072), (2, 8192, 3072), (2, 3072, 8192),
+                 (4, 3072, 8192), (4, 8, 4096), (4, 4096, 4096),
+                 (4, 1024, 4096), (4, 8192, 7168), (4, 7168, 8192)]
 #: (B, S, HQ, KH, D, q dtype, cache dtype, kv_len)
 DECODE_SHAPES = [(1, 96, 2, 2, 32, "float32", "float32", 96),
                  (4, 256, 24, 8, 128, "bfloat16", "float32", 256),
@@ -145,6 +162,11 @@ def main():
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     card = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(json.dumps(dict(label=args.label, card=card, op="card",
+                          nvidia_smi=smi.stdout.strip())), flush=True)
     ops = args.ops.split(",")
     for T, M, N, K, bits, epi, shift in LUT_SHAPES * ("lut_gemm" in ops):
         lo = -(1 << (bits - 1))
@@ -179,6 +201,8 @@ def main():
         torch.cuda.empty_cache()
     for shape in cs.FLASH_BWD_CASES * ("flash_bwd" in ops):
         flash_bwd_row(cs, args.label, card, shape)
+    if "flash_wide" in ops:
+        flash_wide_rows(cs, args.label, card)
     for shape in cs.GLA_BWD_CASES * ("gla_bwd" in ops):
         gla_bwd_row(cs, args.label, card, shape)
     if "vta_gemm" in ops or "quantized_linear" in ops:
@@ -207,6 +231,19 @@ def main():
         print(json.dumps(dict(label=args.label, card=card,
                               op="quantized_linear", M=M, N=N, K=K,
                               dtype=dt, gemm_ms=ms, call_ms=call_ms)),
+              flush=True)
+    for M, N, K in INT_MM_SHAPES * ("int_mm" in ops):
+        a = torch.zeros((32, K), dtype=torch.int8, device=dev)
+        a[:M] = torch.randint(-128, 128, (M, K), generator=g, device=dev,
+                              dtype=torch.int8)
+        w = torch.randint(-128, 128, (N, K), generator=g, device=dev,
+                          dtype=torch.int8).t()
+        want = a[:M].double() @ w.double()
+        if not torch.equal(torch._int_mm(a, w)[:M].double(), want):
+            raise SystemExit(f"torch._int_mm disagrees at {(M, N, K)}")
+        ms = cs.cuda_time_ms(lambda: torch._int_mm(a, w))  # noqa
+        print(json.dumps(dict(label=args.label, card=card, op="int_mm",
+                              M=M, M_padded=32, N=N, K=K, library_ms=ms)),
               flush=True)
     if "decode_attention" in ops:
         from repro_torch.kernels.decode_attention import decode_attention
@@ -290,7 +327,8 @@ def flash_bwd_row(cs, label, card, shape):
     kw = dict(causal=causal) if lse is None else dict(causal=causal, lse=lse)
     call = lambda: flash_attention_bwd(q, k, v, o, do, **kw)  # noqa
     call_ms = cs.cuda_time_ms(call, reps=reps, warmup=1)
-    ms = cs.kernel_ms(call, "flash_bwd", call_ms, reps=reps)
+    ms = cs.kernel_ms(call, cs.FLASH_WIDE_BWD_NAME if D > cs.FLASH_MAX_D
+                      else "flash_bwd", call_ms, reps=reps)
     plain = cs.cuda_time_ms(lambda: attention_bwd_ref(
         q, k, v, o, do, group=HQ // KH, causal=causal), reps=2, warmup=1)
     lib_call = cs.sdpa_bwd_call(q, k, v, do, causal) \
@@ -306,6 +344,44 @@ def flash_bwd_row(cs, label, card, shape):
         flash_lse_rows(cs, row, q, k, v, causal)
     del q, k, v, o, do, lse, lib_call
     torch.cuda.empty_cache()
+
+
+def flash_wide_rows(cs, label, card):
+    """JSON lines of the wide kernel at the head dims above 256: the
+    forward at chip_smoke's FLASH_SLICED_CASES (B1 S1024 H8 causal, its
+    two launches) beside the plain version and its bound, each held to
+    the plain version; then the backward at the FLASH_BWD_CASES above 256
+    (flash_bwd_row)."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    for D, dt in cs.FLASH_SLICED_CASES:
+        B, S, H = 1, 1024, 8
+        q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev)
+                   .to(getattr(torch, dt)) for _ in range(3))
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, causal=True)
+        err = float((got.float() - want.float()).abs().max())
+        tol = cs.attn_tolerance(dt, want)
+        if err > tol:
+            raise SystemExit(f"flash_wide D {D} {dt}: error {err} > {tol}")
+        call = lambda: flash_attention(q, k, v, causal=True)  # noqa
+        call_ms = cs.cuda_time_ms(call, reps=10, warmup=1)
+        ms = cs.kernel_ms(call, cs.FLASH_WIDE_NAME, call_ms, reps=10)
+        plain = cs.cuda_time_ms(lambda: flash_attention_plain(
+            q, k, v, causal=True), reps=5, warmup=1)
+        bound, by = cs.flash_bound_ms(B, S, S, H, H, D, True,
+                                      q.element_size())
+        print(json.dumps(dict(label=label, card=card, op="flash_wide", B=B,
+                              S=S, HQ=H, KH=H, D=D, dtype=dt, causal=True,
+                              ms=ms, call_ms=call_ms, plain_ms=plain,
+                              bound_ms=bound, bound_by=by, max_abs_err=err,
+                              limit=tol)), flush=True)
+    for shape in cs.FLASH_BWD_CASES:
+        if shape[5] > 256:
+            flash_bwd_row(cs, label, card, shape)
 
 
 def flash_lse_rows(cs, row, q, k, v, causal):
