@@ -288,16 +288,25 @@ again, started with --mesh-rank):
      loss and every gradient leaf (gathered whole) against the meshless
      step on rank 0: the loss within 1e-5 relative, each leaf within
      1e-4 of its max|grad| (phase 14's limits; neither model scans, so
-     the plain replays' gap is 0).  The local forward shapes join phase
-     7 (timed).  Then the flash backward kernels against the plain
+     the plain replays' gap is 0); then llama3.2-3b at full width and
+     depth on int8 PTQ weights served on the same mesh (MESH16_INT8: a
+     16-token prefill of 2 rows and 4 greedy decode steps through the
+     dry run's mesh serve step, vta_gemm at the tensor-parallel local
+     shapes), its logits held within LM_LOGIT_TOL of max|logit| of the
+     meshless int8 run on the same tokens (rank 0), and every
+     quantized_linear call's activation scale held to the global max|x|
+     (the ranks' maxima gathered after the run).  The local forward
+     shapes join phase 7 (timed), the int8 local shapes phase 1 (held
+     bitwise to the plain chain, a given x_scale too).  Then the flash backward kernels against the plain
      backward at FLASH_BWD_CASES (Llama's, whisper's encoder in bf16 and
      float32, phi-3-vision's, a long-key float32 shape, a head dim
      zero-padded and two on the wide kernel) and every shape phases 14
      and 16 launched, timed beside the bound, the plain backward and
      scaled_dot_product_attention's backward.  Phase 7 also holds the
      forward at a zero-padded head dim in each dtype and on the wide
-     kernel (flash_wide.cu) at D 160 and 256, and in slices of 256
-     columns at D 320 and 512 in each dtype (the backward there too),
+     kernels (flash_wide.cu: wgmma in bf16, 3xTF32 in float32) at D 160
+     and 256, and with the output in slices at D 320 and 512 in each
+     dtype (the backward there too),
      timed;
  17. the dry run against the card: ``launch/dryrun.py`` (the meta
      device, a fake process group, no card), in a subprocess of this
@@ -946,12 +955,12 @@ QLINEAR_EDGES = [(m, 3072, 3072) for m in (17, 130, 512, 4096)] + [
     (m, 520, 1000) for m in (17, 130, 512, 4096)]
 
 
-def phase_qlinear_kernel(rec, served):
+def phase_qlinear_kernel(rec, served, given=()):
     """quantized_linear's fused route against its plain chain on the card,
     bitwise (torch.equal), at every (M, N, K, x dtype) phases 8 and 9
     served and at QLINEAR_EDGES, in bfloat16 and float32 x, on unit-scale
     inputs, on x.5 ties and on an amax below 1e-6 (and a given x_scale at
-    the edges); timed at each served shape beside the chain as the port
+    the edges, at the shapes not timed and at those in `given`); timed at each served shape beside the chain as the port
     ran it before (amax, scale, quantization and dequantization as
     PyTorch ops around a vta_gemm launch) and, above 16 rows, beside
     torch._int_mm's GEMM alone; then the device time of the served calls
@@ -962,13 +971,15 @@ def phase_qlinear_kernel(rec, served):
     from repro_torch.kernels.vta_gemm.kernel import gemm_plan
     dev = torch.device(DEVICE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows, checked = [], 0
+    rows, checked, given_at = [], 0, 0
     edges = {(M, N, K, "bfloat16"): 0 for M, N, K in QLINEAR_EDGES}
     for (M, N, K, dt), launches in sorted(served.items()) + sorted(
             edges.items()):
+        cases = ("normal", "ties", "tiny") + (
+            ("given",) if launches == 0 or (M, N, K, dt) in given else ())
+        given_at += "given" in cases
         for xdt in ("bfloat16", "float32"):
-            for case in ("normal", "ties", "tiny") + (
-                    ("given",) if launches == 0 else ()):
+            for case in cases:
                 x, w_q, ws = qlinear_inputs(M, K, N, xdt, case,
                                             M + N + K + len(case))
                 xs = torch.tensor(0.0625, device=dev) \
@@ -1016,8 +1027,9 @@ def phase_qlinear_kernel(rec, served):
     total = sum(r["ms"] * r["launches"] for r in big)
     log(f"  quantized_linear: {len(served)} served shapes, {checked} checks "
         f"bitwise equal to the plain chain (bfloat16 and float32 x; normal, "
-        f"x.5 ties, amax below 1e-6; a given x_scale at {len(edges)} more "
-        f"shapes); above {SKINNY_ROWS} rows "
+        f"x.5 ties, amax below 1e-6; a given x_scale too at {given_at} "
+        f"shapes: QLINEAR_EDGES, the untimed and phase 16's); above "
+        f"{SKINNY_ROWS} rows "
         f"{sum(r['launches'] for r in big)} served calls, {total:.4f} ms of "
         f"device time (kernel ms x launches)")
     rec["quantized_linear_shapes"] = rows
@@ -5270,6 +5282,11 @@ MESH16_RUNS = {
 }
 #: the float32 replays: one repeating unit (one layer) at S 512, B1
 MESH16_F32 = {TRAIN_ARCH: 1, "phi3.5-moe-42b-a6.6b": 1}
+#: the int8 serve run: llama3.2-3b at full width and depth on int8 PTQ
+#: weights, a `prompt`-token prefill of `batch` rows and `steps` greedy
+#: decode steps through the dry run's mesh serve step, its logits held to
+#: the meshless int8 run on the same tokens within LM_LOGIT_TOL
+MESH16_INT8 = dict(batch=2, prompt=16, steps=4)
 #: seconds the two ranks may take together
 MESH16_TIMEOUT = 600
 MESH16_DIR = ROOT / "build" / "chip_smoke_mesh"
@@ -5487,6 +5504,151 @@ def mesh16_f32(mesh, arch, n_layers, rank):
     return out
 
 
+def mesh16_int8(mesh, rank):
+    """llama3.2-3b at full width and depth on int8 PTQ weights served on
+    the (data 1, model 2) mesh through ``launch/dryrun.py:_serve_step``
+    (the layers compute on their slices of the int8 weights, the
+    column-parallel ones on their columns of w_scale, each activation
+    scale the max over the global activation): a MESH16_INT8 prefill and
+    greedy decode steps, the logits gathered over the vocab.  Rank 0 then
+    runs the meshless int8 model on the same tokens and holds each call's
+    logits within LM_LOGIT_TOL of its max|logit|.  Every quantized_linear
+    call of the mesh run is held to the global activation scale: after the
+    run the ranks' per-call max|x| are gathered (all_gather, not the
+    layers' all-reduce MAX), and a call given an x_scale (a row-parallel
+    layer) must have been given exactly the reference's scale of the max
+    over both ranks (``ref.activation_scale``), while a call given none
+    (a column-parallel layer, whose x is replicated) must see that max
+    itself.  Returns the record: logit errors, vta_gemm launches and the
+    quantized_linear shapes of the mesh run (the tensor-parallel local
+    shapes, held bitwise to the plain chain in phase 1, with a given
+    x_scale too), ms a decode step."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.distributed import meshctx
+    from repro_torch.distributed.sharding import (
+        batch_specs, model_split_leaves, named_shardings, param_specs)
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.vta_gemm import quantized_linear, vta_gemm
+    from repro_torch.kernels.vta_gemm.ref import activation_scale
+    from repro_torch.launch.dryrun import _cache_layout, _serve_step
+    from repro_torch.launch.train import (_distribute, _rows,
+                                          _split_mesh_dims)
+    from repro_torch.models import layers as TL
+    from repro_torch.models import transformer as T
+    from repro_torch.models.quantized import quantize_params
+    conf = MESH16_INT8
+    B, S, steps = conf["batch"], conf["prompt"], conf["steps"]
+    cfg = get_arch(TRAIN_ARCH).model
+    free_device_memory()
+    full = quantize_params(T.init_params(cfg, 0, DEVICE).tree()).tree()
+    free_device_memory()
+    toks = torch.randint(0, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(16)) \
+        .to(DEVICE)
+    specs = param_specs(full, cfg, mesh)
+    split = model_split_leaves(specs, cfg, mesh)
+    params = tree.map_tree(_distribute, full, named_shardings(specs, mesh))
+    b_dims = _split_mesh_dims(mesh, batch_specs({"tokens": toks}, cfg,
+                                                mesh)["tokens"])
+    b_axes = [mesh.mesh_dim_names[i] for i in b_dims]
+    caches = _cache_layout(T.init_caches(cfg, B, S + steps, torch.bfloat16,
+                                         DEVICE), cfg, mesh, b_dims)
+    model = meshctx.axis_of(mesh, "model")
+    # each call's local max|x| (in x's dtype, clamped as the layer does)
+    # and the x_scale it was given (nan: none)
+    amax, given, x_dtypes = [], [], []
+    real_ql = TL.quantized_linear
+
+    def ql(x, w_q, w_scale, x_scale=None):
+        x_dtypes.append(x.dtype)
+        amax.append(x.abs().amax().clamp_min(1e-6).float())
+        given.append(torch.full((), float("nan"), device=x.device)
+                     if x_scale is None else x_scale.float().reshape(()))
+        return real_ql(x, w_q, w_scale, x_scale)
+    TL.quantized_linear = ql
+    vta_gemm.launches = 0
+    quantized_linear.shapes.clear()
+    logits, fed, step_ms = [], [], []
+    with torch.no_grad():
+        for step in range(steps + 1):
+            if step == 0:
+                batch, kind, pos = {"tokens": _rows(toks, mesh, b_dims)}, \
+                    "prefill", 0
+            else:
+                batch = {"token": _rows(fed[-1], mesh, b_dims)}
+                kind, pos = "decode", S + step - 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = _serve_step(cfg, kind, mesh, params, split, batch,
+                                     caches, pos, b_axes)
+            if lg.shape[-1] < cfg.vocab_size:
+                lg = meshctx.all_gather_blocks(lg.contiguous(), model, 2)
+            torch.cuda.synchronize()
+            if step:
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            logits.append(lg.float().cpu())
+            fed.append(lg.argmax(-1).to(torch.int64).reshape(B, 1))
+    TL.quantized_linear = real_ql
+    launches = vta_gemm.launches
+    shapes = [list(k) + [n] for k, n in quantized_linear.shapes.items()]
+    del params, caches
+    free_device_memory()
+    out = dict(arch=TRAIN_ARCH, **conf, vta_gemm_launches=launches,
+               quantized_linear_shapes=shapes, decode_step_ms=step_ms)
+    if launches == 0:
+        fail(f"{TRAIN_ARCH} int8 on the mesh launched no vta_gemm kernel")
+    # the global activation scale: gathered max|x| against what was given
+    local = torch.stack(amax)
+    glob = meshctx.all_gather_blocks(local.reshape(1, -1), model, 0) \
+        .amax(0)
+    given = torch.stack(given)
+    row = ~torch.isnan(given)
+    want = torch.stack([activation_scale(a.to(dt))
+                        for a, dt in zip(glob, x_dtypes)])
+    bad_row = int((row & (given != want)).sum())
+    bad_col = int((~row & (local != glob)).sum())
+    out.update(scale_calls=len(amax), scale_given=int(row.sum()))
+    log(f"  {TRAIN_ARCH} int8 on the (1, 2) mesh: {len(amax)} "
+        f"quantized_linear calls, {int(row.sum())} given the global "
+        f"activation scale (row-parallel); {bad_row} given another, "
+        f"{bad_col} given none whose max|x| is not the global one")
+    if bad_row or bad_col or not row.any():
+        fail(f"{TRAIN_ARCH} int8 on the (1, 2) mesh: the activation scale "
+             f"is not the global one ({bad_row} row-parallel calls given "
+             f"another, {bad_col} calls without one whose local max|x| is "
+             f"not the global max, {int(row.sum())} given one)")
+    if rank == 0:
+        caches = T.init_caches(cfg, B, S + steps, torch.bfloat16, DEVICE)
+        errs = []
+        with torch.no_grad():
+            for step in range(steps + 1):
+                if step == 0:
+                    lg, caches = T.prefill(full, cfg, {"tokens": toks},
+                                           caches)
+                else:
+                    lg, caches = T.decode_step(full, cfg, caches,
+                                               fed[step - 1], S + step - 1)
+                want = lg.float().cpu()
+                errs.append(float((logits[step] - want).abs().max()
+                                  / want.abs().max()))
+        out.update(logit_errors=errs, limit=LM_LOGIT_TOL)
+        log(f"  {TRAIN_ARCH} int8 on the (1, 2) mesh: a {S}-token prefill "
+            f"of {B} rows and {steps} decode steps ({min(step_ms):.1f}-"
+            f"{max(step_ms):.1f} ms a step), {launches} vta_gemm launches "
+            f"at {len(shapes)} local shapes; logits against the meshless "
+            f"int8 run {max(errs):.3e} of max|logit| at most (limit "
+            f"{LM_LOGIT_TOL})")
+        if max(errs) > LM_LOGIT_TOL:
+            fail(f"{TRAIN_ARCH} int8 on the (1, 2) mesh: logits {errs} of "
+                 f"max|logit| from the meshless int8 run, over "
+                 f"{LM_LOGIT_TOL}")
+        del caches
+    del full
+    free_device_memory()
+    return out
+
+
 def mesh16_rank(rank, port, out_path):
     """One rank of phase 16: joins the gloo group, runs MESH16_RUNS and
     MESH16_F32 on the (data 1, model 2) mesh, writes its record as JSON
@@ -5504,6 +5666,7 @@ def mesh16_rank(rank, port, out_path):
                        for arch, conf in MESH16_RUNS.items()}
         res["f32"] = {arch: mesh16_f32(mesh, arch, n, rank)
                       for arch, n in MESH16_F32.items()}
+        res["int8"] = mesh16_int8(mesh, rank)
     finally:
         dist.destroy_process_group()
     Path(out_path).write_text(json.dumps(res, default=str))
@@ -5568,6 +5731,10 @@ def phase_mesh16(rec):
         a, b = (rc["runs"][arch] for rc in recs)
         if [s["loss"] for s in a["steps"]] != [s["loss"] for s in b["steps"]]:
             fail(f"phase 16: {arch}'s ranks report different losses")
+    if recs[0]["int8"]["vta_gemm_launches"] \
+            != recs[1]["int8"]["vta_gemm_launches"]:
+        fail("phase 16: the int8 ranks launched vta_gemm a different "
+             "number of times")
     out = dict(rank0=recs[0], rank1_peak_gb={
         arch: recs[1]["runs"][arch]["peak_allocated_gb"]
         for arch in MESH16_RUNS}, rank1_idle={
@@ -5771,6 +5938,7 @@ class Counters:
 
 
 def main():
+    t_script = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--record", type=Path, default=None,
                     help="write the detailed record to this JSON file")
@@ -6096,6 +6264,12 @@ def main():
         "the float32 replays against the meshless Trainer")
     m16 = phase_mesh16(rec)
     m16_runs = m16["rank0"]["runs"]
+    # the int8 run's tensor-parallel local shapes: held to the plain chain
+    # in phase 1 (count 0: checked, not timed), with a given x_scale too
+    tp_ql_shapes = {tuple(sh[:4]) for sh in
+                    m16["rank0"]["int8"]["quantized_linear_shapes"]}
+    for sh in tp_ql_shapes:
+        ql_shapes.setdefault(sh, 0)
     for r in m16_runs.values():
         # the local shapes: forward timed in phase 7, backward below
         for *sh, n in r["fwd_shapes"]:
@@ -6113,7 +6287,7 @@ def main():
     # ---- phase 1: kernels against plain versions ------------------------
     log("phase 1: kernels against their plain versions, on the card")
     g_rows, g_err = phase_gemm_kernel(rec, gemm_shapes)
-    q_rows = phase_qlinear_kernel(rec, ql_shapes)
+    q_rows = phase_qlinear_kernel(rec, ql_shapes, given=tp_ql_shapes)
     a_rows, a_err = phase_alu_kernel(rec, alu_shapes)
     sc_rows, sc_err = phase_scatter_kernel(rec, scatter_shapes)
     log("phase 7: the decode-path, LM-path and hybrid-path kernels against "
@@ -6395,6 +6569,8 @@ def main():
         f"with lost launch records: {len(PROFILER_DROPS)}; kernel times "
         f"from CUDA events for want of any record: "
         f"{PROFILER_FALLBACKS or 'none'}")
+    rec["script_seconds"] = time.perf_counter() - t_script
+    log(f"the whole script took {rec['script_seconds']:.1f} s")
     if args.record is not None:
         rec["kernels"] = kernels
         args.record.parent.mkdir(parents=True, exist_ok=True)

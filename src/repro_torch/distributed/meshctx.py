@@ -22,7 +22,11 @@ the autograd-aware collectives below around the hand-written kernels:
 * over the data axes, where each rank's objective is its own rows' loss
   and the trainer sums the gradients over the ranks: ``all_reduce_data``
   and ``gather_data``, whose backwards sum the ranks' cotangents
-  (all-reduce, reduce-scatter).
+  (all-reduce, reduce-scatter);
+* ``max_over`` (an all-reduce MAX, no gradient): the int8 serving path's
+  per-tensor activation scale, the max over the global activation as
+  the reference's ``quantized_linear`` takes it under GSPMD
+  (``models/layers.py:linear_apply``).
 
 With no mesh, an axis of size 1, or a "model" axis that the config
 lists among its data axes (the recurrent archs' ``dp_over_model``), a
@@ -204,6 +208,18 @@ def all_reduce_sum(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=ax.group)
     return out
+
+
+def max_over(x: torch.Tensor, axes: Sequence[Axis]) -> torch.Tensor:
+    """The elementwise max of x over every rank of `axes` (serving only:
+    no gradient).  The all-reduce runs in float32, where every float32 and
+    bfloat16 value is exact, so the result in x's dtype is the max of the
+    ranks' values."""
+    out = x.to(torch.float32).contiguous().clone()
+    for ax in axes:
+        if ax.size > 1:
+            dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group)
+    return out.to(x.dtype)
 
 
 def all_gather_blocks(x: torch.Tensor, ax: Axis, dim: int) -> torch.Tensor:

@@ -72,7 +72,7 @@ def _leaf_split(path: str, cfg: ModelConfig, tp: int) -> bool:
     if path.startswith("embed/tokens") or path.startswith("lm_head"):
         return vocab_split(cfg, tp)
     parts = path.split("/")
-    if parts[-1] == "w":
+    if parts[-1] in ("w", "w_q"):  # a dense weight, or its int8 PTQ form
         parts = parts[:-1]
     if len(parts) < 2:
         return False

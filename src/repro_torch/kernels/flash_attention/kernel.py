@@ -3,18 +3,20 @@ are at the top of each source): ``csrc/flash_wgmma.cu`` for bfloat16
 operands (wgmma and TMA) and ``csrc/flash_tf32x3.cu`` for float32 ones
 (mma.sync in 3xTF32), and the backward of both, ``csrc/flash_bwd.cu``
 (:func:`flash_attention_bwd_cuda`), all for D up to 128; and
-``csrc/flash_wide.cu`` (forward and backward, either dtype, on the CUDA
-cores) for every D above 128, in slices of WIDE_SLICE columns above
-WIDE_SLICE (:func:`flash_wide_cuda`, :func:`flash_wide_bwd_cuda`).  :func:`head_dim_plan` says which takes a
-head dim and to what D the op zero-pads it, :func:`route` picks one by dtype,
-:func:`wgmma_plan` turns the operands' shapes and strides into the
-tensor maps of the bfloat16 kernel, :func:`flash_f32_plan` sizes the
-float32 kernel's tiles and :func:`flash_bwd_plan` checks and pads the
-backward's D; all are plain Python, so the CPU tests reach them.  Built
-at first call by :mod:`repro_torch.kernels._build`, never at import.
-On ``meta`` tensors (the dry run, ``launch/dryrun.py``) each wrapper
-allocates what it allocates on the card, from the same plans, and
-launches nothing."""
+``csrc/flash_wide.cu`` (forward and backward, every product on the tensor
+cores: bfloat16 on wgmma fed by TMA, float32 on mma.sync in 3xTF32, the
+head dim streamed in 128-byte chunks) for every D above 128
+(:func:`flash_wide_cuda`, :func:`flash_wide_bwd_cuda`;
+:func:`wide_fwd_launches` says how many launches its forward takes).
+:func:`head_dim_plan` says which takes a head dim and to what D the op
+zero-pads it, :func:`route` picks one by dtype, :func:`wgmma_plan` turns
+the operands' shapes and strides into the tensor maps of the bfloat16
+kernel, :func:`flash_f32_plan` sizes the float32 kernel's tiles and
+:func:`flash_bwd_plan` checks and pads the backward's D; all are plain
+Python, so the CPU tests reach them.  Built at first call by
+:mod:`repro_torch.kernels._build`, never at import.  On ``meta`` tensors
+(the dry run, ``launch/dryrun.py``) each wrapper allocates what it
+allocates on the card, from the same plans, and launches nothing."""
 from __future__ import annotations
 
 import ctypes
@@ -28,8 +30,9 @@ from .. import _build
 
 #: the largest head dim the tensor-core kernels are instantiated for
 MAX_D = 128
-#: the head-dim columns flash_wide.cu holds at once (its MAXD): above
-#: this it walks the head dim in slices of WIDE_SLICE columns
+#: the output columns one block of flash_wide.cu's bfloat16 forward writes
+#: (its online softmax covers the whole output up to this D; above it the
+#: forward takes two launches, L and then slices of WIDE_SLICE)
 WIDE_SLICE = 256
 #: log2(e): the bf16 kernel's exponentials are exp2 of log2e-scaled scores
 LOG2E = 1.4426950408889634
@@ -52,17 +55,30 @@ class HeadDimPlan(NamedTuple):
 
 
 def head_dim_plan(D: int, dtype: torch.dtype) -> HeadDimPlan:
-    """The plan for head dim D: up to MAX_D the tensor-core kernels, D
-    padded to a multiple of 16 (bfloat16) or 4 (float32); above MAX_D
-    flash_wide.cu, unpadded.  Raises ValueError for D below 1.  The dtype
+    """The plan for head dim D: up to MAX_D the tensor-core kernels of
+    D <= 128, above it flash_wide.cu; either way D padded to a multiple of
+    16 (bfloat16: wgmma's k-step, and TMA's 16-byte rows) or 4 (float32:
+    16-byte cp.async pieces).  Raises ValueError for D below 1.  The dtype
     is checked by the kernels' wrappers (the forward's TypeError, the
     backward's ValueError), not here."""
     step = 16 if dtype == torch.bfloat16 else 4
-    if 1 <= D <= MAX_D:
-        return HeadDimPlan("tensor", -(-D // step) * step)
-    if D > MAX_D:
-        return HeadDimPlan("wide", D)
-    raise ValueError(f"flash_attention takes head dims from 1, got {D}")
+    if D < 1:
+        raise ValueError(f"flash_attention takes head dims from 1, got {D}")
+    return HeadDimPlan("tensor" if D <= MAX_D else "wide",
+                       -(-D // step) * step)
+
+
+def wide_fwd_launches(D: int, dtype: torch.dtype) -> int:
+    """The launches of flash_wide.cu's forward at padded head dim D (above
+    MAX_D, a multiple of 16 in bfloat16 and of 4 in float32; ValueError
+    else): 1 (bfloat16 up to WIDE_SLICE: an online softmax), else 2 (each
+    row's L, then the output's slices from it; L is then needed as scratch
+    where the caller asks for none)."""
+    step = 16 if dtype == torch.bfloat16 else 4
+    if D <= MAX_D or D % step:
+        raise ValueError(f"flash_wide takes D above {MAX_D}, a multiple of "
+                         f"{step} in {dtype}, got {D}")
+    return 1 if dtype == torch.bfloat16 and D <= WIDE_SLICE else 2
 
 
 def route(dtype: torch.dtype) -> str:
@@ -328,26 +344,25 @@ def _wide_operands(*ts: torch.Tensor):
                                                     torch.bfloat16):
         raise ValueError(f"flash_wide takes operands of one dtype, float32 "
                          f"or bfloat16, got {[str(t.dtype) for t in ts]}")
-    if ts[0].shape[-1] <= MAX_D:
-        raise ValueError(f"flash_wide takes D above {MAX_D}, got "
-                         f"{ts[0].shape[-1]}")
-    return [t.contiguous() for t in ts]
+    launches = wide_fwd_launches(ts[0].shape[-1], dt)
+    return launches, [_bwd_operand(t) for t in ts]
 
 
 def flash_wide_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, with_lse: bool = False,
                     scale: Optional[float] = None):
     """``csrc/flash_wide.cu``'s forward: as :func:`flash_attention_cuda`
-    for D above MAX_D (ValueError else): one launch up to WIDE_SLICE, two
-    above it (each row's L, then the output slice by slice; L is written
-    to scratch where `with_lse` is off); the operands are read contiguous
-    (copied where they are not)."""
-    q, k, v = _wide_operands(q, k, v)
+    for a padded D above MAX_D (:func:`wide_fwd_launches`; ValueError
+    else): one launch for bfloat16 up to WIDE_SLICE, else two (each row's
+    L, then the output slice by slice; L is written to scratch where
+    `with_lse` is off); the operands are read contiguous with 16-byte
+    aligned bases (copied where they are not)."""
+    launches, (q, k, v) = _wide_operands(q, k, v)
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, HQ, S), dtype=torch.float32, device=q.device) \
-        if with_lse or D > WIDE_SLICE else None
+        if with_lse or launches == 2 else None
     if out.numel() and not q.is_meta:
         fn = _launcher("flash_wide", [ctypes.c_void_p] * 5
                        + [ctypes.c_int] * 8
@@ -366,11 +381,12 @@ def flash_wide_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         causal: bool, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``csrc/flash_wide.cu``'s backward from the forward's L: (dq, dk,
-    dv) in the operands' dtype, three launches (Delta, dq, dk dv);
+    """``csrc/flash_wide.cu``'s backward from the forward's L, at a padded
+    D above MAX_D (:func:`wide_fwd_launches` checks it; ValueError else):
+    (dq, dk, dv) in the operands' dtype, three launches (Delta, dk dv, dq);
     scratch: Delta, (B, HQ, S) float32."""
-    q, k, v, o, do = _wide_operands(q, k, v, o, do)
-    lse = lse.contiguous()
+    _, (q, k, v, o, do) = _wide_operands(q, k, v, o, do)
+    lse = _bwd_operand(lse)
     B, S, HQ, D = q.shape
     _, Sk, KH, _ = k.shape
     if min(B, S, Sk, HQ) == 0:

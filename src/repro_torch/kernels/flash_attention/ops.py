@@ -31,14 +31,15 @@ other device raises.  The Function saves q, k, v, the output and L.
 Otherwise (serving) the Function is not entered, nothing is saved and no
 L is written.  Backward launches are counted apart from the forward's.
 
-Every head dim D from 1 runs on the card (``kernel.head_dim_plan``): up
-to 128 the tensor-core kernels, q, k and v zero-padded here to a multiple
+Every head dim D from 1 runs on the card's tensor cores
+(``kernel.head_dim_plan``): q, k and v are zero-padded here to a multiple
 of 16 (bfloat16) or 4 (float32) where D is not one, the scale kept at
 1/sqrt(D) and the output and gradients sliced back (exact: zero columns
 add nothing to q k^T, and the padded columns of the output and of dq, dk,
-dv are zero); above 128 the wide kernel (``csrc/flash_wide.cu``), forward
-and backward, in slices of 256 columns above 256.  D below 1 raises
-ValueError.
+dv are zero); up to 128 the kernels above, above 128 the wide kernels
+(``csrc/flash_wide.cu``: the head dim in chunks, the output written in
+slices, ``kernel.wide_fwd_launches``), forward and backward.  D below 1
+raises ValueError.
 """
 from __future__ import annotations
 
@@ -103,12 +104,11 @@ def _cuda_forward(q, k, v, causal, with_lse):
     of one dtype, padded and sliced back as the plan says."""
     D = q.shape[-1]
     plan = head_dim_plan(D, q.dtype)
-    if plan.kernels == "wide":
-        return flash_wide_cuda(q, k, v, causal, with_lse)
+    fwd = flash_wide_cuda if plan.kernels == "wide" else flash_attention_cuda
     if plan.dp == D:
-        return flash_attention_cuda(q, k, v, causal, with_lse)
-    out = flash_attention_cuda(*(_pad(t, plan.dp) for t in (q, k, v)),
-                               causal, with_lse, scale=1.0 / math.sqrt(D))
+        return fwd(q, k, v, causal, with_lse)
+    out = fwd(*(_pad(t, plan.dp) for t in (q, k, v)), causal, with_lse,
+              scale=1.0 / math.sqrt(D))
     if with_lse:
         return out[0][..., :D].contiguous(), out[1]
     return out[..., :D].contiguous()
@@ -119,13 +119,12 @@ def _cuda_backward(q, k, v, o, do, lse, causal):
     ``kernel.head_dim_plan`` says."""
     D = q.shape[-1]
     plan = head_dim_plan(D, q.dtype)
-    if plan.kernels == "wide":
-        return flash_wide_bwd_cuda(q, k, v, o, do, lse, causal)
+    bwd = flash_wide_bwd_cuda if plan.kernels == "wide" \
+        else flash_attention_bwd_cuda
     if plan.dp == D:
-        return flash_attention_bwd_cuda(q, k, v, o, do, lse, causal)
-    grads = flash_attention_bwd_cuda(
-        *(_pad(t, plan.dp) for t in (q, k, v, o, do)), lse, causal,
-        scale=1.0 / math.sqrt(D))
+        return bwd(q, k, v, o, do, lse, causal)
+    grads = bwd(*(_pad(t, plan.dp) for t in (q, k, v, o, do)), lse, causal,
+                scale=1.0 / math.sqrt(D))
     return tuple(g[..., :D].contiguous() for g in grads)
 
 

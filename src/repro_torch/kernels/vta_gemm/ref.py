@@ -39,6 +39,16 @@ def vta_gemm_ref(a: torch.Tensor, w: torch.Tensor,
     raise ValueError(epilogue)
 
 
+def activation_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The per-tensor activation scale of max|x| = amax (a 0-d tensor in
+    x's dtype, clamped at 1e-6): amax / 127 as an IEEE float32 division,
+    rounded to x's dtype and widened to float32 (``quantize_activations``;
+    the mesh path passes the global amax, ``models/layers.py``)."""
+    return (amax.to(torch.float32)
+            / torch.full((), 127.0, device=amax.device)) \
+        .to(amax.dtype).to(torch.float32)
+
+
 def quantize_activations(x2: torch.Tensor,
                          x_scale: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,10 +61,7 @@ def quantize_activations(x2: torch.Tensor,
     tensor in bfloat16, JAX promotes it, so the cast is explicit), rounded
     half to even and clipped."""
     if x_scale is None:
-        amax = x2.abs().amax().clamp_min(1e-6)
-        x_scale = (amax.to(torch.float32)
-                   / torch.full((), 127.0, device=amax.device)) \
-            .to(x2.dtype).to(torch.float32)
+        x_scale = activation_scale(x2.abs().amax().clamp_min(1e-6))
     x_q = torch.round(x2.to(torch.float32) / x_scale) \
         .clamp(-128, 127).to(torch.int8)
     return x_q, x_scale

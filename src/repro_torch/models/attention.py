@@ -56,9 +56,9 @@ def _qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
     B, S, _ = x.shape
     ax, hq, kh = _heads(cfg)
     x = meshctx.copy_to_model(x, ax)
-    q = linear_apply(p["wq"], x).reshape(B, S, hq, cfg.hd)
-    k = linear_apply(p["wk"], x).reshape(B, S, kh, cfg.hd)
-    v = linear_apply(p["wv"], x).reshape(B, S, kh, cfg.hd)
+    q = linear_apply(p["wq"], x, cfg, ax).reshape(B, S, hq, cfg.hd)
+    k = linear_apply(p["wk"], x, cfg, ax).reshape(B, S, kh, cfg.hd)
+    v = linear_apply(p["wv"], x, cfg, ax).reshape(B, S, kh, cfg.hd)
     if cfg.pos == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -84,7 +84,7 @@ def _out(p: Params, cfg, o: torch.Tensor) -> torch.Tensor:
     of wo summed over the model axis where it splits the heads."""
     B, S = o.shape[:2]
     ax, _, _ = _heads(cfg)
-    y = linear_apply(p["wo"], o.reshape(B, S, -1))
+    y = linear_apply(p["wo"], o.reshape(B, S, -1), cfg, ax, row=True)
     return meshctx.reduce_from_model(y, ax)
 
 
@@ -182,7 +182,7 @@ def cross_attn_apply(p: Params, cfg, x: torch.Tensor,
     B, S, _ = x.shape
     ax, hq, _ = _heads(cfg)
     x = meshctx.copy_to_model(x, ax)
-    q = linear_apply(p["wq"], x).reshape(B, S, hq, cfg.hd)
+    q = linear_apply(p["wq"], x, cfg, ax).reshape(B, S, hq, cfg.hd)
     o = flash_attention(q, enc_kv["k"], enc_kv["v"], causal=False)
     return _out(p, cfg, o)
 
@@ -194,6 +194,8 @@ def encode_cross_kv(p: Params, cfg,
     B, T, _ = enc_out.shape
     ax, _, kh = _heads(cfg)
     enc_out = meshctx.copy_to_model(enc_out, ax)
-    k = linear_apply(p["wk"], enc_out).reshape(B, T, kh, cfg.hd)
-    v = linear_apply(p["wv"], enc_out).reshape(B, T, kh, cfg.hd)
+    k = linear_apply(p["wk"], enc_out, cfg, ax).reshape(
+        B, T, kh, cfg.hd)
+    v = linear_apply(p["wv"], enc_out, cfg, ax).reshape(
+        B, T, kh, cfg.hd)
     return {"k": k, "v": v}

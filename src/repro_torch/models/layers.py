@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import meshctx
 from repro_torch.distributed.sharding import hidden_split, vocab_split
 from repro_torch.kernels.vta_gemm import quantized_linear
+from repro_torch.kernels.vta_gemm.ref import activation_scale
 
 Params = Dict[str, Any]
 
@@ -48,12 +49,39 @@ def linear_init(gen: torch.Generator, d_in: int, d_out: int,
     return {"w": (w * (2 * scale) - scale).to(dtype)}
 
 
-def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+def linear_apply(p: Params, x: torch.Tensor, cfg=None,
+                 ax: Optional[meshctx.Axis] = None,
+                 row: bool = False) -> torch.Tensor:
     """Dense matmul, or the VTA int8 path when the weights were quantized
-    (serve-time PTQ): p == {"w_q": int8 (K, N), "w_scale": float32 (N,)}."""
-    if "w_q" in p:
-        return quantized_linear(x, p["w_q"], p["w_scale"])
-    return x @ p["w"].to(x.dtype)
+    (serve-time PTQ): p == {"w_q": int8 (K, N), "w_scale": float32 (N,)}.
+
+    Under a mesh (`cfg` given, its ambient axes read from ``meshctx``) the
+    int8 path computes what the reference's ``quantized_linear`` computes
+    on the global tensors under GSPMD.  `ax` is the "model" axis where it
+    splits this layer: column-parallel (``row`` False), w_q holds the
+    rank's N/tp columns and the layer takes the same columns of the
+    replicated w_scale (a view); row-parallel (``row``), w_q holds the
+    rank's K/tp rows, x the same columns of the activation, and w_scale is
+    whole.  The activation's per-tensor scale is its global max|x|: the
+    rank's max, all-reduced (MAX) over the data axes that split the batch
+    and, for a row-parallel layer, over `ax` (``meshctx.max_over``).  With
+    no such axis (no mesh) nothing is reduced and the call is as on one
+    device."""
+    if "w_q" not in p:
+        return x @ p["w"].to(x.dtype)
+    w_q, w_scale = p["w_q"], p["w_scale"]
+    if ax is not None and not row and w_q.shape[1] != w_scale.shape[0]:
+        n = w_q.shape[1]
+        w_scale = w_scale[ax.rank * n:(ax.rank + 1) * n]
+    axes = [a for a in (meshctx.data_axes(cfg) if cfg is not None else ())
+            if a.size > 1]
+    if row and ax is not None:
+        axes.append(ax)
+    x_scale = None
+    if axes and x.numel():
+        amax = meshctx.max_over(x.abs().amax().clamp_min(1e-6), axes)
+        x_scale = activation_scale(amax)
+    return quantized_linear(x, w_q, w_scale, x_scale)
 
 
 def quantize_linear_params(p: Params) -> Params:
@@ -164,11 +192,13 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg,
         ax = None
     x = meshctx.copy_to_model(x, ax)
     if cfg.mlp == "swiglu":
-        h = silu(linear_apply(p["wg"], x)) * linear_apply(p["wi"], x)
+        h = silu(linear_apply(p["wg"], x, cfg, ax)) \
+            * linear_apply(p["wi"], x, cfg, ax)
     else:
         # jax.nn.gelu is the tanh approximation by default
-        h = F.gelu(linear_apply(p["wi"], x), approximate="tanh")
-    return meshctx.reduce_from_model(linear_apply(p["wo"], h), ax)
+        h = F.gelu(linear_apply(p["wi"], x, cfg, ax), approximate="tanh")
+    return meshctx.reduce_from_model(
+        linear_apply(p["wo"], h, cfg, ax, row=True), ax)
 
 
 # ----------------------------------------------------------------------

@@ -52,7 +52,7 @@ from repro_torch.distributed import meshctx
 from repro_torch.distributed.sharding import (experts_split, hidden_split,
                                               shared_expert_width)
 
-from .layers import mlp_apply, mlp_init, silu, torch_dtype
+from .layers import linear_apply, mlp_apply, mlp_init, silu, torch_dtype
 
 Params = Dict[str, Any]
 
@@ -139,13 +139,14 @@ def _route_local(cfg, xt: torch.Tensor, router_w: torch.Tensor):
             (onehot.sum(0), probs.sum(0)))
 
 
-def _shared_partial(cfg, xt: torch.Tensor, sh: Params) -> torch.Tensor:
+def _shared_partial(cfg, xt: torch.Tensor, sh: Params, ax) -> torch.Tensor:
     """The shared experts' output from a model rank's slice of their
     hidden width (a partial sum, completed by the expert-parallel
-    combine)."""
-    dt = xt.dtype
-    h = silu(xt @ sh["wg"]["w"].to(dt)) * (xt @ sh["wi"]["w"].to(dt))
-    return h @ sh["wo"]["w"].to(dt)
+    combine): wg and wi column-parallel, wo row-parallel over `ax`, float
+    or int8 (``linear_apply``)."""
+    h = silu(linear_apply(sh["wg"], xt, cfg, ax)) \
+        * linear_apply(sh["wi"], xt, cfg, ax)
+    return linear_apply(sh["wo"], h, cfg, ax, row=True)
 
 
 def dispatch_plan(flat_e: torch.Tensor, n_experts: int, C: int
@@ -357,7 +358,7 @@ def _moe_fused_ep(p: Params, cfg, xt: torch.Tensor, ax, dp_axes, B: int,
     split_shared = shared and hidden_split(shared_expert_width(cfg),
                                            ax.size)
     if split_shared:
-        y = y + _shared_partial(cfg, xs, p["shared"])
+        y = y + _shared_partial(cfg, xs, p["shared"], ax)
     y = _combine(y, "reduce_scatter" if combine == "reduce_scatter"
                  else "psum", ax, xt.dtype)
     if shared and not split_shared:

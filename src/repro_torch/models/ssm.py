@@ -147,9 +147,9 @@ def _ssm_inner(cfg, p: Params, zxbcdt: torch.Tensor,
 
 def mamba2_train(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); the chunked scan from zero states, no cache."""
-    zxbcdt = linear_apply(p["in_proj"], x)
+    zxbcdt = linear_apply(p["in_proj"], x, cfg)
     y, _, _ = _ssm_inner(cfg, p, zxbcdt, None, None, chunked=True)
-    return linear_apply(p["out_proj"], y)
+    return linear_apply(p["out_proj"], y, cfg)
 
 
 def init_ssm_cache(cfg, batch: int, dtype: torch.dtype,
@@ -168,12 +168,12 @@ def init_ssm_cache(cfg, batch: int, dtype: torch.dtype,
 
 def _mamba2(p: Params, cfg, x: torch.Tensor, cache: Dict[str, torch.Tensor],
             chunked: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    zxbcdt = linear_apply(p["in_proj"], x)
+    zxbcdt = linear_apply(p["in_proj"], x, cfg)
     y, conv_state, ssm_state = _ssm_inner(cfg, p, zxbcdt, cache["conv"],
                                           cache["ssm"], chunked)
     cache["conv"].copy_(conv_state)
     cache["ssm"].copy_(ssm_state)
-    return linear_apply(p["out_proj"], y), cache
+    return linear_apply(p["out_proj"], y, cfg), cache
 
 
 def mamba2_prefill(p: Params, cfg, x: torch.Tensor,

@@ -85,10 +85,10 @@ def _mlstm_qkvg(p: Params, cfg, xu: torch.Tensor):
     H = cfg.n_heads
     dh = d2 // H
     nqk = _qk_dim(cfg)
-    q = linear_apply(p["wq"], xu).reshape(B, S, H, nqk)
-    k = linear_apply(p["wk"], xu).reshape(B, S, H, nqk) / math.sqrt(nqk)
-    v = linear_apply(p["wv"], xu).reshape(B, S, H, dh)
-    gates = linear_apply(p["w_if"], xu).to(torch.float32)
+    q = linear_apply(p["wq"], xu, cfg).reshape(B, S, H, nqk)
+    k = linear_apply(p["wk"], xu, cfg).reshape(B, S, H, nqk) / math.sqrt(nqk)
+    v = linear_apply(p["wv"], xu, cfg).reshape(B, S, H, dh)
+    gates = linear_apply(p["w_if"], xu, cfg).to(torch.float32)
     i_gate = torch.exp(-_softplus(-gates[..., :H]))       # sigmoid (B,S,H)
     log_f = -_softplus(-gates[..., H:])                   # log sigmoid
     return q, k, v, i_gate, log_f
@@ -107,15 +107,15 @@ def _mlstm_out(p: Params, cfg, y: torch.Tensor, den: torch.Tensor,
     y = y / torch.clamp(torch.abs(den), min=1.0)          # normalizer
     y = y.reshape(B, S, 2 * cfg.d_model).to(z.dtype)
     y = norm_apply(cfg, p["norm"], y) * silu(z)
-    return linear_apply(p["down"], y)
+    return linear_apply(p["down"], y, cfg)
 
 
 def mlstm_train(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); the chunked scan at chunk 512 from a zero state (S up
     to 512, or a multiple of it), no cache."""
     B, S, _ = x.shape
-    xu = linear_apply(p["up_x"], x)
-    z = linear_apply(p["up_z"], x)
+    xu = linear_apply(p["up_x"], x, cfg)
+    z = linear_apply(p["up_z"], x, cfg)
     q, k, v, i_gate, log_f = _mlstm_qkvg(p, cfg, xu)
     y_all, _ = chunked_gla(q, k, _with_denominator(v, i_gate), log_f,
                            chunk=MLSTM_CHUNK)
@@ -139,8 +139,8 @@ def mlstm_prefill(p: Params, cfg, x: torch.Tensor,
     512 (S up to 512, or a multiple of it).  The cache is updated in
     place."""
     B, S, _ = x.shape
-    xu = linear_apply(p["up_x"], x)
-    z = linear_apply(p["up_z"], x)
+    xu = linear_apply(p["up_x"], x, cfg)
+    z = linear_apply(p["up_z"], x, cfg)
     q, k, v, i_gate, log_f = _mlstm_qkvg(p, cfg, xu)
     y_all, h = chunked_gla(q, k, _with_denominator(v, i_gate), log_f,
                            chunk=MLSTM_CHUNK, h0=cache["h"])
@@ -155,8 +155,8 @@ def mlstm_decode(p: Params, cfg, x: torch.Tensor,
     """x: (B, 1, d); one step of the recurrence.  The cache is updated in
     place."""
     B = x.shape[0]
-    xu = linear_apply(p["up_x"], x)
-    z = linear_apply(p["up_z"], x)
+    xu = linear_apply(p["up_x"], x, cfg)
+    z = linear_apply(p["up_z"], x, cfg)
     q, k, v, i_gate, log_f = _mlstm_qkvg(p, cfg, xu)
     vi = _with_denominator(v, i_gate)
     h, y_all = gla_step(cache["h"], q[:, 0], k[:, 0], vi[:, 0],
@@ -227,7 +227,7 @@ def slstm_prefill(p: Params, cfg, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d); the cell once per step, from the cache's state.  The
     cache is updated in place."""
-    pre = linear_apply(p["w_in"], x)                       # (B, S, 4d)
+    pre = linear_apply(p["w_in"], x, cfg)                       # (B, S, 4d)
     state = dict(cache)
     hs = []
     for t in range(x.shape[1]):
@@ -236,13 +236,13 @@ def slstm_prefill(p: Params, cfg, x: torch.Tensor,
     _store(cache, state)
     y = torch.stack(hs, dim=1).to(x.dtype)                 # (B, S, d)
     y = norm_apply(cfg, p["norm"], y)
-    return linear_apply(p["down"], y), cache
+    return linear_apply(p["down"], y, cfg), cache
 
 
 def slstm_train(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); the cell once per step from ``init_slstm_cache``'s
     state, no cache (its gradient is autograd's through the loop)."""
-    pre = linear_apply(p["w_in"], x)                       # (B, S, 4d)
+    pre = linear_apply(p["w_in"], x, cfg)                       # (B, S, 4d)
     state = init_slstm_cache(cfg, x.shape[0], x.device)
     hs = []
     for t in range(x.shape[1]):
@@ -250,16 +250,16 @@ def slstm_train(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
         hs.append(state["h"])
     y = torch.stack(hs, dim=1).to(x.dtype)                 # (B, S, d)
     y = norm_apply(cfg, p["norm"], y)
-    return linear_apply(p["down"], y)
+    return linear_apply(p["down"], y, cfg)
 
 
 def slstm_decode(p: Params, cfg, x: torch.Tensor,
                  cache: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, 1, d); one cell step.  The cache is updated in place."""
-    pre = linear_apply(p["w_in"], x)[:, 0]
+    pre = linear_apply(p["w_in"], x, cfg)[:, 0]
     state = _slstm_cell(cfg, p["r"], pre, cache)
     _store(cache, state)
     y = state["h"][:, None].to(x.dtype)
     y = norm_apply(cfg, p["norm"], y)
-    return linear_apply(p["down"], y), cache
+    return linear_apply(p["down"], y, cfg), cache

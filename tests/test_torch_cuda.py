@@ -53,11 +53,11 @@ as it was, and it is held to the plain L (``attention_lse_ref``) within
 1e-5 absolute in float32 and 2e-5 in bfloat16 (both kernels compute the
 scores in float32; the bf16 kernel's exponentials are exp2 of log2 e
 scaled scores).  The backward takes every D the forward takes (D 80).
-Every head dim, forward and backward, under the same limits: D the
-tensor-core kernels do not take as it is zero-padded by the op, D above
-128 on the wide kernel (``flash_wide.cu``; in slices of 256 columns above
-256, D 320 and 512 here; ``tools/time_kernels.py --ops flash_wide`` times
-them).
+Every head dim, forward and backward, under the same limits: D is
+zero-padded by the op where the kernels do not take it as it is, D above
+128 runs on the wide kernels (``flash_wide.cu``: wgmma in bfloat16,
+3xTF32 in float32, the output in slices; D 136 to 512 here, two calls
+bitwise equal; ``tools/time_kernels.py --ops flash_wide`` times them).
 The ``gla_chunk`` backward kernel (``gla_bwd.cu``, its float32 outputs)
 against the plain backward in float64 on the same inputs: each of dq,
 dk, dv, dla and dh0 within 4x the float32 plain backward's error, or
@@ -934,11 +934,16 @@ def test_flash_wgmma_refuses_misaligned_operands(cuda_dev):
             flash_attention(bad, good, good)
         with pytest.raises(ValueError):
             flash_attention(good, good, bad)
-    wide = torch.zeros((B, S, H, 264), dtype=torch.bfloat16,
-                       device=cuda_dev)
-    with pytest.raises(ValueError):        # above the widest head dim
-        flash_attention(wide, wide, wide)
     assert flash_attention.launches == before
+    # the wide kernels take every D above 128: a misaligned view there is
+    # copied by the wrapper (its tensor maps are made for contiguous
+    # operands), and launched
+    wbuf = torch.zeros(S * H * 264 + 8, dtype=torch.bfloat16,
+                       device=cuda_dev)
+    wide = torch.as_strided(wbuf, (B, S, H, 264), (S * H * 264, H * 264,
+                                                   264, 1), 1)
+    flash_attention(wide, wide, wide)
+    assert flash_attention.launches == before + 1
 
 
 GLA_CASES = [
@@ -1460,20 +1465,26 @@ def test_flash_bwd_kernel_matches_plain(cuda_dev, case, dtype):
 
 #: head dims the tensor-core kernels do not take as they are: D 20, 80
 #: and 100 zero-padded by the op (to 32, 80 and 112 in bfloat16; 20, 80 and
-#: 100 need none in float32), D 160, 200 and 256 on the wide kernel
-#: (flash_wide.cu), D 320 and 512 on it in slices of 256 columns, causal
-#: with Sk < S (rows that see no key) and GQA
+#: 100 need none in float32), D 136 (padded to 144 in bfloat16), 160, 200
+#: and 256 on the wide kernels (flash_wide.cu), D 320, 512 and 576 on them
+#: with the output in slices (above 512 the bf16 forward streams Q too),
+#: causal with Sk < S (rows that see no key), GQA groups 1, 2 and 4,
+#: ragged tiles
 FLASH_ANY_D_CASES = [
     (1, 64, 64, 4, 2, 20, True),
     (1, 96, 96, 4, 2, 80, False),
     (2, 70, 50, 4, 1, 100, True),
+    (1, 77, 77, 8, 4, 136, False),
+    (2, 70, 40, 8, 2, 136, True),
     (1, 96, 96, 4, 2, 160, True),
+    (1, 150, 100, 8, 2, 256, True),
     (2, 70, 90, 4, 4, 200, False),
     (1, 130, 130, 8, 2, 256, True),
     (2, 70, 50, 4, 2, 320, True),
     (1, 96, 96, 4, 4, 320, False),
     (1, 130, 130, 4, 2, 512, True),
     (2, 40, 60, 4, 1, 512, False),
+    (1, 70, 70, 4, 2, 576, True),
 ]
 
 
@@ -1596,19 +1607,19 @@ def test_flash_empty_operands_count_no_launch(cuda_dev, S, Sk):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("what", ["D264", "D512", "mixed", "f16"])
+@pytest.mark.parametrize("what", ["D0", "lse", "mixed", "f16"])
 def test_flash_bwd_out_of_range_raises(cuda_dev, what):
-    """A D the forward does not take (above 256: every D up to 256 runs,
-    zero-padded or on the wide kernel), mixed dtypes and float16 raise
-    before any launch."""
-    D = {"D264": 264, "D512": 512}.get(what, 64)
+    """A D the forward does not take (D 0: every D from 1 runs,
+    zero-padded and on the tensor-core or the wide kernels), an L of
+    another shape, mixed dtypes and float16 raise before any launch."""
+    D = 0 if what == "D0" else 64
     dt = torch.float16 if what == "f16" else torch.bfloat16
     q, k, v, do = _bwd_operands(cuda_dev, torch.float32, 1, 16, 16, 2, 2, D,
                                 3)
     q, do = q.to(dt), do.to(dt)
     if what != "mixed":
         k, v = k.to(dt), v.to(dt)
-    lse = torch.zeros((1, 2, 16), device=cuda_dev)
+    lse = torch.zeros((1, 2, 15 if what == "lse" else 16), device=cuda_dev)
     before = flash_attention.bwd_launches
     with pytest.raises(ValueError):
         flash_attention_bwd(q, k, v, do, do, causal=True, lse=lse)

@@ -7,14 +7,22 @@ its rendering, and the kernel ops' meta routes, on the CPU.
       process group): a reduced llama3.2-3b and phi3.5-moe (2 layers,
       d_model 64, 4 experts for the moe) on a 128-token, batch-8 train
       shape, and reduced llama3.2-3b prefill and decode cells of the same
-      size.  The port's ``argument_size_in_bytes`` (the rank's parameter,
-      optimizer, batch and cache shards) equals the reference's at a
+      size, float and int8 (PTQ: the heads split over "model" with the
+      int8 weights, ``sharding.model_split_leaves``).  The port's
+      ``argument_size_in_bytes`` (the rank's parameter, optimizer,
+      batch and cache shards) equals the reference's at a
       multi-device mesh -- (2, 4) for the train cells, (4, 2) for the
       serve cells, where "model" divides the 2 kv heads (at (2, 4) the
       reference splits the cache's positions over "model", which the
       port's layers never do: they hold them whole) -- and its
       ``dot_flops_per_device`` is within 2% of the reference's at (1, 1)
-      (the kernels report the reference oracles' FLOPs; measured equal).
+      (the kernels report the reference oracles' FLOPs; measured equal);
+      the int8 cells all-reduce each quantized linear's activation max
+      over "data", the row-parallel ones' over "model" too.  A reduced
+      kimi-k2 prefill cell, float and int8 at (4, 2), runs on the port
+      alone (the reference's fused expert-parallel layer raises KeyError
+      on int8 weights under a mesh): its shared expert's linears reduce
+      their activation max as the dense MLP's do.
   (c) ``tools/make_experiments.py``, unedited, run in a temporary
       directory holding the port's cell JSONs written by the CLI,
       prints a row for each cell.
@@ -45,12 +53,22 @@ from torch_cases import ROOT
 LLAMA = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
              d_ff=128, vocab_size=512)
 PHI = dict(LLAMA, moe_experts=4, moe_top_k=2, moe_d_ff=64)
-#: (arch, shape name, overrides, the multi-device mesh)
-CELLS = [("llama3.2-3b", "train_128", LLAMA, (2, 4)),
-         ("phi3.5-moe-42b-a6.6b", "train_128", PHI, (2, 4)),
-         ("llama3.2-3b", "prefill_128", LLAMA, (4, 2)),
-         ("llama3.2-3b", "decode_128", LLAMA, (4, 2))]
-IDS = ["llama-train", "phi-train", "llama-prefill", "llama-decode"]
+#: (arch, shape name, overrides, the multi-device mesh, int8 PTQ)
+CELLS = [("llama3.2-3b", "train_128", LLAMA, (2, 4), False),
+         ("phi3.5-moe-42b-a6.6b", "train_128", PHI, (2, 4), False),
+         ("llama3.2-3b", "prefill_128", LLAMA, (4, 2), False),
+         ("llama3.2-3b", "decode_128", LLAMA, (4, 2), False),
+         ("llama3.2-3b", "prefill_128", LLAMA, (4, 2), True),
+         ("llama3.2-3b", "decode_128", LLAMA, (4, 2), True)]
+IDS = ["llama-train", "phi-train", "llama-prefill", "llama-decode",
+       "llama-prefill-int8", "llama-decode-int8"]
+KIMI = dict(PHI, n_shared_experts=1)
+#: cells only the port runs: the reference's fused expert-parallel layer
+#: reads the shared experts' float ``w`` and raises KeyError on int8
+#: weights under a mesh
+PORT_CELLS = [("kimi-k2-1t-a32b", "prefill_128", KIMI, (4, 2), False),
+              ("kimi-k2-1t-a32b", "prefill_128", KIMI, (4, 2), True)]
+PORT_IDS = ["kimi-prefill", "kimi-prefill-int8"]
 
 RUN_CELLS = """
 import json, sys
@@ -67,17 +85,19 @@ else:
 for kind in ("train", "prefill", "decode"):
     SHAPES[kind + "_128"] = ShapeSpec(kind + "_128", 128, 8, kind)
 out = {}
-for i, (arch, shape, ov, mesh) in enumerate(json.loads(sys.argv[2])):
+for i, (arch, shape, ov, mesh, q) in enumerate(json.loads(sys.argv[2])):
     for m in (tuple(mesh), (1, 1)):
         if which == "ref":
             D.make_production_mesh = (
                 lambda multi_pod=False, m=m: make_mesh(m, ("data", "model")))
-            c = D.run_cell(arch, shape, False, overrides=ov, verbose=False)
+            c = D.run_cell(arch, shape, False, quantized=q, overrides=ov,
+                           verbose=False)
         else:
-            c = D.run_cell(arch, shape, False, overrides=ov, verbose=False,
-                           mesh_shape=m)
+            c = D.run_cell(arch, shape, False, quantized=q, overrides=ov,
+                           verbose=False, mesh_shape=m)
         out[f"{i} {m}"] = dict(args=c["memory"]["argument_size_in_bytes"],
-                               flops=c["hlo"]["dot_flops_per_device"])
+                               flops=c["hlo"]["dot_flops_per_device"],
+                               coll=c["hlo"].get("collective_counts_by_axis"))
 print("OUT" + json.dumps(out))
 """
 
@@ -92,9 +112,9 @@ def _env():
 def both():
     """{"ref"|"port": {"<cell> <mesh>": {args, flops}}}: the reference and
     the port, each in its own subprocess, run at once."""
-    cells = json.dumps(CELLS)
+    cells = {"ref": json.dumps(CELLS), "port": json.dumps(CELLS + PORT_CELLS)}
     procs = {w: subprocess.Popen(
-        [sys.executable, "-c", RUN_CELLS, w, cells], env=_env(),
+        [sys.executable, "-c", RUN_CELLS, w, cells[w]], env=_env(),
         cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for w in ("ref", "port")}
     out = {}
@@ -125,6 +145,31 @@ def test_one_device_dot_flops_match_reference(both, i):
     assert both["ref"][key]["args"] == both["port"][key]["args"]
     ref, port = both["ref"][key]["flops"], both["port"][key]["flops"]
     assert abs(port - ref) <= 0.02 * ref, (port, ref)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "kimi-prefill"])
+def test_int8_cells_reduce_the_activation_max(both, kind):
+    """At (4, 2) the int8 serve cell all-reduces each quantized linear's
+    activation max over "data" (the batch is split there: 7 linears a
+    layer, the shared expert's in kimi-k2's moe layers) and each
+    row-parallel one's over "model" too (wo, mlp or shared-expert wo):
+    the float cell's all-reduces plus seven a layer over "data" and two
+    over "model" (none over "data" in llama's float cell)."""
+    ids = IDS + PORT_IDS
+    if kind.startswith("kimi"):
+        i_f = ids.index(kind)
+    else:
+        i_f = ids.index(f"llama-{kind}")
+    i_q = ids.index(f"{ids[i_f]}-int8")
+    mesh = tuple((CELLS + PORT_CELLS)[i_q][3])
+    f = both["port"][f"{i_f} {mesh}"]["coll"]
+    q = both["port"][f"{i_q} {mesh}"]["coll"]
+    layers = LLAMA["n_layers"]
+    f_data = f.get("data", {}).get("all-reduce", 0)
+    if not kind.startswith("kimi"):
+        assert f_data == 0
+    assert q["data"]["all-reduce"] == f_data + 7 * layers
+    assert q["model"]["all-reduce"] == f["model"]["all-reduce"] + 2 * layers
 
 
 def test_make_experiments_renders_the_ports_cells(tmp_path):
@@ -214,24 +259,33 @@ def _rand(*shape, dtype=torch.float32, seed=0):
 @pytest.mark.parametrize("D,dtype", [(64, torch.bfloat16),
                                      (72, torch.bfloat16),
                                      (20, torch.float32), (160, torch.float32),
-                                     (320, torch.bfloat16)],
+                                     (320, torch.bfloat16),
+                                     (200, torch.bfloat16),
+                                     (160, torch.bfloat16)],
                          ids=["64-bf16", "72-bf16", "20-f32", "160-f32",
-                              "320-bf16"])
+                              "320-bf16", "200-bf16", "160-bf16"])
 def test_flash_meta_route(D, dtype):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_fwd)
-    from repro_torch.kernels.flash_attention.kernel import (ROW_PAD,
-                                                            head_dim_plan)
+    from repro_torch.kernels.flash_attention.kernel import (
+        ROW_PAD, head_dim_plan, wide_fwd_launches)
     B, S, HQ, KH = 2, 40, 4, 2
     q, k, v = (_rand(B, S, h, D, dtype=dtype, seed=i)
                for i, h in enumerate((HQ, KH, KH)))
     before = (flash_attention.launches, flash_attention.bwd_launches)
+    plan = head_dim_plan(D, dtype)
+    # a served call: the wide kernels' L is scratch where their plan asks
+    got, want, made, _ = _meta_and_cpu(
+        lambda *t: flash_attention(*t, causal=True), q, k, v)
+    _same_outputs(got, want)
+    scratch = plan.kernels == "wide" and wide_fwd_launches(plan.dp,
+                                                           dtype) == 2
+    assert (("empty", (B, HQ, S), torch.float32) in made) == scratch
     got, want, made, stats = _meta_and_cpu(
         lambda *t: flash_attention_fwd(*t, causal=True), q, k, v)
     _same_outputs(got, want)
-    plan = head_dim_plan(D, dtype)
-    if plan.kernels == "tensor" and plan.dp != D:   # zero-padded operands
+    if plan.dp != D:                   # zero-padded operands
         assert ("constant_pad_nd", (B, S, HQ, plan.dp), dtype) in made
     assert ("empty", (B, HQ, S), torch.float32) in made    # L
     assert stats.kernels["flash_attention"][1] == 4 * B * HQ * S * S * D

@@ -1,27 +1,31 @@
 """flash_attention at every head dim.
 
 The tensor-core kernels take D up to 128 (a multiple of 16 in bfloat16,
-of 4 in float32); the op zero-pads any other D up to 128 for them, and
-runs D above 128 on the wide kernel (``csrc/flash_wide.cu``, in slices of
-256 columns above 256), forward and backward (``kernel.head_dim_plan``).
+of 4 in float32) and the wide kernels (``csrc/flash_wide.cu``) every D
+above; the op zero-pads D to a multiple of 16 (bfloat16) or 4 (float32)
+for either, forward and backward (``kernel.head_dim_plan``), and the
+wide forward takes one or two launches (``kernel.wide_fwd_launches``).
 Here, on the CPU:
 
   * the plain version (what a CPU tensor runs) against the reference's
-    oracle (``flash_attention(use_pallas=False)``) at D 80, 160, 256, 320
-    and 512, causal and not: float32 within 1e-5 of max|out|, bfloat16 within
-    2^-7 (both compute in float32 and round once to bfloat16); its
-    backward against ``jax.grad`` of that oracle: float32 within 2e-5 of
-    max|grad| (sums in another order), bfloat16 within 2^-7;
-  * ``head_dim_plan``: which kernels and what padding each D gets; D 0
-    raises, D 320 and 512 plan the wide kernel;
+    oracle (``flash_attention(use_pallas=False)``) at D 80, 160, 200,
+    256, 264, 320 and 512, causal and not: float32 within 1e-5 of
+    max|out|, bfloat16 within 2^-7 (both compute in float32 and round
+    once to bfloat16); its backward against ``jax.grad`` of that oracle:
+    float32 within 2e-5 of max|grad| (sums in another order), bfloat16
+    within 2^-7;
+  * ``head_dim_plan``: which kernels and what padding each D gets (D
+    136, 160, 200, 256, 264, 320 and 512 named); D 0 raises;
+    ``wide_fwd_launches``: the wide forward's launches (and so its
+    scratch L);
   * the card's dispatch (``ops._cuda_forward``, ``ops._cuda_backward``)
     with the kernels replaced by float64 stand-ins that record what they
-    are given: a padded D reaches the tensor-core kernels padded, with
-    the scale of the unpadded D, and the output, L and gradients sliced
-    back equal the stand-ins' on the unpadded operands (within 1e-12:
-    zero columns add nothing); D above 128 (320 included) reaches the
-    wide kernel unpadded.  The kernels themselves are held to the plain versions on
-    the card (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7).
+    are given: a padded D reaches the kernels padded, with the scale of
+    the unpadded D, and the output, L and gradients sliced back equal
+    the stand-ins' on the unpadded operands (within 1e-12: zero columns
+    add nothing), on the tensor-core and the wide kernels alike.  The
+    kernels themselves are held to the plain versions on the card
+    (``tests/test_torch_cuda.py``, ``chip_smoke.py`` phase 7).
 """
 import math
 
@@ -37,9 +41,10 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_fwd)
 from repro_torch.kernels.flash_attention import ops as t_ops
 from repro_torch.kernels.flash_attention.kernel import (MAX_D, WIDE_SLICE,
-                                                        head_dim_plan)
+                                                        head_dim_plan,
+                                                        wide_fwd_launches)
 
-DS = [80, 160, 256, 320, 512]
+DS = [80, 160, 200, 256, 264, 320, 512]
 
 
 def _inputs(B, S, HQ, KH, D, seed):
@@ -85,11 +90,33 @@ def test_head_dim_plan(dtype):
         plan = head_dim_plan(D, dtype)
         assert plan.kernels == "tensor"
         assert plan.dp % step == 0 and D <= plan.dp < D + step
-    for D in list(range(MAX_D + 1, WIDE_SLICE + 1)) + [320, 512]:
-        assert head_dim_plan(D, dtype) == ("wide", D)
+    for D in list(range(MAX_D + 1, WIDE_SLICE + 1)) + [264, 320, 512, 600]:
+        plan = head_dim_plan(D, dtype)
+        assert plan.kernels == "wide"
+        assert plan.dp % step == 0 and D <= plan.dp < D + step
+    named = {136: 144, 160: 160, 200: 208, 256: 256, 264: 272, 320: 320,
+             512: 512} if dtype == torch.bfloat16 else \
+        {D: D for D in (136, 160, 200, 256, 264, 320, 512)}
+    for D, dp in named.items():
+        assert head_dim_plan(D, dtype) == ("wide", dp)
     for D in (0, -1):
         with pytest.raises(ValueError):
             head_dim_plan(D, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_wide_fwd_launches(dtype):
+    """bfloat16 up to 256: one online-softmax launch (no scratch L); above,
+    and every float32 call: L, then the output's slices from it."""
+    bf16 = dtype == torch.bfloat16
+    for D in ((144, 160, 208, 256, 272, 320, 512) if bf16
+              else (136, 160, 200, 256, 264, 320, 512)):
+        assert wide_fwd_launches(D, dtype) == (1 if bf16 and D <= WIDE_SLICE
+                                               else 2)
+    for D in (128, 64, 200 + (1 if bf16 else 2)):
+        with pytest.raises(ValueError):      # not above 128, or unpadded
+            wide_fwd_launches(D, dtype)
 
 
 def _attention64(q, k, v, causal, scale):
@@ -110,7 +137,7 @@ def _attention64(q, k, v, causal, scale):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
-@pytest.mark.parametrize("D", [20, 80, 100, 160, 320])
+@pytest.mark.parametrize("D", [20, 80, 100, 160, 200, 264, 320])
 def test_card_dispatch_pads_and_slices(monkeypatch, D, dtype):
     calls = []
 

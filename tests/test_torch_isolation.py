@@ -3,7 +3,7 @@
 * No module of ``src/repro_torch`` (the mesh, sharding, compression and
   elastic-restart modules among them), not ``chip_smoke.py``,
   ``tools/autotune_torch.py``, ``tools/time_kernels.py``,
-  ``tools/gloo_probe.py`` nor the port's
+  ``tools/gloo_probe.py``, ``tools/flash_wide_paths.py`` nor the port's
   examples (``examples/*_torch.py``) imports JAX or the reference
   package (AST scan).
 * Making a device, a runtime or a compiled program without
@@ -31,7 +31,8 @@ from repro_torch.kernels import _build
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py", ROOT / "tools" / "autotune_torch.py",
-       ROOT / "tools" / "time_kernels.py", ROOT / "tools" / "gloo_probe.py"] \
+       ROOT / "tools" / "time_kernels.py", ROOT / "tools" / "gloo_probe.py",
+       ROOT / "tools" / "flash_wide_paths.py"] \
     + sorted((ROOT / "examples").glob("*_torch.py"))
 
 

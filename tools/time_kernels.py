@@ -31,10 +31,14 @@ encoder in bf16 and float32, phi-3-vision's D 96, a long-key float32
 case) beside its operation bound, the plain backward and
 scaled_dot_product_attention's backward alone, and at the first of them
 the forward kernel with and without writing the log-sum-exp L that the
-backward takes; flash_wide, the wide kernel (``flash_wide.cu``) at the
-head dims above 256 it walks in slices (chip_smoke's FLASH_SLICED_CASES
-forward, B1 S1024 H8 causal, and the FLASH_BWD_CASES above 256) beside
-the plain versions; gla_bwd, the gla_chunk
+backward takes; flash_wide, the wide kernels (``flash_wide.cu``),
+forward and backward, at WIDE_SHAPES (D 160 and 256 at B1 S2048 H8, D
+320 and 512 at B1 S1024 H8, causal, bfloat16 and float32) beside the
+plain versions, scaled_dot_product_attention and its backward alone
+(each op's and SDPA's time both as a call's CUDA-event time and as the
+device time of every kernel the call runs, ``device_ms``, so that a
+kernel is compared with the library call like with like);
+gla_bwd, the gla_chunk
 backward kernel at chip_smoke's GLA_BWD_CASES (zamba2-1.2b's and
 xlstm-1.3b's train_4k scans, h0 and dh given, a ragged last tile, a long
 slow-decay scan) beside its operation and byte bound and the plain
@@ -335,30 +339,57 @@ def flash_bwd_row(cs, label, card, shape):
         if not causal or S == Sk else None
     lib = cs.cuda_time_ms(lib_call, reps=reps, warmup=1) \
         if lib_call is not None else None
+    lib_dev = device_ms(lib_call, reps) if lib_call is not None else None
     bound, by = cs.flash_bwd_bound_ms(B, S, Sk, HQ, KH, D, causal,
                                       q.element_size())
-    print(json.dumps(dict(row, ms=ms, call_ms=call_ms, plain_ms=plain,
-                          library_ms=lib, bound_ms=bound, bound_by=by)),
-          flush=True)
+    print(json.dumps(dict(row, ms=ms, call_ms=call_ms,
+                          device_ms=device_ms(call, reps), plain_ms=plain,
+                          library_ms=lib, library_device_ms=lib_dev,
+                          bound_ms=bound, bound_by=by)), flush=True)
     if shape == cs.FLASH_BWD_CASES[0]:
         flash_lse_rows(cs, row, q, k, v, causal)
     del q, k, v, o, do, lse, lib_call
     torch.cuda.empty_cache()
 
 
+def device_ms(fn, reps=10):
+    """Device time per call of fn(): every kernel, copy and fill it runs
+    on the card, from torch.profiler's device events (the time the card
+    is busy for one call, with no host time in it).  None where the
+    profiler recorded no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+#: (B, S, H, D, dtype) the wide kernels (D above 128) are timed at, all
+#: causal with HQ = KH = H: D 160 and 256 at S 2048, D 320 and 512 at S
+#: 1024, both dtypes
+WIDE_SHAPES = [(1, 2048, 8, D, dt) for D in (160, 256)
+               for dt in ("bfloat16", "float32")] + [
+    (1, 1024, 8, D, dt) for D in (320, 512) for dt in ("bfloat16", "float32")]
+
+
 def flash_wide_rows(cs, label, card):
-    """JSON lines of the wide kernel at the head dims above 256: the
-    forward at chip_smoke's FLASH_SLICED_CASES (B1 S1024 H8 causal, its
-    two launches) beside the plain version and its bound, each held to
-    the plain version; then the backward at the FLASH_BWD_CASES above 256
-    (flash_bwd_row)."""
+    """JSON lines of the wide kernels at WIDE_SHAPES: the forward (each
+    held to the plain version) beside scaled_dot_product_attention and
+    its bound, then the backward (flash_bwd_row: from the forward's L,
+    beside SDPA's backward alone and its bound)."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
-    for D, dt in cs.FLASH_SLICED_CASES:
-        B, S, H = 1, 1024, 8
+    for B, S, H, D, dt in WIDE_SHAPES:
         q, k, v = (torch.randn((B, S, H, D), generator=g, device=dev)
                    .to(getattr(torch, dt)) for _ in range(3))
         got = flash_attention(q, k, v, causal=True)
@@ -372,16 +403,22 @@ def flash_wide_rows(cs, label, card):
         ms = cs.kernel_ms(call, cs.FLASH_WIDE_NAME, call_ms, reps=10)
         plain = cs.cuda_time_ms(lambda: flash_attention_plain(
             q, k, v, causal=True), reps=5, warmup=1)
+        lib_call = cs.sdpa_call(q, k, v, True)
+        lib = cs.cuda_time_ms(lib_call, reps=10, warmup=1) \
+            if lib_call is not None else None
+        lib_dev = device_ms(lib_call) if lib_call is not None else None
         bound, by = cs.flash_bound_ms(B, S, S, H, H, D, True,
                                       q.element_size())
         print(json.dumps(dict(label=label, card=card, op="flash_wide", B=B,
                               S=S, HQ=H, KH=H, D=D, dtype=dt, causal=True,
-                              ms=ms, call_ms=call_ms, plain_ms=plain,
-                              bound_ms=bound, bound_by=by, max_abs_err=err,
-                              limit=tol)), flush=True)
-    for shape in cs.FLASH_BWD_CASES:
-        if shape[5] > 256:
-            flash_bwd_row(cs, label, card, shape)
+                              ms=ms, call_ms=call_ms,
+                              device_ms=device_ms(call), plain_ms=plain,
+                              library_ms=lib, library_device_ms=lib_dev,
+                              bound_ms=bound, bound_by=by,
+                              max_abs_err=err, limit=tol)), flush=True)
+        del q, k, v, got, want, lib_call
+        torch.cuda.empty_cache()
+        flash_bwd_row(cs, label, card, (B, S, S, H, H, D, True, dt))
 
 
 def flash_lse_rows(cs, row, q, k, v, causal):
