@@ -49,6 +49,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.trace import FLASH_ATTENTION, span
+
 from .. import _meta
 from .kernel import (flash_attention_bwd_cuda, flash_attention_cuda,
                      flash_wide_bwd_cuda, flash_wide_cuda, head_dim_plan)
@@ -237,8 +239,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, causal=ctx.causal,
-                                         lse=lse)
+        with span(FLASH_ATTENTION):
+            dq, dk, dv = flash_attention_bwd(q, k, v, out, do,
+                                             causal=ctx.causal, lse=lse)
         return dq, dk, dv, None
 
 
@@ -251,10 +254,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (row i sees keys j <= i + Sk - S).  Differentiable when grad mode is
     on and an operand requires grad."""
     _check(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal)
-    return _forward(q, k, v, causal)
+    with span(FLASH_ATTENTION):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return _FlashAttention.apply(q, k, v, causal)
+        return _forward(q, k, v, causal)
 
 
 #: kernel launches made by this op (plain-version calls do not count)

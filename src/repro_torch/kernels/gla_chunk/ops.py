@@ -30,6 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.trace import GLA_CHUNK, span
+
 from .. import _meta
 from .kernel import MAX_TILE, gla_chunk_bwd_cuda, gla_chunk_cuda
 from .ref import gla_chunk_bwd_ref, gla_chunk_ref
@@ -215,10 +217,12 @@ class _GlaChunk(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh):
         q, k, v, la, h0 = ctx.saved_tensors
-        if dy is None:
-            dy = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-        dq, dk, dv, dla, dh0 = gla_chunk_bwd(q, k, v, la, h0, dy, dh,
-                                             chunk=ctx.chunk)
+        with span(GLA_CHUNK):
+            if dy is None:
+                dy = torch.zeros(v.shape, dtype=torch.float32,
+                                 device=v.device)
+            dq, dk, dv, dla, dh0 = gla_chunk_bwd(q, k, v, la, h0, dy, dh,
+                                                 chunk=ctx.chunk)
         return dq, dk, dv, dla, (None if h0 is None else dh0), None, None, \
             None
 
@@ -236,10 +240,11 @@ def gla_chunk(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     float32.  Differentiable when grad mode is on and an operand requires
     grad."""
     Q = _check(q, k, v, la, h0, chunk)
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, la, h0)):
-        return _GlaChunk.apply(q, k, v, la, h0, Q, chunk, y_dtype)
-    return _forward(q, k, v, la, h0, Q, chunk, y_dtype)
+    with span(GLA_CHUNK):
+        if torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (q, k, v, la, h0)):
+            return _GlaChunk.apply(q, k, v, la, h0, Q, chunk, y_dtype)
+        return _forward(q, k, v, la, h0, Q, chunk, y_dtype)
 
 
 #: kernel launches made by this op (plain-version calls do not count)

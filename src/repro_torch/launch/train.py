@@ -7,7 +7,9 @@ checkpointing -> straggler watchdog -> restore.  The backward is
 PyTorch's autograd; the attention's gradient is the flash_attention op's
 backward and the Mamba2 and mLSTM scans' the gla_chunk op's, each a
 hand-written kernel on the card.  Every config trains.  Parameters and
-optimizer state are updated in place.
+optimizer state are updated in place.  A step's phases (the batch, the
+forward, the backward, clipping, the optimizer, the read of the loss) run
+inside named spans (``repro_torch/trace.py``) that a profiler records.
 
 ``Trainer(mesh=, fsdp=)`` is the mesh path: one process a rank (the
 caller makes the process group: ``nccl`` on separate cards, ``gloo`` on
@@ -77,6 +79,9 @@ from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import (clip_by_global_norm, cosine_schedule,
                                make_optimizer)
+from repro_torch.trace import (TRAIN_BACKWARD, TRAIN_BATCH, TRAIN_CLIP,
+                               TRAIN_FORWARD, TRAIN_LOSS_READ,
+                               TRAIN_OPTIMIZER, span)
 from repro_torch.tree import flatten, map_tree, requires_grad_, unflatten
 
 
@@ -89,12 +94,16 @@ def build_train_step(cfg: ModelConfig, optimizer: str, peak_lr: float = 3e-4,
 
     def train_step(params, opt_state, batch, step):
         flat = flatten(params)
-        loss, metrics = T.forward_train(params, cfg, batch)
-        grads = unflatten(params, dict(zip(flat, torch.autograd.grad(
-            loss, list(flat.values())))))
-        grads, gnorm = clip_by_global_norm(grads, 1.0)
-        lr = cosine_schedule(step, warmup, total_steps, peak_lr)
-        params, opt_state = opt_update(grads, opt_state, params, lr=lr)
+        with span(TRAIN_FORWARD):
+            loss, metrics = T.forward_train(params, cfg, batch)
+        with span(TRAIN_BACKWARD):
+            grads = unflatten(params, dict(zip(flat, torch.autograd.grad(
+                loss, list(flat.values())))))
+        with span(TRAIN_CLIP):
+            grads, gnorm = clip_by_global_norm(grads, 1.0)
+        with span(TRAIN_OPTIMIZER):
+            lr = cosine_schedule(step, warmup, total_steps, peak_lr)
+            params, opt_state = opt_update(grads, opt_state, params, lr=lr)
         return params, opt_state, dict(
             {k: v.detach() for k, v in metrics.items()}, grad_norm=gnorm,
             lr=lr)
@@ -424,12 +433,14 @@ class Trainer:
         history: Dict[str, List] = {"loss": [], "grad_norm": [], "step": [],
                                     "seconds": []}
         for _ in range(steps):
-            batch = self.batch(self.step)
+            with span(TRAIN_BATCH):
+                batch = self.batch(self.step)
             self.watchdog.start_step()
             t0 = time.perf_counter()
             self.params, self.opt_state, metrics = self.step_fn(
                 self.params, self.opt_state, batch, self.step)
-            loss = float(metrics["loss"])
+            with span(TRAIN_LOSS_READ):
+                loss = float(metrics["loss"])
             history["seconds"].append(time.perf_counter() - t0)
             self.watchdog.end_step(self.step)
             if self.step % log_every == 0:

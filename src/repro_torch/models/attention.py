@@ -28,6 +28,7 @@ from repro_torch.distributed import meshctx
 from repro_torch.distributed.sharding import heads_split
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.trace import ATTENTION, span
 
 from .layers import apply_rope, linear_apply, linear_init, torch_dtype
 
@@ -71,12 +72,13 @@ def attn_train(p: Params, cfg, x: torch.Tensor, *, causal: bool = True,
     mode of every attention block, and the whisper encoder's pass
     (``causal=False``).  Differentiable: the gradient of the attention
     itself is the flash_attention op's backward (a kernel on the card)."""
-    B, S, _ = x.shape
-    if positions is None:
-        positions = torch.arange(S, device=x.device).expand(B, S)
-    q, k, v = _qkv(p, cfg, x, positions)
-    o = flash_attention(q, k, v, causal=causal)
-    return _out(p, cfg, o)
+    with span(ATTENTION):
+        B, S, _ = x.shape
+        if positions is None:
+            positions = torch.arange(S, device=x.device).expand(B, S)
+        q, k, v = _qkv(p, cfg, x, positions)
+        o = flash_attention(q, k, v, causal=causal)
+        return _out(p, cfg, o)
 
 
 def _out(p: Params, cfg, o: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,7 @@ from repro_torch.distributed import meshctx
 from repro_torch.distributed.sharding import hidden_split, vocab_split
 from repro_torch.kernels.vta_gemm import quantized_linear
 from repro_torch.kernels.vta_gemm.ref import activation_scale
+from repro_torch.trace import MLP, span
 
 Params = Dict[str, Any]
 
@@ -187,18 +188,19 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg,
     """The MLP of hidden width `d_ff` (default ``cfg.d_ff``).  Where the
     "model" axis splits it, p holds the rank's columns of wi/wg and rows
     of wo, and the partial outputs are summed over the axis."""
-    ax = meshctx.model_axis(cfg)
-    if ax is not None and not hidden_split(d_ff or cfg.d_ff, ax.size):
-        ax = None
-    x = meshctx.copy_to_model(x, ax)
-    if cfg.mlp == "swiglu":
-        h = silu(linear_apply(p["wg"], x, cfg, ax)) \
-            * linear_apply(p["wi"], x, cfg, ax)
-    else:
-        # jax.nn.gelu is the tanh approximation by default
-        h = F.gelu(linear_apply(p["wi"], x, cfg, ax), approximate="tanh")
-    return meshctx.reduce_from_model(
-        linear_apply(p["wo"], h, cfg, ax, row=True), ax)
+    with span(MLP):
+        ax = meshctx.model_axis(cfg)
+        if ax is not None and not hidden_split(d_ff or cfg.d_ff, ax.size):
+            ax = None
+        x = meshctx.copy_to_model(x, ax)
+        if cfg.mlp == "swiglu":
+            h = silu(linear_apply(p["wg"], x, cfg, ax)) \
+                * linear_apply(p["wi"], x, cfg, ax)
+        else:
+            # jax.nn.gelu is the tanh approximation by default
+            h = F.gelu(linear_apply(p["wi"], x, cfg, ax), approximate="tanh")
+        return meshctx.reduce_from_model(
+            linear_apply(p["wo"], h, cfg, ax, row=True), ax)
 
 
 # ----------------------------------------------------------------------

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels.gla_chunk import gla_chunk
+from repro_torch.trace import MAMBA2, MAMBA2_IN_PROJ, MAMBA2_OUT_PROJ, span
 
 from .layers import (linear_apply, linear_init, norm_apply, norm_init, silu,
                      torch_dtype)
@@ -147,9 +148,12 @@ def _ssm_inner(cfg, p: Params, zxbcdt: torch.Tensor,
 
 def mamba2_train(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     """x: (B, S, d); the chunked scan from zero states, no cache."""
-    zxbcdt = linear_apply(p["in_proj"], x, cfg)
-    y, _, _ = _ssm_inner(cfg, p, zxbcdt, None, None, chunked=True)
-    return linear_apply(p["out_proj"], y, cfg)
+    with span(MAMBA2):
+        with span(MAMBA2_IN_PROJ):
+            zxbcdt = linear_apply(p["in_proj"], x, cfg)
+        y, _, _ = _ssm_inner(cfg, p, zxbcdt, None, None, chunked=True)
+        with span(MAMBA2_OUT_PROJ):
+            return linear_apply(p["out_proj"], y, cfg)
 
 
 def init_ssm_cache(cfg, batch: int, dtype: torch.dtype,

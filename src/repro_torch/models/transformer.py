@@ -68,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.driver import TorchDeviceLike, resolve_torch_device
 from repro_torch.distributed import meshctx
 from repro_torch.distributed.sharding import vocab_split
+from repro_torch.trace import BLOCK, EMBED, LOSS, span
 
 from . import attention as attn
 from . import moe as moe_mod
@@ -282,13 +283,14 @@ def embed_inputs(params: Params, cfg: ModelConfig,
     phi-3-vision's ``patch_emb``, cast to x's dtype, ahead of the text;
     whisper's ``frames``, cast to x's dtype, through the encoder (enc_out
     None without them)."""
-    x = embed_apply(params["embed"], cfg, batch["tokens"])
-    enc_out = None
-    if cfg.frontend == "vision_stub" and "patch_emb" in batch:
-        x = torch.cat([batch["patch_emb"].to(x.dtype), x], dim=1)
-    if cfg.encoder_layers and "frames" in batch:
-        enc_out = _encode(params, cfg, batch["frames"].to(x.dtype))
-    return x, enc_out
+    with span(EMBED):
+        x = embed_apply(params["embed"], cfg, batch["tokens"])
+        enc_out = None
+        if cfg.frontend == "vision_stub" and "patch_emb" in batch:
+            x = torch.cat([batch["patch_emb"].to(x.dtype), x], dim=1)
+        if cfg.encoder_layers and "frames" in batch:
+            enc_out = _encode(params, cfg, batch["frames"].to(x.dtype))
+        return x, enc_out
 
 
 def _head_weight(params: Params, cfg: ModelConfig) -> torch.Tensor:
@@ -358,29 +360,30 @@ def _train_block(p: Params, cfg: ModelConfig, btype: str, x: torch.Tensor,
     """One block of type `btype` in train mode: (x, aux loss).
     `shared_p` is zamba2's shared attention block, `enc_out` whisper's
     encoder output."""
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    h = norm_apply(cfg, p["ln1"], x)
-    if btype in ("mlstm", "slstm"):
-        fn = getattr(xlstm_mod, f"{btype}_train")
-        return x + fn(p[btype], cfg, h), zero
-    if btype in ("mamba2", "mamba2_sharedattn"):
-        x = x + ssm_mod.mamba2_train(p["mamba"], cfg, h)
-        if btype == "mamba2_sharedattn" and shared_p is not None:
-            h = norm_apply(cfg, shared_p["ln1"], x)
-            x = x + attn.attn_train(shared_p["attn"], cfg, h)
-            h = norm_apply(cfg, shared_p["ln2"], x)
-            x = x + mlp_apply(shared_p["mlp"], h, cfg)
-        return x, zero
-    x = x + attn.attn_train(p["attn"], cfg, h)
-    if "cross" in p:
-        h = norm_apply(cfg, p["lnx"], x)
-        enc_kv = attn.encode_cross_kv(p["cross"], cfg, enc_out)
-        x = x + attn.cross_attn_apply(p["cross"], cfg, h, enc_kv)
-    h = norm_apply(cfg, p["ln2"], x)
-    if "moe" in p:
-        o, aux = moe_mod.moe_apply(p["moe"], cfg, h)
-        return x + o, aux
-    return x + mlp_apply(p["mlp"], h, cfg), zero
+    with span(BLOCK):
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = norm_apply(cfg, p["ln1"], x)
+        if btype in ("mlstm", "slstm"):
+            fn = getattr(xlstm_mod, f"{btype}_train")
+            return x + fn(p[btype], cfg, h), zero
+        if btype in ("mamba2", "mamba2_sharedattn"):
+            x = x + ssm_mod.mamba2_train(p["mamba"], cfg, h)
+            if btype == "mamba2_sharedattn" and shared_p is not None:
+                h = norm_apply(cfg, shared_p["ln1"], x)
+                x = x + attn.attn_train(shared_p["attn"], cfg, h)
+                h = norm_apply(cfg, shared_p["ln2"], x)
+                x = x + mlp_apply(shared_p["mlp"], h, cfg)
+            return x, zero
+        x = x + attn.attn_train(p["attn"], cfg, h)
+        if "cross" in p:
+            h = norm_apply(cfg, p["lnx"], x)
+            enc_kv = attn.encode_cross_kv(p["cross"], cfg, enc_out)
+            x = x + attn.cross_attn_apply(p["cross"], cfg, h, enc_kv)
+        h = norm_apply(cfg, p["ln2"], x)
+        if "moe" in p:
+            o, aux = moe_mod.moe_apply(p["moe"], cfg, h)
+            return x + o, aux
+        return x + mlp_apply(p["mlp"], h, cfg), zero
 
 
 def forward_hidden(params: Union[LMParams, Params], cfg: ModelConfig,
@@ -444,21 +447,22 @@ def chunked_cross_entropy(params: Union[LMParams, Params], cfg: ModelConfig,
     ignored), over ``cfg.chunked_loss_chunks`` sequence chunks (fewer
     where they do not divide S), each checkpointed when training, so one
     chunk's float32 logits (B, S / n, V) are live at a time."""
-    params = _tree(params)
-    B, S, _ = h.shape
-    n = cfg.chunked_loss_chunks
-    while S % n:
-        n -= 1
-    c = S // n
-    remat = _training(params, h)
-    tot = torch.zeros((), dtype=torch.float32, device=h.device)
-    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-    for j in range(0, S, c):
-        part, m = _remat(remat, _chunk_loss, params, cfg, h[:, j:j + c],
-                         targets[:, j:j + c])
-        tot = tot + part
-        cnt = cnt + m
-    return tot / torch.clamp(cnt, min=1.0)
+    with span(LOSS):
+        params = _tree(params)
+        B, S, _ = h.shape
+        n = cfg.chunked_loss_chunks
+        while S % n:
+            n -= 1
+        c = S // n
+        remat = _training(params, h)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+        for j in range(0, S, c):
+            part, m = _remat(remat, _chunk_loss, params, cfg, h[:, j:j + c],
+                             targets[:, j:j + c])
+            tot = tot + part
+            cnt = cnt + m
+        return tot / torch.clamp(cnt, min=1.0)
 
 
 def forward_train(params: Union[LMParams, Params], cfg: ModelConfig,
